@@ -4,23 +4,34 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``kepler_tpu_torch/ops/csrc``,
-holds each kernel against its plain PyTorch version on the card at the
-main path's shapes and times both, then drives the fleet window's main
-path through the port's entry points at the ``BASELINE.json`` north-star
-width (1024 nodes × 100 workloads × 4 RAPL zones):
+It builds the port's CUDA kernels from ``kepler_tpu_torch/ops/csrc`` (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version on the card at the main paths' shapes and times
+both, then drives the port's main paths through its entry points at the
+``BASELINE.json`` north-star width (1024 nodes × 100 workloads × 4 RAPL
+zones, buckets N = 1024, W = 256):
 
 1. a ratio fleet, wire-v2 keyframes then delta frames, through
    ``FusedWindowEngine(device="cuda", backend="pallas", fused_k=4)`` for
    8 intervals — kernel B2 once per interval;
 2. a 50/50 ratio/MLP fleet through ``PackedWindowEngine(device="cuda",
    backend="pallas", model_mode="mlp")`` for 4 windows — kernel B1 once
-   per window.
+   per window;
+3. the temporal fleet window (the aggregator's ``model: temporal``), a
+   50/50 ratio/temporal fleet with churn: per-node ``HistoryBuffer``s
+   accrete T = 16 ticks of features over 20 windows, the ``[N, W, T, F]``
+   windows go through ``make_temporal_fleet_program(device="cuda",
+   backend="pallas")`` and ``run_fleet_attribution`` — B1 once per
+   window, B3 never (the estimator's single-query fast path);
+4. the temporal model's full-sequence trunk on the same windows,
+   ``predict_temporal(..., attention_fn=pallas_attention_fn())`` (d_model
+   128, 4 heads of 32) — kernel B3 once per call over 262,144 sequences.
 
-Every published plane is checked against the same schedule through the
-port's engines on ``device="cpu"`` and for energy conservation. Each
-kernel's launch count is set to 0 just before its path runs and read
-just after. Every failed check raises, so the run exits non-zero.
+Every published plane and watts tensor is checked against the same
+schedule through the port on ``device="cpu"`` (a 32-node subset for the
+temporal model) and for energy conservation. Each kernel's launch count
+is set to 0 just before a path runs and read just after. Every failed
+check raises, so the run exits non-zero.
 
 Output: one JSON object per line; the card's name and power limit as
 ``nvidia-smi`` prints them on a line of their own; a ``{"kernels": …}``
@@ -47,6 +58,15 @@ FUSED_K = 4
 RATIO_INTERVALS = 8
 MIXED_WINDOWS = 4
 SEED = 20261016
+# temporal paths: history ticks (config default ``history_window``),
+# windows driven (histories go from empty to full), the node subset held
+# against the CPU, and the B3 shapes (path 4; the temporal-fleet
+# scenario's 256 × 64 sequences of T = 128)
+HISTORY_T = 16
+TEMPORAL_WINDOWS = 20
+CPU_NODES = 32
+B3_SHAPES = ((N_NODES * 256, 16), (256 * 64, 128))
+D_MODEL, N_HEADS = 128, 4
 
 
 def emit(obj: dict) -> None:
@@ -86,6 +106,23 @@ def time_ms(fn, reps: int = 25, batch: int = 20) -> float:
     return statistics.median(times)
 
 
+def kernel_times_us(prof) -> list[tuple[float, str, int]]:
+    """(device µs, name, count) of each device kernel a profile saw. Only
+    the kernels' own events count: an operator's self device time repeats
+    the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU:
+            continue
+        us = float(getattr(evt, "self_device_time_total",
+                           getattr(evt, "self_cuda_time_total", 0.0)))
+        if us > 0:
+            rows.append((us, evt.key, evt.count))
+    return sorted(rows, reverse=True)
+
+
 def device_ms(fn, calls: int = 20) -> float | None:
     """Device time of ``fn`` per call from ``torch.profiler``: the sum of
     the CUDA kernels' own time over ``calls`` calls, divided by ``calls``
@@ -99,10 +136,7 @@ def device_ms(fn, calls: int = 20) -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        total_us += float(getattr(evt, "self_device_time_total",
-                                  getattr(evt, "self_cuda_time_total", 0.0)))
+    total_us = sum(us for us, _, _ in kernel_times_us(prof))
     return total_us / calls / 1e3 if total_us > 0 else None
 
 
@@ -559,6 +593,490 @@ def main_mixed(dev: torch.device) -> dict:
     return row
 
 
+# -- kernel B3 and the temporal paths -----------------------------------------
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def b3_inputs(dev: torch.device, b: int, t: int):
+    """q, k, v [B, T, 4, 32] and a ragged causal-serving KV mask (right-
+    padded lengths 0..T, as history windows give)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + t)
+    shape = (b, t, N_HEADS, D_MODEL // N_HEADS)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    lengths = torch.randint(0, t + 1, (b,), generator=gen, device=dev)
+    valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    return q, k, v, valid
+
+
+def b3_check(got, want, v: torch.Tensor, cd: torch.dtype,
+             what: str) -> float:
+    """B3 against its plain version → max abs err over (pv, m, l).
+    f32 compute: rtol = atol = 1e-5 on all three. bf16 compute: m and l
+    rtol 1e-5 (atol 1e-5), pv within 1e-2 · max|v| (one bf16 rounding of
+    p may flip; the kernel sums in another order)."""
+    pv, m, l = got
+    pv_r, m_r, l_r = want
+    errs = [float((a - b).abs().max()) for a, b in ((pv, pv_r), (m, m_r),
+                                                    (l, l_r))]
+    check(torch.allclose(m, m_r, rtol=1e-5, atol=1e-5)
+          and torch.allclose(l, l_r, rtol=1e-5, atol=1e-5),
+          f"{what}: m/l off the plain version (errs {errs})")
+    if cd == torch.float32:
+        ok = torch.allclose(pv, pv_r, rtol=1e-5, atol=1e-5)
+    else:
+        ok = errs[0] <= 1e-2 * float(v.abs().max())
+    check(ok, f"{what}: pv off the plain version by {errs[0]}")
+    return max(errs)
+
+
+def sdpa_ms(q, k, v, valid) -> tuple[float | None, str | None]:
+    """``scaled_dot_product_attention`` on the same f32 inputs (causal
+    and KV-validity mask) — the yardstick for ``full_attention_pallas``;
+    the port never calls it. → (ms, None) or (None, why it did not run)."""
+    import torch.nn.functional as F
+
+    t = q.shape[1]
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    mask = valid[:, None, None, :] & causal
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), reps=5, batch=4), None
+    except RuntimeError as err:  # a yardstick only: record why
+        return None, str(err).splitlines()[0][:200]
+
+
+def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
+    """B3 against its plain version at ``b`` sequences of ``t`` ticks
+    (causal, ragged KV mask, bf16), timed beside the plain version and
+    SDPA; at path 4's shape also the block offsets and f32 compute."""
+    from kepler_tpu_torch.ops import cuda_attention as cat
+
+    q, k, v, valid = b3_inputs(dev, b, t)
+    got = cat.flash_block_pallas(q, k, v, valid, 0, 0)
+    want = cat.flash_block_ref(q, k, v, valid, 0, 0)
+    sync()
+    err = b3_check(got, want, v, torch.bfloat16, f"B3 at B={b}, T={t}")
+    del got, want
+    bound, by = cat.flash_block_bound_ms(q, k, valid, 0, 0)
+    g, hb = cat.flash_block_plan(b, t, t, N_HEADS, D_MODEL // N_HEADS)
+    kern = lambda: cat.flash_block_pallas(q, k, v, valid, 0, 0)  # noqa: E731
+    plain = lambda: cat.flash_block_ref(q, k, v, valid, 0, 0)  # noqa: E731
+    lib_ms, lib_err = sdpa_ms(q, k, v, valid)
+    row = {
+        "name": "flash_block", "route": "cuda",
+        "source": "kepler_tpu_torch/ops/csrc/attention.cu",
+        "replaces": "kepler_tpu/ops/pallas_attention.py:77",
+        "shape": {"B": b, "Tq": t, "Tk": t, "H": N_HEADS,
+                  "D": D_MODEL // N_HEADS, "causal": True,
+                  "compute": "bf16", "block": {"g": g, "hb": hb}},
+        "max_abs_err": err,
+        "ms": time_ms(kern, reps=5, batch=4),
+        "device_ms": device_ms(kern, calls=5),
+        "plain_ms": time_ms(plain, reps=3, batch=2),
+        "plain_device_ms": device_ms(plain, calls=2),
+        "library_ms": lib_ms, "library": "torch.nn.functional."
+        "scaled_dot_product_attention (f32, causal & KV mask)",
+        "bound_ms": bound, "bound_by": by,
+        "parity": "m, l rtol 1e-5; pv <= 1e-2 max|v| (bf16)",
+    }
+    if lib_err is not None:
+        row["library_error"] = lib_err
+    if t == HISTORY_T:
+        every = torch.ones_like(valid)
+        _, _, l_after = cat.flash_block_pallas(q, k, v, every, 0, t)
+        check(bool(torch.all(l_after == 0)),
+              "B3 with kv after q must mask everything (l == 0)")
+        got = cat.flash_block_pallas(q, k, v, every, t, 0)
+        check(bool(torch.all(got[2] > 0)),
+              "B3 with kv before q must mask nothing (l > 0)")
+        off_err = b3_check(got, cat.flash_block_ref(q, k, v, every, t, 0),
+                           v, torch.bfloat16, "B3 at offsets (16, 0)")
+        f32 = torch.float32
+        got = cat.flash_block_pallas(q, k, v, valid, 0, 0, compute_dtype=f32)
+        f32_err = b3_check(got, cat.flash_block_ref(
+            q, k, v, valid, 0, 0, compute_dtype=f32), v, f32, "B3 at f32")
+        row.update({"offsets_max_abs_err": off_err,
+                    "f32_max_abs_err": f32_err,
+                    "f32_ms": time_ms(lambda: cat.flash_block_pallas(
+                        q, k, v, valid, 0, 0, compute_dtype=f32),
+                        reps=5, batch=4)})
+        del got
+    emit({"phase": "kernel", **row})
+    del q, k, v, valid
+    torch.cuda.empty_cache()
+    return row
+
+
+def temporal_schedule() -> list[list]:
+    """Per window, the NodeReports of a 50/50 ratio/temporal fleet:
+    90-100 workloads a node, 0-3 of a node's workloads leave and as many
+    fresh ones join each window, and 16 nodes report no workload at
+    window 10 (their histories resume at window 11)."""
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL, NodeReport
+
+    rng = np.random.default_rng(SEED + 2)
+    ids = [[f"node-{i:04d}/w{j}"
+            for j in range(int(rng.integers(90, N_WORKLOADS + 1)))]
+           for i in range(N_NODES)]
+    fresh = 0
+    windows = []
+    for t in range(TEMPORAL_WINDOWS):
+        reports = []
+        for i in range(N_NODES):
+            if t:
+                for slot in rng.choice(len(ids[i]), int(rng.integers(0, 4)),
+                                       replace=False):
+                    fresh += 1
+                    ids[i][slot] = f"node-{i:04d}/x{fresh}"
+            live = [] if (t == 10 and i < 16) else list(ids[i])
+            cpu = rng.uniform(0.05, 5.0, len(live)).astype(np.float32)
+            reports.append(NodeReport(
+                node_name=f"node-{i:04d}",
+                zone_deltas_uj=rng.uniform(1e8, 1.5e9, len(ZONES)).astype(
+                    np.float32),
+                zone_valid=np.ones(len(ZONES), bool),
+                usage_ratio=float(rng.uniform(0.2, 0.95)), cpu_deltas=cpu,
+                workload_ids=live,
+                node_cpu_delta=float(cpu.sum(dtype=np.float32)), dt_s=5.0,
+                mode=MODE_MODEL if i % 2 else 0,
+                workload_kinds=np.full(len(live), 3, np.int8)))
+        windows.append(reports)
+    return windows
+
+
+class HistoryStore:
+    """The aggregator's per-node feature history: ``push`` is
+    ``Aggregator._push_history``, ``windows`` is ``_history_windows``."""
+
+    def __init__(self) -> None:
+        self.buffers: dict = {}
+
+    def push(self, report) -> None:
+        from kepler_tpu_torch.monitor.history import HistoryBuffer
+        from kepler_tpu_torch.resource.informer import FeatureBatch
+
+        buf = self.buffers.get(report.node_name)
+        if buf is None:
+            buf = self.buffers[report.node_name] = HistoryBuffer(
+                window=HISTORY_T)
+        buf.push(FeatureBatch(
+            kinds=report.workload_kinds, ids=list(report.workload_ids),
+            cpu_deltas=np.asarray(report.cpu_deltas, np.float32),
+            node_cpu_delta=float(report.node_cpu_delta),
+            usage_ratio=float(report.usage_ratio)), dt_s=float(report.dt_s))
+
+    def windows(self, batch) -> tuple[np.ndarray, np.ndarray]:
+        from kepler_tpu_torch.models.features import NUM_FEATURES
+
+        n, w = batch.cpu_deltas.shape
+        hist = np.zeros((n, w, HISTORY_T, NUM_FEATURES), np.float32)
+        tv = np.zeros((n, w, HISTORY_T), bool)
+        for i in range(batch.n_nodes):
+            ids = batch.workload_ids[i]
+            buf = self.buffers.get(batch.node_names[i])
+            if buf is None or not ids:
+                continue
+            f, v = buf.window_arrays(ids)
+            hist[i, :len(ids)] = f
+            tv[i, :len(ids)] = v
+        return hist, tv
+
+
+def temporal_params() -> dict:
+    """init_temporal at its default widths (d_model 128, 4 heads, t_max
+    128) from the seed, with a non-zero head (init zeroes it)."""
+    from kepler_tpu_torch.models.temporal import init_temporal
+
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_temporal(len(ZONES), generator=gen)
+    params["w_head"] = torch.randn(params["w_head"].shape,
+                                   generator=gen) * 0.05
+    params["w_skip"] = torch.randn(params["w_skip"].shape,
+                                   generator=gen) * 0.01
+    params["b_head"] = torch.full_like(params["b_head"], 0.5)
+    return params
+
+
+def node_subset(batch, n: int):
+    """The first ``n`` node rows of a FleetBatch."""
+    import dataclasses
+
+    arrays = {f.name: getattr(batch, f.name)[:n]
+              for f in dataclasses.fields(batch)
+              if isinstance(getattr(batch, f.name), (np.ndarray, list))}
+    return dataclasses.replace(batch, n_nodes=min(batch.n_nodes, n),
+                               **arrays)
+
+
+def bf16_close(a: np.ndarray, b: np.ndarray) -> bool:
+    """Model watts of a bf16 trunk on two devices: rtol 1e-2, atol 1e-2 ·
+    max|watts|. The trunk rounds its operands to bf16 after f32 sums, so
+    a one-ulp change of those sums (another summation order) moves a
+    prediction by up to ~0.5% of the largest one, whatever its own size."""
+    return bool(np.allclose(a, b, rtol=1e-2,
+                            atol=1e-2 * float(np.abs(b).max())))
+
+
+def host_result(res) -> list[np.ndarray]:
+    return [x.cpu().numpy() for x in res]
+
+
+def reset_launches() -> None:
+    from kepler_tpu_torch.ops import cuda_attention as cat
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+
+    for table in (ca.LAUNCHES, cat.LAUNCHES):
+        for name in table:
+            table[name] = 0
+
+
+def read_launches() -> dict:
+    from kepler_tpu_torch.ops import cuda_attention as cat
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+
+    return {**ca.LAUNCHES, **cat.LAUNCHES}
+
+
+def profile_top(fn, k: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` → device ms in all and
+    the ``k`` kernels with the most device time (self time, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    rows = kernel_times_us(prof)
+    return {"device_ms": sum(r[0] for r in rows) / 1e3,
+            "top": [{"kernel": key[:80], "ms": us / 1e3, "count": c}
+                    for us, key, c in rows[:k]]}
+
+
+def main_temporal_fleet(dev: torch.device) -> tuple[dict, list, dict, list]:
+    """Main path 3: the temporal fleet window, B1 in every window, B3
+    never. → (row, per-window (batch, feat_hist, t_valid), params,
+    per-window FleetResult on the host)."""
+    from kepler_tpu_torch.parallel import (assemble_fleet_batch,
+                                           make_temporal_fleet_program,
+                                           run_fleet_attribution)
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    t0 = time.perf_counter()
+    windows = temporal_schedule()
+    schedule_s = time.perf_counter() - t0
+    params = temporal_params()
+    program = make_temporal_fleet_program(device=dev, backend="pallas")
+    store = HistoryStore()
+    legs = {k: [] for k in ("push", "assemble", "upload", "program",
+                            "fetch")}
+    saved, outs = [], []
+    reset_launches()
+    for reports in windows:
+        t0 = time.perf_counter()
+        for report in reports:
+            store.push(report)
+        t1 = time.perf_counter()
+        batch = assemble_fleet_batch(reports, n_zones=len(ZONES),
+                                     node_bucket=N_NODES,
+                                     workload_bucket=256)
+        hist, tv = store.windows(batch)
+        t2 = time.perf_counter()
+        hist_d, tv_d = torch.from_numpy(hist).to(dev), torch.from_numpy(
+            tv).to(dev)
+        sync()
+        t3 = time.perf_counter()
+        res = run_fleet_attribution(program, batch, params, hist_d, tv_d)
+        sync()
+        t4 = time.perf_counter()
+        outs.append(host_result(res))
+        t5 = time.perf_counter()
+        for name, dt in zip(legs, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                   t5 - t4)):
+            legs[name].append(dt * 1e3)
+        saved.append((batch, hist, tv))
+        del hist_d, tv_d, res
+    launches = read_launches()
+    check(launches["outer_product_attribution"] == TEMPORAL_WINDOWS,
+          f"B1 launched {launches['outer_product_attribution']} times in "
+          f"{TEMPORAL_WINDOWS} temporal windows")
+    check(launches["flash_block"] == 0, "the temporal fleet path ran B3")
+    check(launches["fused_window_step"] == 0,
+          "the temporal fleet path ran B2")
+
+    # the same schedule: einsum backend on the card (ratio rows equal),
+    # and the plain versions on the CPU over a node subset
+    einsum = make_temporal_fleet_program(device=dev, backend="einsum")
+    on_cpu = make_temporal_fleet_program(device="cpu", backend="pallas")
+    worst = {"model_rel_vs_cpu": 0.0, "model_abs_vs_cpu_w": 0.0,
+             "conservation_rel": 0.0}
+    for t, ((batch, hist, tv), out) in enumerate(zip(saved, outs)):
+        model = batch.mode == MODE_MODEL
+        ratio = ~model
+        check(all(np.isfinite(x).all() for x in out),
+              f"window {t}: non-finite FleetResult")
+        ref = host_result(run_fleet_attribution(einsum, batch, params,
+                                                hist, tv))
+        check(all(np.array_equal(a[ratio], b[ratio])
+                  for a, b in zip(out, ref)),
+              f"window {t}: ratio rows differ from the einsum program")
+        wl_w = out[7] * 1e-6  # workload_power_uw → W
+        check(float(wl_w[model].max()) > 0.1,
+              f"window {t}: model rows are all ~zero")
+        live = ratio & (batch.node_cpu_delta > 0)
+        active = out[4][live].astype(np.float64)  # node_active_power_uw
+        summed = out[7][live].astype(np.float64).sum(axis=1)
+        rel = np.abs(summed - active) / np.maximum(np.abs(active), 1.0)
+        worst["conservation_rel"] = max(worst["conservation_rel"],
+                                        float(rel.max()))
+        check(float(rel.max()) <= 1e-4,
+              f"window {t}: Σ workload power ≠ node active power")
+        sub = node_subset(batch, CPU_NODES)
+        cpu = host_result(run_fleet_attribution(
+            on_cpu, sub, params, hist[:CPU_NODES], tv[:CPU_NODES]))
+        m = sub.mode == MODE_MODEL
+        a, b = out[7][:CPU_NODES][m] * 1e-6, cpu[7][m] * 1e-6
+        check(bf16_close(a, b), f"window {t}: model watts off the CPU "
+              f"program by {float(np.abs(a - b).max())} W")
+        worst["model_abs_vs_cpu_w"] = max(worst["model_abs_vs_cpu_w"],
+                                          float(np.abs(a - b).max()))
+        worst["model_rel_vs_cpu"] = max(worst["model_rel_vs_cpu"], float(
+            (np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max()))
+        check(np.allclose(out[7][:CPU_NODES][~m], cpu[7][~m], rtol=1e-6),
+              f"window {t}: ratio rows off the CPU program")
+
+    # accuracy mode (f32 compute) on the last window's node subset
+    batch, hist, tv = saved[-1]
+    sub = node_subset(batch, CPU_NODES)
+    acc = [host_result(run_fleet_attribution(
+        make_temporal_fleet_program(device=d, backend="pallas",
+                                    accuracy_mode=True),
+        sub, params, hist[:CPU_NODES], tv[:CPU_NODES]))[7]
+        for d in (dev, "cpu")]
+    check(np.allclose(acc[0], acc[1], rtol=1e-4, atol=10.0),
+          "accuracy-mode model watts off the CPU program (rtol 1e-4)")
+    worst["accuracy_abs_vs_cpu_w"] = float(np.abs(acc[0] - acc[1]).max()
+                                           * 1e-6)
+    worst["accuracy_rel_vs_cpu"] = float(
+        (np.abs(acc[0] - acc[1]) / np.maximum(np.abs(acc[1]), 1e3)).max())
+
+    hist_d, tv_d = (torch.from_numpy(x).to(dev) for x in (hist, tv))
+    prof = profile_top(lambda: run_fleet_attribution(program, batch, params,
+                                                     hist_d, tv_d))
+    del hist_d, tv_d
+    torch.cuda.empty_cache()
+    steady = slice(HISTORY_T, None)  # histories full from here on
+    row = {"phase": "main_temporal_fleet", "nodes": N_NODES,
+           "workloads": N_WORKLOADS, "zones": len(ZONES),
+           "history_t": HISTORY_T, "windows": TEMPORAL_WINDOWS,
+           "launches": launches, "worst": worst,
+           "schedule_s": schedule_s,
+           "leg_ms_per_window": {k: statistics.median(v[steady])
+                                 for k, v in legs.items()},
+           "leg_ms_window_0": {k: v[0] for k, v in legs.items()},
+           "feat_hist_mb": saved[-1][1].nbytes / 1e6,
+           "program_profile": prof}
+    emit(row)
+    return row, saved, params, outs
+
+
+def main_temporal_trunk(dev: torch.device, saved: list,
+                        params: dict, fleet_outs: list) -> dict:
+    """Main path 4: the full-sequence trunk through B3 on path 3's
+    windows, once per window."""
+    from kepler_tpu_torch.models.temporal import predict_temporal
+    from kepler_tpu_torch.ops.cuda_attention import pallas_attention_fn
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    params_d = {k: v.to(dev) for k, v in params.items()}
+    attention = pallas_attention_fn()
+
+    def inputs(batch, hist, tv, n=None):
+        sl = slice(None, n)
+        return (torch.from_numpy(hist[sl]).to(dev),
+                torch.from_numpy(batch.workload_valid[sl]).to(dev),
+                torch.from_numpy(tv[sl]).to(dev))
+
+    reset_launches()
+    call_ms, watts = [], []
+    for batch, hist, tv in saved:
+        h, wv, tv_d = inputs(batch, hist, tv)
+        sync()
+        t0 = time.perf_counter()
+        out = predict_temporal(params_d, h, wv, tv_d, attention_fn=attention)
+        sync()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        watts.append(out.cpu().numpy())
+        del h, wv, tv_d, out
+    launches = read_launches()
+    check(launches["flash_block"] == len(saved),
+          f"B3 launched {launches['flash_block']} times in {len(saved)} "
+          "trunk calls")
+    check(launches["outer_product_attribution"] == 0,
+          "the trunk path ran B1")
+
+    worst = {"vs_fast_path_abs_w": 0.0, "vs_cpu_abs_w": 0.0,
+             "vs_cpu_rel": 0.0}
+    for t, ((batch, hist, tv), w) in enumerate(zip(saved, watts)):
+        check(np.isfinite(w).all(), f"trunk window {t}: non-finite watts")
+        model = batch.mode == MODE_MODEL
+        fast = fleet_outs[t][7][model] * 1e-6
+        diff = float(np.abs(w[model] - fast).max())
+        # bf16 operands round at other places in the two paths (softmax
+        # probabilities vs B3's unnormalised p): 1e-2 · max|watts|
+        check(diff <= 1e-2 * float(np.abs(fast).max()),
+              f"trunk window {t}: {diff} W off the fast path")
+        worst["vs_fast_path_abs_w"] = max(worst["vs_fast_path_abs_w"], diff)
+    for t in (0, HISTORY_T // 2, len(saved) - 1):
+        batch, hist, tv = saved[t]
+        n = CPU_NODES
+        ref = predict_temporal(
+            params, torch.from_numpy(hist[:n]),
+            torch.from_numpy(batch.workload_valid[:n]),
+            torch.from_numpy(tv[:n]), attention_fn=pallas_attention_fn())
+        a, b = watts[t][:n], ref.numpy()
+        check(bf16_close(a, b), f"trunk window {t}: card off the plain "
+              f"version on the CPU by {float(np.abs(a - b).max())} W")
+        worst["vs_cpu_abs_w"] = max(worst["vs_cpu_abs_w"],
+                                    float(np.abs(a - b).max()))
+        worst["vs_cpu_rel"] = max(worst["vs_cpu_rel"], float(
+            (np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max()))
+    # f32: the full trunk through B3 equals the fast path (the JAX
+    # package's own equality, rtol 1e-4)
+    batch, hist, tv = saved[-1]
+    h, wv, tv_d = inputs(batch, hist, tv, CPU_NODES)
+    f32 = torch.float32
+    full = predict_temporal(params_d, h, wv, tv_d, compute_dtype=f32,
+                            attention_fn=pallas_attention_fn(
+                                compute_dtype=f32))
+    fast = predict_temporal(params_d, h, wv, tv_d, compute_dtype=f32)
+    check(torch.allclose(full, fast, rtol=1e-4, atol=1e-5),
+          "f32 full trunk through B3 differs from the fast path")
+    worst["f32_vs_fast_path_abs_w"] = float((full - fast).abs().max())
+    del h, wv, tv_d, full, fast
+
+    batch, hist, tv = saved[-1]
+    h, wv, tv_d = inputs(batch, hist, tv)
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_top(lambda: predict_temporal(params_d, h, wv, tv_d,
+                                                attention_fn=attention))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del h, wv, tv_d
+    torch.cuda.empty_cache()
+    row = {"phase": "main_temporal_trunk", "sequences": N_NODES * 256,
+           "history_t": HISTORY_T, "calls": len(saved),
+           "launches": launches, "worst": worst,
+           "call_ms_median": statistics.median(call_ms),
+           "call_ms_first": call_ms[0], "peak_memory_gb": peak_gb,
+           "profile": prof}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -580,25 +1098,39 @@ def main() -> int:
 
     b1 = kernel_b1(dev)
     b2_rows = {db: kernel_b2(dev, db) for db in (8, N_NODES)}
+    b3_rows = [kernel_b3(dev, b, t) for b, t in B3_SHAPES]
     ratio = main_ratio(dev)
     main_db = ratio["flushes"][-1]["db"]
     if main_db not in b2_rows:
         b2_rows[main_db] = kernel_b2(dev, main_db)
     mixed = main_mixed(dev)
+    fleet, saved, params, outs = main_temporal_fleet(dev)
+    trunk = main_temporal_trunk(dev, saved, params, outs)
 
-    b1["launches"] = mixed["launches"]["outer_product_attribution"]
+    b1["launches_by_path"] = {
+        "main_mixed": mixed["launches"]["outer_product_attribution"],
+        "main_temporal_fleet":
+            fleet["launches"]["outer_product_attribution"]}
+    b1["launches"] = sum(b1["launches_by_path"].values())
     b2 = dict(b2_rows[main_db])
     b2["launches"] = ratio["launches"]["fused_window_step"]
     b2["by_db"] = {str(db): {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "device_ms": r["device_ms"],
                              "bound_ms": r["bound_ms"]}
                    for db, r in sorted(b2_rows.items())}
+    b3 = dict(b3_rows[0])
+    b3["launches"] = trunk["launches"]["flash_block"]
+    b3["by_shape"] = {f"B{r['shape']['B']}_T{r['shape']['Tq']}": {
+        k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "max_abs_err")}
+        for r in b3_rows}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "device_ms", "plain_device_ms", "shape", "by_db")
+            "library_ms", "device_ms", "plain_device_ms", "shape", "by_db",
+            "by_shape", "launches_by_path")
     print(smi, flush=True)
     emit({"kernels": [{k: row[k] for k in keys if k in row}
-                      for row in (b1, b2)]})
+                      for row in (b1, b2, b3)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,14 @@
 """Estimator registry: the power backends behind one interface.
 
 Modes, as in ``kepler_tpu.models.estimator``:
-  "ratio"  — RAPL proportional attribution (no learned parameters)
-  "linear" — linear regression from features
-  "mlp"    — MLP from features
-"temporal", "moe" and "deep" are not ported yet: asking for them raises.
+  "ratio"    — RAPL proportional attribution (no learned parameters)
+  "linear"   — linear regression from features
+  "mlp"      — MLP from features
+  "temporal" — causal attention over feature HISTORY windows
+               ([.., W, T, F]; served by ``models.temporal.predict_temporal``
+               or ``parallel.make_temporal_fleet_program`` fed by
+               ``monitor.HistoryBuffer``, not by :func:`predictor`)
+"moe" and "deep" are not ported yet: asking for them raises.
 
 Parameters are plain ``dict[str, Tensor]`` with the JAX package's keys, so
 its ``.npz`` parameter files (``save_params``) load here as they are and
@@ -22,16 +26,22 @@ from torch import nn
 from kepler_tpu_torch.models.linear import (LinearEstimator, init_linear,
                                             predict_linear)
 from kepler_tpu_torch.models.mlp import MLPEstimator, init_mlp, predict_mlp
+from kepler_tpu_torch.models.temporal import TemporalEstimator, init_temporal
 
 RATIO = "ratio"
 LINEAR = "linear"
 MLP = "mlp"
-NOT_PORTED = ("temporal", "moe", "deep")
+TEMPORAL = "temporal"
+NOT_PORTED = ("moe", "deep")
 
+# single-tick predictors: (params, features [.., W, F], workload_valid) →
+# watts. TEMPORAL consumes [.., W, T, F] history windows and is not here.
 _PREDICTORS: dict[str, Callable] = {LINEAR: predict_linear, MLP: predict_mlp}
-_INITIALIZERS: dict[str, Callable] = {LINEAR: init_linear, MLP: init_mlp}
+_INITIALIZERS: dict[str, Callable] = {LINEAR: init_linear, MLP: init_mlp,
+                                      TEMPORAL: init_temporal}
 _MODULES: dict[str, type[nn.Module]] = {LINEAR: LinearEstimator,
-                                        MLP: MLPEstimator}
+                                        MLP: MLPEstimator,
+                                        TEMPORAL: TemporalEstimator}
 
 
 def _learned(mode: str, table: Mapping[str, Any]) -> Any:
@@ -52,6 +62,13 @@ def predictor(mode: str) -> Callable | None:
     mode; None for RATIO (no model to run)."""
     if mode == RATIO:
         return None
+    if mode == TEMPORAL:
+        raise ValueError(
+            "the temporal estimator needs [.., W, T, F] history windows, "
+            "not single-tick features — serve it via "
+            "models.temporal.predict_temporal (or "
+            "parallel.make_temporal_fleet_program) fed by "
+            "monitor.HistoryBuffer")
     return _learned(mode, _PREDICTORS)
 
 
@@ -70,7 +87,7 @@ def params_from_numpy(mode: str, params: Mapping[str, Any],
                       ) -> dict[str, torch.Tensor]:
     """The JAX package's params (numpy arrays, or anything ``np.asarray``
     takes) → the port's f32 tensors on ``device``, keyed the same."""
-    _learned(mode, _PREDICTORS)  # reject ratio / unported modes
+    _learned(mode, _INITIALIZERS)  # reject ratio / unported modes
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for k, v in params.items()}
 

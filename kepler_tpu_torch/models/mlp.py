@@ -10,22 +10,14 @@ default.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from kepler_tpu_torch.models.features import NUM_FEATURES
+from kepler_tpu_torch.models.nn import glorot
 
 PARAM_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "w_skip")
-
-
-def _glorot(shape: tuple[int, int],
-            generator: torch.Generator | None) -> torch.Tensor:
-    scale = math.sqrt(2.0 / (shape[0] + shape[1]))
-    return torch.randn(shape, generator=generator,
-                       dtype=torch.float32) * scale
 
 
 def init_mlp(n_zones: int, hidden: int = 128,
@@ -36,9 +28,9 @@ def init_mlp(n_zones: int, hidden: int = 128,
     (the JAX initialiser's shapes and scales; its random bits differ)."""
     z32 = torch.float32
     params = {
-        "w0": _glorot((n_features, hidden), generator),
+        "w0": glorot((n_features, hidden), generator),
         "b0": torch.zeros(hidden, dtype=z32),
-        "w1": _glorot((hidden, hidden), generator),
+        "w1": glorot((hidden, hidden), generator),
         "b1": torch.zeros(hidden, dtype=z32),
         "w2": torch.zeros((hidden, n_zones), dtype=z32),
         "b2": torch.zeros(n_zones, dtype=z32),

@@ -6,11 +6,12 @@ with a plain C interface, loaded with :mod:`ctypes`. The library lands in
 source and the flags, so an edited source rebuilds and an unchanged one
 loads the library already built. Nothing here runs at import: the first
 launch of a kernel builds it (``load``), and :func:`build_all` builds every
-source up front.
+source up front, one ``nvcc`` per source, all started together.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math`` or
-``-ftz=true`` — the kernels keep IEEE division and denormals so their
-results match the plain PyTorch versions bit for bit.
+``-ftz=true`` — the kernels keep IEEE division, ``expf`` and denormals,
+so B1 and B2 match their plain PyTorch versions bit for bit and B3 differs
+from its plain version only in summation order.
 """
 
 from __future__ import annotations
@@ -60,27 +61,54 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    → the library's path. Raises with nvcc's output when it fails."""
+def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+    """Start nvcc on ``csrc/<name>.cu`` unless its library is built →
+    (library, temporary output, process); nvcc's messages go to the
+    temporary output's ``.log``."""
     out = library_path(name)
     if out.exists():
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
+    with open(tmp.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    return out, tmp, proc
+
+
+def _finish(name: str, started: tuple[Path, Path, subprocess.Popen]) -> Path:
+    """Wait for a started nvcc → the library; raises with nvcc's output
+    when it failed."""
+    out, tmp, proc = started
+    rc = proc.wait()
+    log = tmp.with_suffix(".log")
+    messages = log.read_text()
+    log.unlink()
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(rc {proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (rc {rc}):\n{messages}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     return out
 
 
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    → the library's path. Raises with nvcc's output when it fails."""
+    started = _start(name)
+    return library_path(name) if started is None else _finish(name, started)
+
+
 def build_all() -> dict[str, Path]:
-    """Build every source in ``csrc`` → name → library."""
-    return {name: build(name) for name in sources()}
+    """Build every source in ``csrc``, one nvcc per source, all started
+    together → name → library. Every nvcc has ended before a failure is
+    raised."""
+    started = {name: _start(name) for name in sources()}
+    for job in started.values():
+        if job is not None:
+            job[2].wait()
+    return {name: library_path(name) if job is None else _finish(name, job)
+            for name, job in started.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -108,10 +108,12 @@ def fused_window_step_cost(n: int, db: int, w: int, z: int,
     return nbytes, ops
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    """Least time an H100 SXM could take → (ms, "bytes" | "operations")."""
+def bound_ms(nbytes: int, ops: int,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least time an H100 SXM could take → (ms, "bytes" | "operations");
+    ``ops_per_s`` is the peak rate for the operations' type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -1,4 +1,4 @@
-"""Kernels B1 and B2 on the card, against their plain versions there.
+"""Kernels B1, B2 and B3 on the card, against their plain versions there.
 
 These tests need an NVIDIA card and the CUDA toolkit: they build
 ``kepler_tpu_torch/ops/csrc`` at first launch and skip elsewhere. They
@@ -9,7 +9,10 @@ import no JAX, so they run on a machine without it:
 B1 must equal its plain version exactly; B2's resident block must equal
 it exactly and its f16 plane within one f16 ulp (none is expected: the
 kernel runs the plain version's f32 operations in the same order, with
-IEEE division and round-to-nearest conversion).
+IEEE division and round-to-nearest conversion). B3 differs from its
+plain version only in summation order: at f32 compute within rtol = atol
+= 1e-5; at bf16 compute ``m`` and ``l`` within rtol 1e-5 and ``pv`` within
+1e-2 · max|v| (one bf16 rounding of ``p`` may flip).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from kepler_tpu_torch.ops import cuda_attention as cat
 from kepler_tpu_torch.ops import cuda_attribution as ca
 from kepler_tpu_torch.parallel.packed import PackedLayout
 
@@ -40,8 +44,6 @@ def outer_inputs(seed: int, n: int, w: int, z: int):
     active = rng.uniform(0.0, 5e8, (n, z)).astype(np.float32)
     power = rng.uniform(0.0, 1e8, (n, z)).astype(np.float32)
     return ratio, active, power
-
-
 
 
 def window_inputs(seed: int, n: int, w: int, z: int, db: int):
@@ -129,3 +131,90 @@ def test_wrapper_checks_dtype_and_contiguity(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ca.outer_product_attribution(ratio.t().contiguous().t(), zones,
                                      zones)
+
+
+def attention_inputs(seed: int, b: int, tq: int, tk: int, h: int, d: int,
+                     device: torch.device):
+    """q, k, v [B, T, H, D] and a ragged KV-validity mask with one fully
+    masked sequence."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, t, h, d)).astype(
+        np.float32)).to(device) for t in (tq, tk, tk))
+    lengths = rng.integers(0, tk + 1, b)
+    lengths[0] = 0
+    valid = torch.from_numpy(np.arange(tk)[None, :] < lengths[:, None])
+    return q, k, v, valid.to(device)
+
+
+def assert_b3_close(got, want, v: torch.Tensor, cd: torch.dtype) -> None:
+    pv, m, l = (t.cpu().numpy() for t in got)
+    pv_r, m_r, l_r = (t.cpu().numpy() for t in want)
+    np.testing.assert_allclose(m, m_r, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l, l_r, rtol=1e-5, atol=1e-5)
+    if cd == torch.float32:
+        np.testing.assert_allclose(pv, pv_r, rtol=1e-5, atol=1e-5)
+    else:
+        atol = 1e-2 * float(v.abs().max())
+        np.testing.assert_allclose(pv, pv_r, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d", [(1, 1, 1, 1, 8), (7, 16, 16, 4, 32),
+                                         (5, 9, 13, 4, 16), (3, 128, 128, 4, 32),
+                                         (4, 32, 20, 2, 64), (300, 16, 16, 4, 32)])
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_block_kernel_matches_plain(cuda_device, b, tq, tk, h, d, cd,
+                                          causal):
+    q, k, v, valid = attention_inputs(b + tq + d, b, tq, tk, h, d,
+                                      cuda_device)
+    before = cat.LAUNCHES["flash_block"]
+    got = cat.flash_block_pallas(q, k, v, valid, 0, 0, causal=causal,
+                                 compute_dtype=cd)
+    want = cat.flash_block_ref(q, k, v, valid, 0, 0, causal=causal,
+                               compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert cat.LAUNCHES["flash_block"] == before + 1
+    assert_b3_close(got, want, v, cd)
+    # the fully masked sequence: m = -1e30, l = 0, pv = 0
+    assert torch.all(got[1][0] == -1e30) and torch.all(got[2][0] == 0)
+    assert torch.all(got[0][0] == 0)
+
+
+@pytest.mark.cuda
+def test_flash_block_kernel_offsets_and_strides(cuda_device):
+    """Block offsets move the causal mask (kv after q: all masked; kv
+    before q: nothing masked), and q/k/v views with other strides (the
+    unvectorised load path) give the same partials."""
+    q, k, v, _ = attention_inputs(1, 6, 16, 16, 4, 32, cuda_device)
+    valid = torch.ones((6, 16), dtype=torch.bool, device=cuda_device)
+    _, _, l = cat.flash_block_pallas(q, k, v, valid, 0, 16)
+    assert torch.all(l == 0)
+    got = cat.flash_block_pallas(q, k, v, valid, 16, 0,
+                                 compute_dtype=torch.float32)
+    assert torch.all(got[2] > 0)
+    assert_b3_close(got, cat.flash_block_ref(
+        q, k, v, valid, 16, 0, compute_dtype=torch.float32), v,
+        torch.float32)
+    wide = torch.randn((6, 16, 5, 33), device=cuda_device)
+    qs = wide[:, :, :4, 1:]  # strides not multiples of 4 floats
+    got = cat.flash_block_pallas(qs, k, v, valid, 0, 0,
+                                 compute_dtype=torch.float32)
+    want = cat.flash_block_ref(qs, k, v, valid, 0, 0,
+                               compute_dtype=torch.float32)
+    assert_b3_close(got, want, v, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_block_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    q = torch.randn((2, 8, 2, 12), device=cuda_device)
+    valid = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        cat.flash_block_pallas(q, q, q, valid, 0, 0)
+    q = torch.randn((2, 8, 2, 32), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        cat.flash_block_pallas(q.double(), q, q, valid, 0, 0)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        cat.flash_block_pallas(q, q, q, valid, 0, 0,
+                               compute_dtype=torch.float16)

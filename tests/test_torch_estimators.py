@@ -130,7 +130,15 @@ def test_mlp_gelu_is_tanh_and_f32():
 
 def test_registry_modes():
     assert port_est.predictor("ratio") is None
-    for mode in ("temporal", "moe", "deep"):
+    # temporal is ported but has no single-tick predictor, as in JAX
+    with pytest.raises(ValueError, match="history windows") as port_err:
+        port_est.predictor("temporal")
+    with pytest.raises(ValueError, match="history windows") as jax_err:
+        jest.predictor("temporal")
+    assert str(port_err.value) == str(jax_err.value).replace(
+        "make_temporal_program", "make_temporal_fleet_program")
+    assert port_est.initializer("temporal") is not None
+    for mode in ("moe", "deep"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             port_est.predictor(mode)
         with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -34,6 +34,8 @@ import torch
 if not torch.cuda.is_available():
     from kepler_tpu_torch.fleet.window import (FusedWindowEngine,
                                                PackedWindowEngine)
+    from kepler_tpu_torch.parallel.aggregator_core import (
+        make_fleet_program, make_temporal_fleet_program)
     from kepler_tpu_torch.parallel.packed import (
         make_fused_window_program, make_packed_fleet_program)
     for label, build in [
@@ -42,7 +44,10 @@ if not torch.cuda.is_available():
             ("make_packed_fleet_program",
              lambda: make_packed_fleet_program(8, 2)),
             ("make_fused_window_program",
-             lambda: make_fused_window_program(8, 2, backend="pallas"))]:
+             lambda: make_fused_window_program(8, 2, backend="pallas")),
+            ("make_fleet_program", lambda: make_fleet_program()),
+            ("make_temporal_fleet_program",
+             lambda: make_temporal_fleet_program(backend="pallas"))]:
         try:
             build()
             raised[label] = None
@@ -72,6 +77,7 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
     assert expected <= set(out["modules"])
     assert out["leaked"] == []
     if not out["cuda"]:
+        assert len(out["raised"]) == 6
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
 

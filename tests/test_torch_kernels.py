@@ -10,7 +10,8 @@ the f16 plane with zero mismatches (the bar allows one f16 ulp; none is
 seen, because both sides run the same f32 operations in the same order).
 
 The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
-compares them with the plain versions there.
+compares them with the plain versions there. Their build step
+(``ops/build.py``) is checked here with a stand-in ``nvcc``.
 """
 
 from __future__ import annotations
@@ -114,3 +115,50 @@ def test_cost_model_byte_counts():
     assert nbytes - padded == 4 * 2 * 8 * width
     ms, by = ca.bound_ms(*ca.outer_product_cost(1024, 256, 4))
     assert by == "bytes" and 2e-3 < ms < 4e-3
+
+
+FAKE_NVCC = """#!/bin/sh
+# stand-in nvcc: attention.cu waits until attribution.cu's build has
+# started, so it ends only if the two run at once
+src=""; out=""
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift;; *.cu) src="$1";; esac; shift
+done
+dir=$(dirname "$out")
+case "$src" in
+  *attribution.cu) touch "$dir/attribution.started";;
+  *attention.cu)
+    i=0
+    while [ ! -e "$dir/attribution.started" ]; do
+      i=$((i + 1)); [ $i -gt 100 ] && { echo "ran alone"; exit 1; }
+      sleep 0.1
+    done
+    [ -n "$FAIL_ATTENTION" ] && { echo "error: boom"; exit 3; };;
+esac
+echo fake > "$out"
+"""
+
+
+def test_build_all_runs_one_nvcc_per_source_at_once(tmp_path, monkeypatch):
+    from kepler_tpu_torch.ops import build
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "ok")
+    libs = build.build_all()
+    assert set(libs) == set(build.sources()) == {"attention", "attribution"}
+    assert all(path.exists() and path.parent == tmp_path / "ok"
+               for path in libs.values())
+    assert build.build_all() == libs  # built: nothing runs again
+
+    # a failing source raises with nvcc's messages, after every nvcc ended
+    monkeypatch.setenv("FAIL_ATTENTION", "1")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "failing")
+    with pytest.raises(RuntimeError,
+                       match=r"attention\.cu \(rc 3\):\nerror: boom"):
+        build.build_all()
+    leftover = {p.suffix for p in (tmp_path / "failing").iterdir()}
+    assert ".tmp" in leftover  # attribution's nvcc ran to its end
