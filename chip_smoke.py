@@ -13,7 +13,7 @@ zones, buckets N = 1024, W = 256):
 
 1. a ratio fleet, wire-v2 keyframes then delta frames, through
    ``FusedWindowEngine(device="cuda", backend="pallas", fused_k=4)`` for
-   8 intervals — kernel B2 once per interval;
+   8 intervals — kernel B2 once per flush of K = 4 intervals;
 2. a 50/50 ratio/MLP fleet through ``PackedWindowEngine(device="cuda",
    backend="pallas", model_mode="mlp")`` for 4 windows — kernel B1 once
    per window;
@@ -25,7 +25,14 @@ zones, buckets N = 1024, W = 256):
    window, B3 never (the estimator's single-query fast path);
 4. the temporal model's full-sequence trunk on the same windows,
    ``predict_temporal(..., attention_fn=pallas_attention_fn())`` (d_model
-   128, 4 heads of 32) — kernel B3 once per call over 262,144 sequences.
+   128, 4 heads of 32) — kernel B3 once per call over 262,144 sequences,
+   every launch its tensor-core variant.
+
+Beside them, the serial rung's MLP program (``make_fleet_program(
+model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
+and B2 and B3 are timed in each of their forms: B2 per window (K = 1)
+and per flush (K = 4, one launch), B3's tensor-core variant against its
+SIMT variant at bf16 and f32.
 
 Every published plane and watts tensor is checked against the same
 schedule through the port on ``device="cpu"`` (a 32-node subset for the
@@ -123,21 +130,27 @@ def kernel_times_us(prof) -> list[tuple[float, str, int]]:
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, calls: int = 20) -> float | None:
+def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
     """Device time of ``fn`` per call from ``torch.profiler``: the sum of
     the CUDA kernels' own time over ``calls`` calls, divided by ``calls``
-    (no host time, no gaps). None when the profiler saw no device time."""
+    (no host time, no gaps). A trace is whole when it holds every kernel
+    a multiple of ``calls`` times (each call launches the same kernels);
+    one that dropped events is taken again, up to ``tries`` times. None
+    when no trace was whole."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for us, _, _ in kernel_times_us(prof))
-    return total_us / calls / 1e3 if total_us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_times_us(prof)
+        if rows and all(count % calls == 0 for _, _, count in rows):
+            return sum(us for us, _, _ in rows) / calls / 1e3
+    return None
 
 
 def provenance() -> str:
@@ -199,10 +212,11 @@ def kernel_b1(dev: torch.device) -> dict:
     return row
 
 
-def b2_inputs(dev: torch.device, n: int, w: int, z: int, db: int):
+def b2_inputs(dev: torch.device, n: int, w: int, z: int, db: int,
+              seed: int | None = None):
     from kepler_tpu_torch.parallel.packed import PackedLayout
 
-    rng = np.random.default_rng(SEED + db)
+    rng = np.random.default_rng(SEED + db if seed is None else seed)
     lay = PackedLayout(w, z)
 
     def rows(k: int) -> np.ndarray:
@@ -269,6 +283,65 @@ def kernel_b2(dev: torch.device, db: int) -> dict:
         "bytes": nbytes, "parity": "resident exact, plane <= 1 f16 ulp",
     }
     emit({"phase": "kernel", **row})
+    return row
+
+
+def flush_inputs(dev: torch.device, n: int, w: int, z: int, k: int,
+                 db: int):
+    """A resident block and K steps of ``db`` delta rows (as ``b2_inputs``
+    draws them, one seed a step), row 7 hit in steps 0 and 1."""
+    resident, _, _, lay = b2_inputs(dev, n, w, z, db)
+    steps = [b2_inputs(dev, n, w, z, db, seed=SEED + db + 1000 * (s + 1))
+             for s in range(k)]
+    delta = torch.stack([d for _, d, _, _ in steps])
+    idx = torch.stack([i for _, _, i, _ in steps])
+    if db > 1 and k > 1:
+        for s in range(2):
+            idx[s][idx[s] == 7] = n
+            idx[s, s] = 7
+    return resident, delta.contiguous(), idx.contiguous(), lay
+
+
+def kernel_b2_flush(dev: torch.device, k: int, db: int) -> dict:
+    """B2 over a whole flush (K steps, one launch) at N=1024, W=256, Z=4:
+    resident' exact and 0 f16 mismatches against K plain steps."""
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+
+    n, w, z = N_NODES, 256, len(ZONES)
+    resident, delta, idx, lay = flush_inputs(dev, n, w, z, k, db)
+    r_kernel, r_plain = resident.clone(), resident.clone()
+    _, planes = ca.fused_window_steps(r_kernel, delta, idx, lay)
+    _, planes_ref = ca.fused_window_steps_ref(r_plain, delta, idx, lay)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.nan_to_num(r_kernel, nan=-1.0),
+                      torch.nan_to_num(r_plain, nan=-1.0))
+          and torch.equal(torch.isnan(r_kernel), torch.isnan(r_plain)),
+          f"B2 resident' differs from K={k} plain steps at DB={db}")
+    a, b = planes.cpu().numpy(), planes_ref.cpu().numpy()
+    ulps = f16_ulps(a, b)
+    check(int((ulps > 0).sum()) == 0,
+          f"B2 planes: {int((ulps > 0).sum())} f16 mismatches at K={k}")
+    err = float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max())
+    live = idx[(idx >= 0) & (idx < n)]
+    hits, dirty = int(live.numel()), int(torch.unique(live).numel())
+    nbytes, ops = ca.fused_window_steps_cost(n, db, w, z, k, hits, dirty)
+    bound, by = ca.bound_ms(nbytes, ops)
+    kern = lambda: ca.fused_window_steps(resident, delta, idx, lay)  # noqa: E731
+    plain = lambda: ca.fused_window_steps_ref(resident, delta, idx, lay)  # noqa: E731
+    row = {
+        "name": "fused_window_step", "route": "cuda",
+        "source": "kepler_tpu_torch/ops/csrc/attribution.cu",
+        "replaces": "kepler_tpu/ops/pallas_attribution.py:163",
+        "shape": {"N": n, "W": w, "Z": z, "DB": db, "K": k, "hits": hits,
+                  "dirty": dirty},
+        "max_abs_err": err, "ulp_mismatches": int((ulps > 0).sum()),
+        "ms": time_ms(kern), "device_ms": device_ms(kern),
+        "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain),
+        "library_ms": None,
+        "bound_ms": bound, "bound_by": by, "bound_us": bound * 1e3,
+        "bytes": nbytes, "parity": "resident exact, 0 f16 mismatches",
+    }
+    emit({"phase": "kernel_flush", **row})
     return row
 
 
@@ -388,7 +461,7 @@ def run_fused(eng, windows: list, on_flush=None,
               legs: dict | None = None) -> tuple[list, list]:
     """Stage every interval, dispatch and fetch every flush. ``legs``
     accumulates host-clock seconds per leg: ``stage`` (host bookkeeping
-    and packing) and ``flush`` (upload, K launches, one fetch)."""
+    and packing) and ``flush`` (upload, one launch, one fetch)."""
     from kepler_tpu_torch.fleet.window import fetch_plane
 
     legs = {} if legs is None else legs
@@ -434,7 +507,8 @@ def check_conservation(plane: np.ndarray, meta, reports: dict) -> float:
 
 
 def main_ratio(dev: torch.device) -> dict:
-    """Main path 1: ratio fleet through the fused engine, B2 per interval."""
+    """Main path 1: ratio fleet through the fused engine, B2 once per
+    flush."""
     from kepler_tpu_torch.fleet.window import FusedWindowEngine
     from kepler_tpu_torch.ops import cuda_attribution as ca
 
@@ -451,7 +525,7 @@ def main_ratio(dev: torch.device) -> dict:
     def on_flush(flush) -> None:
         launched = ca.LAUNCHES["fused_window_step"] - sum(
             f["launches"] for f in flushes)
-        check(launched == flush.k,
+        check(launched == 1,
               f"B2 launched {launched} times in a flush of K={flush.k}")
         flushes.append({"launches": launched, "k_live": flush.k_live,
                         "h2d_rows": flush.h2d_rows,
@@ -467,8 +541,8 @@ def main_ratio(dev: torch.device) -> dict:
     launches = dict(ca.LAUNCHES)
 
     check(len(planes) == RATIO_INTERVALS, "not every interval published")
-    check(launches["fused_window_step"] == FUSED_K * len(flushes),
-          "B2 launches do not match K per flush")
+    check(launches["fused_window_step"] == len(flushes),
+          "B2 launches do not match one per flush")
     check(launches["outer_product_attribution"] == 0,
           "the ratio fleet path launched B1")
     worst_ulp, worst_cons = 0, 0.0
@@ -593,6 +667,53 @@ def main_mixed(dev: torch.device) -> dict:
     return row
 
 
+def main_serial_mlp(dev: torch.device) -> dict:
+    """The serial rung's single-tick program with the MLP
+    (``make_fleet_program(model_mode="mlp")``) on the card against the
+    CPU: the default bf16 trunk within rtol 1e-2 and atol 1e-2 ·
+    max|watts|, accuracy mode (f32) within rtol 1e-4; ratio rows equal."""
+    from kepler_tpu_torch.models.mlp import init_mlp
+    from kepler_tpu_torch.parallel import (assemble_fleet_batch,
+                                           make_fleet_program,
+                                           run_fleet_attribution)
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    params = init_mlp(len(ZONES), generator=gen)
+    params["w2"] = torch.randn(params["w2"].shape, generator=gen) * 0.05
+    params["w_skip"] = torch.randn(params["w_skip"].shape,
+                                   generator=gen) * 0.01
+    params["b2"] = torch.full_like(params["b2"], 0.5)
+    rng = np.random.default_rng(SEED + 3)
+    agents = [Agent(f"node-{i:04d}", rng, mode=MODE_MODEL if i % 2 else 0)
+              for i in range(CPU_NODES)]
+    ingest = Ingest()
+    for a in agents:
+        ingest.receive(a.frame())
+    batch = assemble_fleet_batch(
+        [r.report for r in ingest.rows([a.name for a in agents])],
+        n_zones=len(ZONES), node_bucket=CPU_NODES, workload_bucket=256)
+    model = batch.mode == MODE_MODEL
+    row = {"phase": "main_serial_mlp", "nodes": CPU_NODES}
+    for accuracy in (False, True):
+        out = [host_result(run_fleet_attribution(
+            make_fleet_program(device=d, model_mode="mlp", backend="pallas",
+                               accuracy_mode=accuracy), batch, params))[7]
+            for d in (dev, "cpu")]
+        a, b = out[0][model] * 1e-6, out[1][model] * 1e-6
+        ok = (np.allclose(a, b, rtol=1e-4, atol=1e-6) if accuracy
+              else bf16_close(a, b))
+        what = "f32" if accuracy else "bf16"
+        check(ok and float(np.abs(b).max()) > 0.1,
+              f"serial-rung MLP ({what}) off the CPU by "
+              f"{float(np.abs(a - b).max())} W")
+        check(np.array_equal(out[0][~model], out[1][~model]),
+              f"serial-rung ratio rows ({what}) differ from the CPU")
+        row[f"{what}_max_abs_w"] = float(np.abs(a - b).max())
+    emit(row)
+    return row
+
+
 # -- kernel B3 and the temporal paths -----------------------------------------
 
 def sync() -> None:
@@ -650,38 +771,80 @@ def sdpa_ms(q, k, v, valid) -> tuple[float | None, str | None]:
         return None, str(err).splitlines()[0][:200]
 
 
+def b3_variant_since(before: dict) -> str:
+    """The B3 variant of the one launch made since ``before``."""
+    now = read_launches()
+    grew = [v for v in ("tc", "simt")
+            if now[f"flash_block_{v}"] == before[f"flash_block_{v}"] + 1]
+    check(now["flash_block"] == before["flash_block"] + 1 and len(grew) == 1,
+          "B3 did not launch exactly once")
+    return grew[0]
+
+
 def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
     """B3 against its plain version at ``b`` sequences of ``t`` ticks
-    (causal, ragged KV mask, bf16), timed beside the plain version and
-    SDPA; at path 4's shape also the block offsets and f32 compute."""
+    (causal, ragged KV mask): the tensor-core variant (bf16, what the
+    wrapper selects for the trunk), the SIMT variant at bf16 (PR 2's
+    kernel, through its plan) and at f32 (what the wrapper selects in
+    accuracy mode), timed beside the plain version and SDPA; at path 4's
+    shape also the block offsets."""
     from kepler_tpu_torch.ops import cuda_attention as cat
 
+    bf16, f32 = torch.bfloat16, torch.float32
+    d = D_MODEL // N_HEADS
     q, k, v, valid = b3_inputs(dev, b, t)
+    plan = cat.flash_block_plan(b, t, t, N_HEADS, d)
+    check(plan.variant == "tc", f"B3 at T={t} does not plan tensor cores")
+    before = read_launches()
     got = cat.flash_block_pallas(q, k, v, valid, 0, 0)
+    check(b3_variant_since(before) == "tc",
+          f"B3 at T={t}, bf16 did not launch the tensor-core variant")
     want = cat.flash_block_ref(q, k, v, valid, 0, 0)
     sync()
-    err = b3_check(got, want, v, torch.bfloat16, f"B3 at B={b}, T={t}")
+    err = b3_check(got, want, v, bf16, f"B3 (tc) at B={b}, T={t}")
+    simt = cat.simt_plan(b, t, t, N_HEADS, d)
+    simt_bf16 = lambda: cat.flash_block_launch(  # noqa: E731
+        simt, q, k, v, valid, 0, 0)
+    got = simt_bf16()
+    simt_err = b3_check(got, want, v, bf16, f"B3 (simt) at B={b}, T={t}")
     del got, want
+    before = read_launches()
+    got = cat.flash_block_pallas(q, k, v, valid, 0, 0, compute_dtype=f32)
+    check(b3_variant_since(before) == "simt",
+          f"B3 at T={t}, f32 did not launch the SIMT variant")
+    f32_err = b3_check(got, cat.flash_block_ref(
+        q, k, v, valid, 0, 0, compute_dtype=f32), v, f32,
+        f"B3 (simt) at f32, T={t}")
+    del got
     bound, by = cat.flash_block_bound_ms(q, k, valid, 0, 0)
-    g, hb = cat.flash_block_plan(b, t, t, N_HEADS, D_MODEL // N_HEADS)
     kern = lambda: cat.flash_block_pallas(q, k, v, valid, 0, 0)  # noqa: E731
+    acc = lambda: cat.flash_block_pallas(  # noqa: E731
+        q, k, v, valid, 0, 0, compute_dtype=f32)
     plain = lambda: cat.flash_block_ref(q, k, v, valid, 0, 0)  # noqa: E731
     lib_ms, lib_err = sdpa_ms(q, k, v, valid)
     row = {
         "name": "flash_block", "route": "cuda",
         "source": "kepler_tpu_torch/ops/csrc/attention.cu",
         "replaces": "kepler_tpu/ops/pallas_attention.py:77",
-        "shape": {"B": b, "Tq": t, "Tk": t, "H": N_HEADS,
-                  "D": D_MODEL // N_HEADS, "causal": True,
-                  "compute": "bf16", "block": {"g": g, "hb": hb}},
+        "shape": {"B": b, "Tq": t, "Tk": t, "H": N_HEADS, "D": d,
+                  "causal": True, "compute": "bf16",
+                  "plan": plan._asdict(), "simt_plan": simt._asdict()},
         "max_abs_err": err,
         "ms": time_ms(kern, reps=5, batch=4),
         "device_ms": device_ms(kern, calls=5),
+        "simt_bf16_ms": time_ms(simt_bf16, reps=5, batch=4),
+        "simt_bf16_device_ms": device_ms(simt_bf16, calls=5),
+        "simt_bf16_max_abs_err": simt_err,
+        "f32_ms": time_ms(acc, reps=5, batch=4),
+        "f32_device_ms": device_ms(acc, calls=5),
+        "f32_max_abs_err": f32_err,
         "plain_ms": time_ms(plain, reps=3, batch=2),
         "plain_device_ms": device_ms(plain, calls=2),
         "library_ms": lib_ms, "library": "torch.nn.functional."
         "scaled_dot_product_attention (f32, causal & KV mask)",
         "bound_ms": bound, "bound_by": by,
+        "compiled": {"tc": cat.flash_block_info("tc", t, d),
+                     "simt": cat.flash_block_info("simt", t, d)},
         "parity": "m, l rtol 1e-5; pv <= 1e-2 max|v| (bf16)",
     }
     if lib_err is not None:
@@ -694,17 +857,9 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
         got = cat.flash_block_pallas(q, k, v, every, t, 0)
         check(bool(torch.all(got[2] > 0)),
               "B3 with kv before q must mask nothing (l > 0)")
-        off_err = b3_check(got, cat.flash_block_ref(q, k, v, every, t, 0),
-                           v, torch.bfloat16, "B3 at offsets (16, 0)")
-        f32 = torch.float32
-        got = cat.flash_block_pallas(q, k, v, valid, 0, 0, compute_dtype=f32)
-        f32_err = b3_check(got, cat.flash_block_ref(
-            q, k, v, valid, 0, 0, compute_dtype=f32), v, f32, "B3 at f32")
-        row.update({"offsets_max_abs_err": off_err,
-                    "f32_max_abs_err": f32_err,
-                    "f32_ms": time_ms(lambda: cat.flash_block_pallas(
-                        q, k, v, valid, 0, 0, compute_dtype=f32),
-                        reps=5, batch=4)})
+        row["offsets_max_abs_err"] = b3_check(
+            got, cat.flash_block_ref(q, k, v, every, t, 0), v, bf16,
+            "B3 at offsets (16, 0)")
         del got
     emit({"phase": "kernel", **row})
     del q, k, v, valid
@@ -842,9 +997,10 @@ def read_launches() -> dict:
     return {**ca.LAUNCHES, **cat.LAUNCHES}
 
 
-def profile_top(fn, k: int = 8) -> dict:
-    """One call of ``fn`` under ``torch.profiler`` → device ms in all and
-    the ``k`` kernels with the most device time (self time, ms)."""
+def profile_top(fn, k: int = 8, match: str | None = None) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` → device ms in all, the
+    ``k`` kernels with the most device time (self time, ms) and, given
+    ``match``, the device ms of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -852,9 +1008,13 @@ def profile_top(fn, k: int = 8) -> dict:
         fn()
         sync()
     rows = kernel_times_us(prof)
-    return {"device_ms": sum(r[0] for r in rows) / 1e3,
-            "top": [{"kernel": key[:80], "ms": us / 1e3, "count": c}
-                    for us, key, c in rows[:k]]}
+    out = {"device_ms": sum(r[0] for r in rows) / 1e3,
+           "top": [{"kernel": key[:80], "ms": us / 1e3, "count": c}
+                   for us, key, c in rows[:k]]}
+    if match is not None:
+        out[f"{match}_ms"] = sum(us for us, key, _ in rows
+                                 if match in key) / 1e3
+    return out
 
 
 def main_temporal_fleet(dev: torch.device) -> tuple[dict, list, dict, list]:
@@ -1016,6 +1176,9 @@ def main_temporal_trunk(dev: torch.device, saved: list,
     check(launches["flash_block"] == len(saved),
           f"B3 launched {launches['flash_block']} times in {len(saved)} "
           "trunk calls")
+    check(launches["flash_block_tc"] == len(saved)
+          and launches["flash_block_simt"] == 0,
+          "the trunk's B3 launches did not all go through tensor cores")
     check(launches["outer_product_attribution"] == 0,
           "the trunk path ran B1")
 
@@ -1063,7 +1226,8 @@ def main_temporal_trunk(dev: torch.device, saved: list,
     h, wv, tv_d = inputs(batch, hist, tv)
     torch.cuda.reset_peak_memory_stats()
     prof = profile_top(lambda: predict_temporal(params_d, h, wv, tv_d,
-                                                attention_fn=attention))
+                                                attention_fn=attention),
+                       match="flash_block")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del h, wv, tv_d
     torch.cuda.empty_cache()
@@ -1103,7 +1267,9 @@ def main() -> int:
     main_db = ratio["flushes"][-1]["db"]
     if main_db not in b2_rows:
         b2_rows[main_db] = kernel_b2(dev, main_db)
+    b2_flush = kernel_b2_flush(dev, FUSED_K, main_db)
     mixed = main_mixed(dev)
+    main_serial_mlp(dev)
     fleet, saved, params, outs = main_temporal_fleet(dev)
     trunk = main_temporal_trunk(dev, saved, params, outs)
 
@@ -1112,22 +1278,28 @@ def main() -> int:
         "main_temporal_fleet":
             fleet["launches"]["outer_product_attribution"]}
     b1["launches"] = sum(b1["launches_by_path"].values())
-    b2 = dict(b2_rows[main_db])
+    b2 = dict(b2_flush)  # the main path's call: one launch per flush
     b2["launches"] = ratio["launches"]["fused_window_step"]
     b2["by_db"] = {str(db): {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "device_ms": r["device_ms"],
                              "bound_ms": r["bound_ms"]}
                    for db, r in sorted(b2_rows.items())}
+    b2["by_k"] = {str(r["shape"].get("K", 1)): {
+        k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        for r in (b2_rows[main_db], b2_flush)}
     b3 = dict(b3_rows[0])
     b3["launches"] = trunk["launches"]["flash_block"]
+    b3["launches_by_variant"] = {
+        v: trunk["launches"][f"flash_block_{v}"] for v in ("tc", "simt")}
     b3["by_shape"] = {f"B{r['shape']['B']}_T{r['shape']['Tq']}": {
-        k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+        k: r[k] for k in ("ms", "device_ms", "simt_bf16_device_ms",
+                          "f32_device_ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms", "max_abs_err")}
         for r in b3_rows}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "plain_device_ms", "shape", "by_db",
-            "by_shape", "launches_by_path")
+            "by_k", "by_shape", "launches_by_path", "launches_by_variant")
     print(smi, flush=True)
     emit({"kernels": [{k: row[k] for k in keys if k in row}
                       for row in (b1, b2, b3)]})

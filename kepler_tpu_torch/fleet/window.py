@@ -800,8 +800,8 @@ class FusedWindowEngine(PackedWindowEngine):
     (``parallel.packed.make_fused_window_program``), which replays them
     against the device-resident block and returns all K packed watts
     planes in one tensor, so upload, sync and publish fetch each happen
-    once per K windows. With ``backend="pallas"`` and no model, each
-    interval is one launch of kernel B2.
+    once per K windows. With ``backend="pallas"`` and no model, the whole
+    flush is one launch of kernel B2.
 
     Staleness: windows 1..K−1 of a batch publish when window K flushes.
 
@@ -981,12 +981,12 @@ class FusedWindowEngine(PackedWindowEngine):
     def _fused_cost(self, entry: list, nb: int, wb: int, z: int,
                     mb: int | None, k: int, db: int) -> None:
         """Cost stats of a fused program entry, captured once: resident,
-        K delta sets in; resident' and K planes out; B2's bound × K on
-        the kernel path."""
+        K delta sets in; resident' and K planes out; the bound of B2's
+        one K-step launch on the kernel path."""
         if entry[2] is not None:
             return
         from kepler_tpu_torch.ops.cuda_attribution import (
-            fused_window_step_cost)
+            fused_window_steps_cost)
 
         width = wb + 2 * z + 4
         arg = 4 * (nb * width + k * db * width + k * db)
@@ -995,8 +995,7 @@ class FusedWindowEngine(PackedWindowEngine):
         out = 4 * nb * width + 2 * k * nb * (wb + 2) * z
         kernel = None
         if self._backend == "pallas" and not self._model_mode:
-            nbytes, ops = fused_window_step_cost(nb, db, wb, z)
-            kernel = (k * nbytes, k * ops)
+            kernel = fused_window_steps_cost(nb, db, wb, z, k)
         entry[2] = _cost_stats(entry[3], arg, out, kernel)
 
     # -- failure recovery / introspection ----------------------------------

@@ -1,11 +1,13 @@
 """MLP power estimator.
 
 Architecture ``F → H → H → Z`` with GELU plus a wide linear skip path
-(``w_skip``), as ``kepler_tpu.models.mlp``. The port computes it in f32
-with TF32 off (``device.resolve_device`` pins that): the JAX package
-serves f32 compute off the TPU, and bf16 trunks are a TPU throughput
-feature. GELU is the tanh approximation, which is ``jax.nn.gelu``'s
-default.
+(``w_skip``), as ``kepler_tpu.models.mlp``. The trunk's three products
+take operands rounded to ``compute_dtype`` (bf16 by default, as in JAX)
+with f32 results (``nn.acc_matmul``); biases, GELU and the skip path stay
+f32. The serial-rung fleet program serves this default unless accuracy
+mode asks for f32 (``parallel.aggregator_core.accuracy_mode_predictor``);
+the packed programs pass f32, as the JAX packed programs do off the TPU.
+GELU is the tanh approximation, which is ``jax.nn.gelu``'s default.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kepler_tpu_torch.models.features import NUM_FEATURES
-from kepler_tpu_torch.models.nn import glorot
+from kepler_tpu_torch.models.nn import acc_matmul, glorot
 
 PARAM_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "w_skip")
 
@@ -44,13 +46,18 @@ def predict_mlp(
     features: torch.Tensor,  # [..., W, F]
     workload_valid: torch.Tensor,  # bool [..., W]
     clamp: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """→ watts f32 [..., W, Z]: GELU trunk plus the f32 linear skip path;
+    """→ watts f32 [..., W, Z]: GELU trunk with ``compute_dtype``
+    operands and f32 accumulators, plus the f32 linear skip path;
     ``clamp`` floors at 0 W for serving."""
-    h = F.gelu(features @ params["w0"] + params["b0"], approximate="tanh")
-    h = F.gelu(h @ params["w1"] + params["b1"], approximate="tanh")
-    watts = h @ params["w2"]
-    watts = watts + features @ params["w_skip"]
+    cd = compute_dtype
+    h = F.gelu(acc_matmul(features, params["w0"], cd) + params["b0"],
+               approximate="tanh")
+    h = F.gelu(acc_matmul(h, params["w1"], cd) + params["b1"],
+               approximate="tanh")
+    watts = acc_matmul(h, params["w2"], cd)
+    watts = watts + features.to(torch.float32) @ params["w_skip"]
     watts = watts + params["b2"]
     if clamp:
         watts = torch.clamp(watts, min=0.0)
@@ -66,7 +73,8 @@ class MLPEstimator(nn.Module):
             self.register_parameter(
                 k, nn.Parameter(params[k], requires_grad=False))
 
-    def forward(self, features: torch.Tensor,
-                workload_valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, features: torch.Tensor, workload_valid: torch.Tensor,
+                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return predict_mlp({k: getattr(self, k) for k in PARAM_KEYS},
-                           features, workload_valid)
+                           features, workload_valid,
+                           compute_dtype=compute_dtype)

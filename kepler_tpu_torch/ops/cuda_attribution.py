@@ -9,14 +9,16 @@ library at first launch):
 - **B1** :func:`outer_product_attribution` — ``energy = ratio ⊗ active``
   and ``power = ratio ⊗ active_power`` in one pass, written straight into
   ``[N, W, Z]``.
-- **B2** :func:`fused_window_step` — one whole fleet window on the packed
-  resident block: scatter the interval's delta rows in place, unpack,
-  ratio-attribute, emit the f16 watts plane ``[N, W+2, Z]``.
+- **B2** :func:`fused_window_steps` — K whole fleet windows on the packed
+  resident block in one launch: per step, scatter the interval's delta
+  rows in place, unpack, ratio-attribute, emit the f16 watts plane
+  ``[N, W+2, Z]``. :func:`fused_window_step` is its K = 1 call.
 
 Each wrapper takes its plain PyTorch version (``*_ref``) only for tensors
 that lie on the CPU. For a CUDA tensor it launches the kernel or raises;
 nothing falls back. ``LAUNCHES`` counts kernel launches per kernel so a
-run can show that its main path went through them.
+run can show that its main path went through them (``fused_window_step``
+counts every B2 launch, whatever its K).
 
 The backend name ``pallas`` keeps its meaning from the JAX package's
 config (``tpu.fleetBackend``): it selects these hand-written kernels.
@@ -59,10 +61,10 @@ def _lib() -> ctypes.CDLL:
             _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
             _c_int, _c_int, _c_int, _c_void_p]
         lib.kt_outer_product_attribution.restype = _c_int
-        lib.kt_fused_window_step.argtypes = [
+        lib.kt_fused_window_steps.argtypes = [
             _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-            _c_int, _c_int, _c_int, _c_int, _c_void_p]
-        lib.kt_fused_window_step.restype = _c_int
+            _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
+        lib.kt_fused_window_steps.restype = _c_int
         lib._kt_bound = True
     return lib
 
@@ -97,14 +99,28 @@ def outer_product_cost(n: int, w: int, z: int) -> tuple[int, int]:
 
 def fused_window_step_cost(n: int, db: int, w: int, z: int,
                            hits: int | None = None) -> tuple[int, int]:
-    """B2 → (bytes, f32 operations): resident and the ``db`` indices read
-    once; each of the ``hits`` delta rows that lands (default: all ``db``)
-    read once and written once into resident in place; the f16 plane
-    written once. Rows no delta replaces are never written back."""
+    """B2 for one window → (bytes, f32 operations): resident and the
+    ``db`` indices read once; each of the ``hits`` delta rows that lands
+    (default: all ``db``) read once and written once into resident in
+    place; the f16 plane written once. Rows no delta replaces are never
+    written back."""
+    return fused_window_steps_cost(n, db, w, z, 1, hits)
+
+
+def fused_window_steps_cost(n: int, db: int, w: int, z: int, k: int,
+                            hits: int | None = None,
+                            dirty: int | None = None) -> tuple[int, int]:
+    """B2 over a flush of ``k`` windows → (bytes, f32 operations): the
+    resident block read once; each of the ``hits`` delta rows that lands
+    over all steps (default: all ``k·db``) read once; the ``dirty`` rows
+    (distinct rows hit; at most, and by default, ``hits``) written back
+    once; the ``k·db`` indices; ``k`` f16 planes written."""
     width = w + 2 * z + 4
-    hits = db if hits is None else hits
-    nbytes = 4 * (n * width + 2 * hits * width + db) + 2 * n * (w + 2) * z
-    ops = n * w * 2 + n * z * 4 + n * (w + 2) * z * 2
+    hits = k * db if hits is None else hits
+    dirty = hits if dirty is None else dirty
+    nbytes = 4 * (n * width + hits * width + dirty * width + k * db) \
+        + k * 2 * n * (w + 2) * z
+    ops = k * (n * w * 2 + n * z * 4 + n * (w + 2) * z * 2)
     return nbytes, ops
 
 
@@ -164,8 +180,8 @@ def fused_window_step_ref(resident: torch.Tensor, delta_rows: torch.Tensor,
                           delta_idx: torch.Tensor, lay: Any,
                           *, out: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of B2: the drop-mode scatter in place, then the
-    packed ratio window in the f32 order of the JAX kernel."""
+    """Plain version of one B2 step: the drop-mode scatter in place, then
+    the packed ratio window in the f32 order of the JAX kernel."""
     scatter_rows_(resident, delta_rows, delta_idx)
     rows = resident
     cpu_nan = rows[:, lay.cpu]
@@ -183,6 +199,66 @@ def fused_window_step_ref(resident: torch.Tensor, delta_rows: torch.Tensor,
     return resident, plane
 
 
+def fused_window_steps_ref(resident: torch.Tensor, delta_rows: torch.Tensor,
+                           delta_idx: torch.Tensor, lay: Any,
+                           *, out: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B2: the K steps one after the other."""
+    k, n = delta_rows.shape[0], resident.shape[0]
+    if out is None:
+        out = torch.empty((k, n, lay.n_workloads + 2, lay.n_zones),
+                          dtype=torch.float16, device=resident.device)
+    for s in range(k):
+        fused_window_step_ref(resident, delta_rows[s], delta_idx[s], lay,
+                              out=out[s])
+    return resident, out
+
+
+def fused_window_steps(
+        resident: torch.Tensor,  # f32 [N, width], updated IN PLACE
+        delta_rows: torch.Tensor,  # f32 [K, DB, width]
+        delta_idx: torch.Tensor,  # i32 [K, DB] target rows (pad = N → dropped)
+        lay: Any,  # PackedLayout (width + field offsets)
+        *,
+        out: torch.Tensor | None = None,  # f16 [K, N, W+2, Z] destination
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K fused window steps in one launch (B2) → ``(resident, watts f16
+    [K, N, W+2, Z])``.
+
+    ``resident`` is updated in place and returned — the port's form of
+    the JAX program's donated resident block — and ends as K successive
+    single steps leave it: a row hit in several steps takes them in
+    order. Valid indices must be unique within a step.
+    """
+    if resident.device.type == "cpu":
+        return fused_window_steps_ref(resident, delta_rows, delta_idx, lay,
+                                      out=out)
+    if resident.device.type != "cuda":
+        raise ValueError(f"unsupported device {resident.device}")
+    n = resident.shape[0]
+    k, db = delta_rows.shape[0], delta_rows.shape[1]
+    w, z = lay.n_workloads, lay.n_zones
+    dev = resident.device
+    if k < 1:
+        raise ValueError("B2 needs at least one step")
+    _check(resident, "resident", torch.float32, (n, lay.width), dev)
+    _check(delta_rows, "delta_rows", torch.float32, (k, db, lay.width), dev)
+    _check(delta_idx, "delta_idx", torch.int32, (k, db), dev)
+    if out is None:
+        out = torch.empty((k, n, w + 2, z), dtype=torch.float16, device=dev)
+    else:
+        _check(out, "out", torch.float16, (k, n, w + 2, z), dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.kt_fused_window_steps(
+            resident.data_ptr(), delta_rows.data_ptr(), delta_idx.data_ptr(),
+            out.data_ptr(), n, k, db, w, z, stream)
+    _raise_on(rc, "fused_window_steps")
+    LAUNCHES["fused_window_step"] += 1
+    return resident, out
+
+
 def fused_window_step(
         resident: torch.Tensor,  # f32 [N, width], updated IN PLACE
         delta_rows: torch.Tensor,  # f32 [DB, width]
@@ -191,37 +267,16 @@ def fused_window_step(
         *,
         out: torch.Tensor | None = None,  # f16 [N, W+2, Z] destination
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One fused window step (B2) → ``(resident, watts f16 [N, W+2, Z])``.
-
-    ``resident`` is updated in place and returned — the port's form of
-    the JAX program's donated resident block. ``out`` lets the fused
-    program write step k straight into its ``[K, N, W+2, Z]`` output.
-    """
+    """One fused window step (B2) → ``(resident, watts f16 [N, W+2, Z])``:
+    the K = 1 call of :func:`fused_window_steps`. ``resident`` is updated
+    in place and returned."""
     if resident.device.type == "cpu":
         return fused_window_step_ref(resident, delta_rows, delta_idx, lay,
                                      out=out)
-    if resident.device.type != "cuda":
-        raise ValueError(f"unsupported device {resident.device}")
-    n = resident.shape[0]
-    db = delta_rows.shape[0]
-    w, z = lay.n_workloads, lay.n_zones
-    dev = resident.device
-    _check(resident, "resident", torch.float32, (n, lay.width), dev)
-    _check(delta_rows, "delta_rows", torch.float32, (db, lay.width), dev)
-    _check(delta_idx, "delta_idx", torch.int32, (db,), dev)
-    if out is None:
-        out = torch.empty((n, w + 2, z), dtype=torch.float16, device=dev)
-    else:
-        _check(out, "out", torch.float16, (n, w + 2, z), dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.kt_fused_window_step(
-            resident.data_ptr(), delta_rows.data_ptr(), delta_idx.data_ptr(),
-            out.data_ptr(), n, db, w, z, stream)
-    _raise_on(rc, "fused_window_step")
-    LAUNCHES["fused_window_step"] += 1
-    return resident, out
+    _, outs = fused_window_steps(
+        resident, delta_rows[None], delta_idx[None], lay,
+        out=None if out is None else out[None])
+    return resident, outs[0]
 
 
 # -- the pallas-backend fleet attribution ----------------------------------

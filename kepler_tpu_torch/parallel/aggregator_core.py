@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from kepler_tpu_torch.device import resolve_device
-from kepler_tpu_torch.models.estimator import TEMPORAL, predictor
+from kepler_tpu_torch.models.estimator import LINEAR, TEMPORAL, predictor
 from kepler_tpu_torch.models.features import build_features
 from kepler_tpu_torch.models.temporal import predict_temporal
 from kepler_tpu_torch.ops.attribution import AttributionResult, attribute_fleet
@@ -173,10 +173,10 @@ def accuracy_mode_predictor(predict_fn: Callable,
                             model_mode: str) -> Callable:
     """Wrap a predictor for ACCURACY-mode serving: f32 compute (bf16
     trunks carry ~1e-3 relative noise). TF32 is already off
-    (``device.resolve_device``), so f32 products run in full f32. The
-    port's linear and MLP predictors compute in f32 anyway; the temporal
-    one takes ``compute_dtype``."""
-    if model_mode != TEMPORAL:
+    (``device.resolve_device``), so f32 products run in full f32. As in
+    JAX, every mode but "linear" (which has no trunk and no
+    ``compute_dtype``) gets ``compute_dtype=torch.float32``."""
+    if model_mode == LINEAR:
         return predict_fn
 
     def wrapped(params: Any, feats: torch.Tensor,

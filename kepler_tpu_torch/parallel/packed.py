@@ -12,7 +12,7 @@ ONE f16 output array, in the layouts of ``kepler_tpu.parallel.packed``:
 Programs here are plain Python callables over tensors that run on the
 device their inputs lie on. With ``backend="pallas"`` they launch the
 hand-written CUDA kernels of ``ops.cuda_attribution`` (B1 in the
-per-window program, B2 in each interval of the fused window loop);
+per-window program, B2 once per flush of the fused window loop);
 ``backend="einsum"`` composes plain tensor ops. The builders take an
 explicit ``device`` (default ``"cuda"``) and raise when it is missing.
 
@@ -209,8 +209,17 @@ def _window_step_fns(n_workloads: int, n_zones: int,
     ``sparse`` is None unless ``model_bucket`` is set with a model mode
     (einsum backend required). The per-window builder and the fused
     K-window loop compose these same closures, so the two programs
-    cannot drift. Estimators compute in f32 (TF32 off: ``device``)."""
+    cannot drift. Estimators compute in f32 (TF32 off: ``device``): a
+    trunk's ``compute_dtype`` is set to f32 explicitly, as the JAX packed
+    programs do off the TPU."""
     predict_fn = predictor(model_mode) if model_mode else None
+    if predict_fn is not None and model_mode != "linear":
+        base_fn = predict_fn
+
+        def predict_fn(params: Any, feats: torch.Tensor, valid: torch.Tensor,
+                       _fn: Callable = base_fn) -> torch.Tensor:
+            return _fn(params, feats, valid, compute_dtype=torch.float32)
+
     w, z = n_workloads, n_zones
     attribute_fn = resolve_attribute_fn(backend)
     sparse = model_bucket is not None and predict_fn is not None
@@ -296,9 +305,9 @@ def make_fused_window_program(n_workloads: int, n_zones: int,
     block is rewritten in place — the port's form of the JAX program's
     donated carry; stream order keeps every earlier reader ahead of it.
 
-    With ``backend="pallas"`` and no model, each interval is ONE launch
-    of kernel B2 (``ops.cuda_attribution.fused_window_step``): scatter +
-    unpack + attribution in one kernel body, K launches per flush.
+    With ``backend="pallas"`` and no model, the whole flush is ONE launch
+    of kernel B2 (``ops.cuda_attribution.fused_window_steps``): the K
+    intervals' scatter + unpack + attribution in one kernel body.
     Everywhere else each interval composes the drop-mode scatter with
     the shared window body.
     """
@@ -326,17 +335,15 @@ def make_fused_window_program(n_workloads: int, n_zones: int,
         return fused_sparse
 
     if backend == "pallas" and model_mode is None:
-        from kepler_tpu_torch.ops.cuda_attribution import fused_window_step
+        from kepler_tpu_torch.ops.cuda_attribution import fused_window_steps
 
         def fused_kernel(model_params: Any, resident: torch.Tensor,
                          delta_rows: torch.Tensor,
                          delta_idx: torch.Tensor) -> tuple[
                              torch.Tensor, torch.Tensor]:
-            outs = alloc(resident, delta_rows.shape[0])
-            for k in range(delta_rows.shape[0]):
-                fused_window_step(resident, delta_rows[k], delta_idx[k],
-                                  lay, out=outs[k])
-            return resident, outs
+            return fused_window_steps(resident, delta_rows, delta_idx, lay,
+                                      out=alloc(resident,
+                                                delta_rows.shape[0]))
 
         return fused_kernel
 

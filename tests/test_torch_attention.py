@@ -10,8 +10,9 @@ port's wrappers take their plain versions for CPU tensors. Tolerances:
   attention outputs within 1e-2 · max|v| (one bf16 rounding of ``p`` may
   flip between the two).
 
-The block plan and cost model that the CUDA wrapper uses are checked here
-too; the kernel itself runs only on the card (``tests/test_torch_cuda.py``).
+The block plan (which variant, tensor-core or SIMT, and its blocking)
+and cost model that the CUDA wrapper uses are checked here too; the
+kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 from __future__ import annotations
@@ -203,22 +204,54 @@ def test_full_attention_pallas_matches_jax_and_dense(cd, causal):
             compute_dtype=jcd)), rtol=1e-5 if cd == "f32" else 0, atol=tol)
 
 
-@pytest.mark.parametrize("b,tq,tk,h,d,want", [
-    (262144, 16, 16, 4, 32, (3, 4)),  # the temporal trunk's serving shape
-    (16384, 128, 128, 4, 32, (1, 2)),  # T = t_max
-    (5, 9, 13, 4, 16, (5, 4)),
-    (2, 256, 256, 4, 8, (1, 1)),
-    (1, 1, 1, 1, 8, (1, 1)),
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,cd,contiguous,want", [
+    # the temporal trunk's serving shape: tensor cores, 2 sequences × all
+    # 4 heads an item, bulk copies
+    (262144, 16, 16, 4, 32, BF16, True, ("tc", 2, 4, 256, True)),
+    # T = t_max: one (sequence, head) an item, 8 warps
+    (16384, 128, 128, 4, 32, BF16, True, ("tc", 1, 1, 256, False)),
+    (4, 32, 32, 2, 64, BF16, True, ("tc", 1, 2, 128, True)),
+    (5, 64, 64, 4, 16, BF16, True, ("tc", 2, 1, 256, False)),
+    (3, 128, 128, 4, 64, BF16, True, ("tc", 1, 1, 256, False)),
+    # a strided view: one head an item, cp.async copies
+    (6, 16, 16, 4, 32, BF16, False, ("tc", 6, 1, 192, False)),
+    (9, 16, 16, 4, 32, BF16, False, ("tc", 8, 1, 256, False)),
+    (2, 16, 16, 4, 32, BF16, True, ("tc", 2, 4, 256, True)),
+    (1, 16, 16, 4, 32, BF16, True, ("tc", 1, 4, 128, True)),
+    # f32 compute and the shapes tensor cores do not take: SIMT
+    (262144, 16, 16, 4, 32, F32, True, ("simt", 3, 4, 192, False)),
+    (16384, 128, 128, 4, 32, F32, True, ("simt", 1, 2, 256, False)),
+    (5, 9, 13, 4, 16, BF16, True, ("simt", 5, 4, 180, False)),
+    (4, 32, 20, 2, 64, BF16, True, ("simt", 2, 2, 128, False)),
+    (2, 256, 256, 4, 8, BF16, True, ("simt", 1, 1, 256, False)),
+    (1, 1, 1, 1, 8, BF16, True, ("simt", 1, 1, 1, False)),
+    (2, 144, 144, 4, 32, BF16, True, ("simt", 1, 1, 144, False)),
 ])
-def test_flash_block_plan_fits_the_kernel(b, tq, tk, h, d, want):
-    g, hb = tcat.flash_block_plan(b, tq, tk, h, d)
-    assert (g, hb) == want
-    assert h % hb == 0 and g * hb * tq <= tcat.MAX_THREADS
-    assert tcat.smem_bytes(g, hb, tq, tk, d) <= tcat.MAX_SMEM
+def test_flash_block_plan_fits_the_kernel(b, tq, tk, h, d, cd, contiguous,
+                                          want):
+    plan = tcat.flash_block_plan(b, tq, tk, h, d, cd, contiguous)
+    assert (plan.variant, plan.g, plan.hb, plan.threads, plan.bulk) == want
+    assert h % plan.hb == 0 and plan.threads <= tcat.MAX_THREADS
+    assert plan.smem == tcat.smem_bytes(plan.g, plan.hb, tq, tk, d,
+                                        plan.variant, plan.bulk)
+    assert plan.smem <= tcat.MAX_SMEM
+    assert tcat.takes_tensor_cores(tq, tk, d, cd) == (plan.variant == "tc")
+    if plan.variant == "tc":
+        # a stage holds q, k, v of g sequences × hb heads, rows padded
+        # by 4 floats unless bulk copies land them; two stages
+        row = plan.hb * d if plan.bulk else d + 4
+        assert plan.smem == 2 * (3 * 4 * plan.g * tq * row + 8)
+        assert plan.threads == 32 * plan.g * plan.hb * tq // 16
+        assert not plan.bulk or plan.hb == h
+    else:
+        assert plan.threads == plan.g * plan.hb * tq
 
 
 @pytest.mark.parametrize("tq,tk,d", [(8, 8, 12), (300, 8, 32),
-                                     (8, 1000, 64)])
+                                     (8, 1000, 64), (256, 256, 12)])
 def test_flash_block_plan_rejects_what_the_kernel_does_not_take(tq, tk, d):
     with pytest.raises(ValueError, match="B3"):
         tcat.flash_block_plan(4, tq, tk, 4, d)
@@ -255,3 +288,19 @@ def test_flash_block_cost_at_the_serving_shape():
     _, _, rate32 = tcat.flash_block_cost(b, t, t, h, d, pairs,
                                          torch.float32)
     assert rate32 == 67e12
+
+
+def test_flash_block_launch_refuses_a_plan_its_inputs_do_not_fit():
+    """A tensor-core plan computes in bf16 only, and a bulk-copy plan
+    needs contiguous q, k and v; both are refused before any launch."""
+    q, k, v = to_t(*qkv(12, 2, 16, 16, d=32))
+    valid = torch.ones((2, 16), dtype=torch.bool)
+    plan = tcat.flash_block_plan(2, 16, 16, 4, 32)
+    assert plan.variant == "tc" and plan.bulk
+    with pytest.raises(ValueError, match="bf16 only"):
+        tcat.flash_block_launch(plan, q, k, v, valid, 0, 0,
+                                compute_dtype=torch.float32)
+    strided = torch.zeros((2, 16, 5, 32))[:, :, 1:]
+    with pytest.raises(ValueError, match="contiguous"):
+        tcat.flash_block_launch(plan, strided, k, v, valid, 0, 0)
+    assert tcat.simt_plan(2, 16, 16, 4, 32).variant == "simt"

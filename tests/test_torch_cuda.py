@@ -7,12 +7,15 @@ import no JAX, so they run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 B1 must equal its plain version exactly; B2's resident block must equal
-it exactly and its f16 plane within one f16 ulp (none is expected: the
+it exactly and its f16 planes within one f16 ulp (none is expected: the
 kernel runs the plain version's f32 operations in the same order, with
-IEEE division and round-to-nearest conversion). B3 differs from its
-plain version only in summation order: at f32 compute within rtol = atol
-= 1e-5; at bf16 compute ``m`` and ``l`` within rtol 1e-5 and ``pv`` within
-1e-2 · max|v| (one bf16 rounding of ``p`` may flip).
+IEEE division and round-to-nearest conversion), for one step and for K
+steps in one launch. B3's two variants (tensor cores, SIMT) differ from
+the plain version only in summation order: at f32 compute within rtol =
+atol = 1e-5; at bf16 compute ``m`` and ``l`` within rtol 1e-5 and ``pv``
+within 1e-2 · max|v| (products of bf16 values are exact and sums are f32;
+one bf16 rounding of ``p`` may flip). Each test asserts which variant
+launched.
 """
 
 from __future__ import annotations
@@ -158,23 +161,38 @@ def assert_b3_close(got, want, v: torch.Tensor, cd: torch.dtype) -> None:
         np.testing.assert_allclose(pv, pv_r, rtol=0, atol=atol)
 
 
+def launched_variant(before: dict) -> str:
+    """The one B3 variant launched since ``before`` (a LAUNCHES copy)."""
+    grew = [name for name in ("flash_block_tc", "flash_block_simt")
+            if cat.LAUNCHES[name] == before[name] + 1]
+    assert cat.LAUNCHES["flash_block"] == before["flash_block"] + 1
+    assert len(grew) == 1 and sum(cat.LAUNCHES[n] - before[n] for n in (
+        "flash_block_tc", "flash_block_simt")) == 1
+    return grew[0].removeprefix("flash_block_")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d", [(1, 1, 1, 1, 8), (7, 16, 16, 4, 32),
-                                         (5, 9, 13, 4, 16), (3, 128, 128, 4, 32),
-                                         (4, 32, 20, 2, 64), (300, 16, 16, 4, 32)])
+@pytest.mark.parametrize("b,tq,tk,h,d", [
+    (1, 1, 1, 1, 8), (7, 16, 16, 4, 32), (5, 9, 13, 4, 16),
+    (3, 128, 128, 4, 32), (4, 32, 20, 2, 64), (300, 16, 16, 4, 32),
+    (4, 32, 32, 2, 64), (5, 64, 64, 4, 16)])
 @pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_block_kernel_matches_plain(cuda_device, b, tq, tk, h, d, cd,
                                           causal):
+    """Both variants against the plain version; the tensor-core one takes
+    every bf16 shape with Tq == Tk a multiple of 16 (up to 128) and D in
+    {16, 32, 64}, the SIMT one the rest."""
     q, k, v, valid = attention_inputs(b + tq + d, b, tq, tk, h, d,
                                       cuda_device)
-    before = cat.LAUNCHES["flash_block"]
+    before = dict(cat.LAUNCHES)
     got = cat.flash_block_pallas(q, k, v, valid, 0, 0, causal=causal,
                                  compute_dtype=cd)
     want = cat.flash_block_ref(q, k, v, valid, 0, 0, causal=causal,
                                compute_dtype=cd)
     torch.cuda.synchronize()
-    assert cat.LAUNCHES["flash_block"] == before + 1
+    tc = cat.takes_tensor_cores(tq, tk, d, cd)
+    assert launched_variant(before) == ("tc" if tc else "simt")
     assert_b3_close(got, want, v, cd)
     # the fully masked sequence: m = -1e30, l = 0, pv = 0
     assert torch.all(got[1][0] == -1e30) and torch.all(got[2][0] == 0)
@@ -182,27 +200,74 @@ def test_flash_block_kernel_matches_plain(cuda_device, b, tq, tk, h, d, cd,
 
 
 @pytest.mark.cuda
-def test_flash_block_kernel_offsets_and_strides(cuda_device):
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_flash_block_kernel_offsets_and_strides(cuda_device, cd):
     """Block offsets move the causal mask (kv after q: all masked; kv
-    before q: nothing masked), and q/k/v views with other strides (the
-    unvectorised load path) give the same partials."""
+    before q: nothing masked), and q/k/v views with other strides give
+    the same partials: strides that are multiples of 4 floats (16-byte
+    copies) and strides that are not (4-byte copies). At bf16 every call
+    runs on tensor cores, the views through cp.async, at f32 on SIMT."""
+    variant = "tc" if cd == torch.bfloat16 else "simt"
     q, k, v, _ = attention_inputs(1, 6, 16, 16, 4, 32, cuda_device)
     valid = torch.ones((6, 16), dtype=torch.bool, device=cuda_device)
-    _, _, l = cat.flash_block_pallas(q, k, v, valid, 0, 16)
+    before = dict(cat.LAUNCHES)
+    _, _, l = cat.flash_block_pallas(q, k, v, valid, 0, 16, compute_dtype=cd)
+    assert launched_variant(before) == variant
     assert torch.all(l == 0)
-    got = cat.flash_block_pallas(q, k, v, valid, 16, 0,
-                                 compute_dtype=torch.float32)
+    got = cat.flash_block_pallas(q, k, v, valid, 16, 0, compute_dtype=cd)
     assert torch.all(got[2] > 0)
     assert_b3_close(got, cat.flash_block_ref(
-        q, k, v, valid, 16, 0, compute_dtype=torch.float32), v,
-        torch.float32)
+        q, k, v, valid, 16, 0, compute_dtype=cd), v, cd)
     wide = torch.randn((6, 16, 5, 33), device=cuda_device)
     qs = wide[:, :, :4, 1:]  # strides not multiples of 4 floats
-    got = cat.flash_block_pallas(qs, k, v, valid, 0, 0,
-                                 compute_dtype=torch.float32)
-    want = cat.flash_block_ref(qs, k, v, valid, 0, 0,
-                               compute_dtype=torch.float32)
-    assert_b3_close(got, want, v, torch.float32)
+    aligned = torch.randn((6, 16, 6, 32), device=cuda_device)[:, :, 1:5]
+    for view in (qs, aligned):
+        before = dict(cat.LAUNCHES)
+        got = cat.flash_block_pallas(view, k, v, valid, 0, 0,
+                                     compute_dtype=cd)
+        assert launched_variant(before) == variant
+        want = cat.flash_block_ref(view, k, v, valid, 0, 0, compute_dtype=cd)
+        assert_b3_close(got, want, v, cd)
+        got = cat.flash_block_pallas(q, view, view, valid, 3, 1,
+                                     compute_dtype=cd)
+        want = cat.flash_block_ref(q, view, view, valid, 3, 1,
+                                   compute_dtype=cd)
+        assert_b3_close(got, want, view, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("db_kind", ["one", "eight", "n"])
+def test_fused_window_steps_kernel_equals_plain(cuda_device, k, db_kind):
+    """One launch of K steps against K calls of the plain version: resident
+    bit-equal and 0 f16 mismatches, with a row hit in two steps."""
+    n, w, z = 1024, 256, 4
+    db = {"one": 1, "eight": 8, "n": n}[db_kind]
+    lay = PackedLayout(w, z)
+    resident, _, _ = window_inputs(k + db, n, w, z, 1)
+    deltas, idx = [], []
+    for s in range(k):
+        _, d, i = window_inputs(k * 100 + db + s, n, w, z, db)
+        if db > 1:
+            i[i == 5] = n
+            if s < 2:
+                i[s] = 5  # row 5 hit in steps 0 and 1
+        deltas.append(d)
+        idx.append(i)
+    d = torch.from_numpy(np.stack(deltas)).to(cuda_device)
+    i = torch.from_numpy(np.stack(idx).astype(np.int32)).to(cuda_device)
+    r_kernel = torch.from_numpy(resident).to(cuda_device)
+    r_plain = r_kernel.clone()
+    before = ca.LAUNCHES["fused_window_step"]
+    _, planes = ca.fused_window_steps(r_kernel, d, i, lay)
+    _, planes_ref = ca.fused_window_steps_ref(r_plain, d, i, lay)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES["fused_window_step"] == before + 1
+    np.testing.assert_array_equal(r_kernel.cpu().numpy(),
+                                  r_plain.cpu().numpy())
+    assert planes.shape == (k, n, w + 2, z)
+    ulps = f16_ulps(planes.cpu().numpy(), planes_ref.cpu().numpy())
+    assert int((ulps > 0).sum()) == 0
 
 
 @pytest.mark.cuda

@@ -2,8 +2,10 @@
 
 A ``.npz`` written by the JAX ``save_params`` loads in the port as it
 is, ``params_from_numpy`` carries in-memory JAX params across, and the
-port's ``predict_linear`` / ``predict_mlp`` (f32, tanh GELU) match the
-JAX predictors at f32 compute to rtol 1e-5.
+port's ``predict_linear`` / ``predict_mlp`` (tanh GELU) match the JAX
+predictors: at f32 compute to rtol 1e-5, and ``predict_mlp``'s default
+bf16 trunk within rtol 1e-2 and atol 1e-2 · max|watts| (operands round
+to bf16 after f32 sums taken in another order).
 """
 
 from __future__ import annotations
@@ -78,14 +80,15 @@ def test_npz_from_jax_loads_and_predicts(tmp_path, mode):
                    compute_dtype=jnp.float32)
     tfeats = torch.from_numpy(np.array(feats))
     tvalid = torch.from_numpy(valid)
-    out = port_est.predictor(mode)(loaded, tfeats, tvalid)
+    kw = {} if mode == "linear" else {"compute_dtype": torch.float32}
+    out = port_est.predictor(mode)(loaded, tfeats, tvalid, **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
     # the nn.Module form computes the same function
     module = port_est.estimator_module(mode, port_est.params_from_numpy(
         mode, params))
-    np.testing.assert_allclose(module(tfeats, tvalid).numpy(), out.numpy(),
-                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(module(tfeats, tvalid, **kw).numpy(),
+                               out.numpy(), rtol=1e-6, atol=1e-7)
 
 
 def test_nested_npz_round_trip(tmp_path):
@@ -115,7 +118,7 @@ def test_mlp_gelu_is_tanh_and_f32():
                compute_dtype=jnp.float32, clamp=False)
     out = predict_mlp(port_est.params_from_numpy("mlp", params),
                       torch.from_numpy(feats), torch.from_numpy(valid),
-                      clamp=False)
+                      clamp=False, compute_dtype=torch.float32)
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
@@ -126,6 +129,35 @@ def test_mlp_gelu_is_tanh_and_f32():
                        clamp=False).numpy(),
         np.asarray(jlin(lin, jnp.asarray(feats), jnp.asarray(valid),
                         clamp=False)), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("clamp", [True, False])
+def test_predict_mlp_bf16_default_matches_jax(clamp):
+    """The default compute is a bf16 trunk in both packages (non-zero
+    output head, ragged validity)."""
+    params = trained(dict(init_mlp(jax.random.PRNGKey(6), 4)), 7)
+    rng = np.random.default_rng(8)
+    feats = rng.normal(0, 2, (4, 9, NUM_FEATURES)).astype(np.float32)
+    valid = rng.random((4, 9)) > 0.3
+    assert np.abs(params["w2"]).max() > 0
+    ref = np.asarray(jmlp(params, jnp.asarray(feats), jnp.asarray(valid),
+                          clamp=clamp))
+    tparams = port_est.params_from_numpy("mlp", params)
+    out = predict_mlp(tparams, torch.from_numpy(feats),
+                      torch.from_numpy(valid), clamp=clamp).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-2,
+                               atol=1e-2 * np.abs(ref).max())
+    # the bf16 trunk is not the f32 one: the default really rounds
+    f32 = predict_mlp(tparams, torch.from_numpy(feats),
+                      torch.from_numpy(valid), clamp=clamp,
+                      compute_dtype=torch.float32).numpy()
+    assert not np.array_equal(out, f32)
+    assert not out[~valid].any()
+    module = port_est.estimator_module("mlp", tparams)
+    assert torch.equal(module(torch.from_numpy(feats),
+                              torch.from_numpy(valid)),
+                       predict_mlp(tparams, torch.from_numpy(feats),
+                                   torch.from_numpy(valid)))
 
 
 def test_registry_modes():

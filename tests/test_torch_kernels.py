@@ -16,6 +16,7 @@ compares them with the plain versions there. Their build step
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ import torch
 
 from kepler_tpu.ops.pallas_attribution import (fused_window_step,
                                                outer_product_attribution)
+from kepler_tpu.parallel import packed as jp
+from kepler_tpu.parallel.mesh import make_mesh
 from kepler_tpu.parallel.packed import PackedLayout as JaxLayout
 from kepler_tpu_torch.ops import cuda_attribution as ca
 from kepler_tpu_torch.parallel.packed import PackedLayout
@@ -93,6 +96,64 @@ def test_fused_window_step_drops_pad_and_applies_hits():
     assert not out[[0, 1, 2, 4, 5, 6, 7]].any()
 
 
+def flush_inputs(seed: int, n: int, w: int, z: int, k: int, db: int):
+    """A resident block and K steps of DB delta rows with every edge case
+    of ``window_inputs``, one pad entry per step, and (K ≥ 2) row 3 hit
+    in steps 0 and 1. Indices stay unique within a step."""
+    resident, _, _ = window_inputs(seed, n, w, z, 1)
+    deltas, idx = [], []
+    for s in range(k):
+        _, d, i = window_inputs(seed + 1 + s, n, w, z, db)
+        i[i == 3] = n
+        i[-1] = n
+        if s < 2 and k >= 2:
+            i[s] = 3
+        deltas.append(d)
+        idx.append(i)
+    return resident, np.stack(deltas), np.stack(idx).astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_fused_window_steps_plain_equals_single_steps_and_jax(k):
+    """K steps at once equal K single steps and the JAX fused program
+    (``make_fused_window_program``, Pallas in interpret mode) bit for
+    bit: resident' exactly, NaN slots included, and every f16 plane."""
+    n, w, z, db = 16, 17, 4, 6
+    lay = PackedLayout(w, z)
+    resident, deltas, idx = flush_inputs(40 + k, n, w, z, k, db)
+    if k >= 2:
+        assert (idx[0] == 3).sum() == 1 and (idx[1] == 3).sum() == 1
+    assert (idx == n).any() and np.isnan(resident).any()
+
+    before = ca.LAUNCHES["fused_window_step"]
+    res_all = torch.from_numpy(resident.copy())
+    out = torch.full((k, n, w + 2, z), 7.0, dtype=torch.float16)
+    got_res, planes = ca.fused_window_steps(
+        res_all, torch.from_numpy(deltas), torch.from_numpy(idx), lay,
+        out=out)
+    assert got_res is res_all and planes is out
+    assert ca.LAUNCHES["fused_window_step"] == before  # CPU: plain version
+
+    res_one = torch.from_numpy(resident.copy())
+    singles = [ca.fused_window_step(res_one, torch.from_numpy(deltas[s]),
+                                    torch.from_numpy(idx[s]), lay)[1]
+               for s in range(k)]
+    np.testing.assert_array_equal(res_all.numpy(), res_one.numpy())
+    for s in range(k):
+        np.testing.assert_array_equal(planes[s].numpy(), singles[s].numpy())
+
+    jprog = jp.make_fused_window_program(
+        make_mesh(devices=jax.devices()[:1]), n_workloads=w, n_zones=z,
+        backend="pallas")
+    j_res, j_outs = jprog(None, jnp.asarray(resident), jnp.asarray(deltas),
+                          jnp.asarray(idx))
+    np.testing.assert_array_equal(res_all.numpy(), np.asarray(j_res))
+    assert int((f16_ulps(planes.numpy(), np.asarray(j_outs)) > 0).sum()) == 0
+    if k >= 2:  # row 3 ends as step 1 left it
+        np.testing.assert_array_equal(res_all[3].numpy(),
+                                      deltas[1][list(idx[1]).index(3)])
+
+
 def test_wrappers_refuse_other_devices():
     ratio = torch.zeros((2, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -115,6 +176,34 @@ def test_cost_model_byte_counts():
     assert nbytes - padded == 4 * 2 * 8 * width
     ms, by = ca.bound_ms(*ca.outer_product_cost(1024, 256, 4))
     assert by == "bytes" and 2e-3 < ms < 4e-3
+    # the single step is the K = 1 flush
+    assert ca.fused_window_step_cost(1024, 128, 256, 4, hits=120) == \
+        ca.fused_window_steps_cost(1024, 128, 256, 4, 1, hits=120)
+
+
+@pytest.mark.parametrize("k,db,hits,dirty,want_mb", [
+    (4, 128, None, None, 10.65),  # the ratio-fused flush: ≈ 3.2 µs
+    (4, 128, 480, 400, 10.50),  # pads land nowhere; rows hit twice
+    (1, 1024, None, None, 5.41),  # one step, every row replaced
+    (8, 8, 0, 0, 18.01),  # no hit at all: resident read, 8 planes
+])
+def test_fused_window_steps_cost(k, db, hits, dirty, want_mb):
+    """One K-step launch reads resident once, each landing delta row
+    once, writes each dirty row back once, reads the K·DB indices and
+    writes K f16 planes."""
+    n, w, z = 1024, 256, 4
+    width, plane = w + 2 * z + 4, 2 * n * (w + 2) * z
+    nbytes, ops = ca.fused_window_steps_cost(n, db, w, z, k, hits, dirty)
+    h = k * db if hits is None else hits
+    d = h if dirty is None else dirty
+    assert nbytes == 4 * (n * width + h * width + d * width + k * db) \
+        + k * plane
+    assert abs(nbytes / 1e6 - want_mb) < 0.01
+    assert ops == k * ca.fused_window_step_cost(n, db, w, z)[1]
+    ms, by = ca.bound_ms(nbytes, ops)
+    assert by == "bytes"
+    if (k, db, hits) == (4, 128, None):
+        assert abs(ms * 1e3 - 3.18) < 0.01
 
 
 FAKE_NVCC = """#!/bin/sh

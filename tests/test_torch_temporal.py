@@ -423,11 +423,14 @@ def test_temporal_fleet_program_matches_jax(backend, accuracy):
 
 
 @pytest.mark.parametrize("model_mode,accuracy", [
-    (None, False), ("linear", False), ("linear", True), ("mlp", True)])
+    (None, False), ("linear", False), ("linear", True), ("mlp", True),
+    ("mlp", False)])
 @pytest.mark.parametrize("backend", ["einsum", "pallas"])
 def test_fleet_program_matches_jax(model_mode, accuracy, backend):
-    """The single-tick serial-rung program. The port's MLP computes in
-    f32, which is the JAX program's accuracy mode."""
+    """The single-tick serial-rung program. The MLP serves a bf16 trunk
+    by default and f32 in accuracy mode, in both packages. bf16: rtol
+    1e-2 with atol 1e-2 · max|watts| (operands round to bf16 after f32
+    sums taken in another order); f32: rtol 1e-4."""
     from tests.test_torch_packed import jax_params as single_tick_params
 
     port_batch, ref_batch = batches(seed=21)
@@ -445,19 +448,27 @@ def test_fleet_program_matches_jax(model_mode, accuracy, backend):
         program, port_batch, None if params is None else
         port_est.params_from_numpy(model_mode, params))
     mode = port_batch.mode if model_mode else np.zeros_like(port_batch.mode)
-    assert_fleet_results(got, want, mode, "f32")
+    bf16 = model_mode == "mlp" and not accuracy
+    assert_fleet_results(got, want, mode, "bf16" if bf16 else "f32")
 
 
 def test_accuracy_mode_predictor_sets_f32_compute_for_temporal_only():
+    """The JAX rule: every mode but "linear" is served with
+    ``compute_dtype=f32`` in accuracy mode; "linear" is left as it is."""
     seen = {}
 
     def fake(params, feats, valid, **kw):
         seen.update(kw)
         return feats
 
-    assert tcore.accuracy_mode_predictor(fake, "mlp") is fake
-    tcore.accuracy_mode_predictor(fake, "temporal")(None, 1, 2, t_valid=3)
-    assert seen == {"compute_dtype": torch.float32, "t_valid": 3}
+    assert tcore.accuracy_mode_predictor(fake, "linear") is fake
+    for mode in ("mlp", "temporal"):
+        seen.clear()
+        tcore.accuracy_mode_predictor(fake, mode)(None, 1, 2, t_valid=3)
+        assert seen == {"compute_dtype": torch.float32, "t_valid": 3}
+    seen.clear()
+    tcore.accuracy_mode_predictor(fake, "mlp")(None, 1, 2)
+    assert seen == {"compute_dtype": torch.float32}
 
 
 def test_fleet_programs_take_a_device():
