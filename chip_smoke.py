@@ -17,13 +17,22 @@ zones, buckets N = 1024, W = 256):
 2. a 50/50 ratio/MLP fleet through ``PackedWindowEngine(device="cuda",
    backend="pallas", model_mode="mlp")`` for 4 windows — kernel B1 once
    per window;
-3. the temporal fleet window (the aggregator's ``model: temporal``), a
-   50/50 ratio/temporal fleet with churn: per-node ``HistoryBuffer``s
-   accrete T = 16 ticks of features over 20 windows, the ``[N, W, T, F]``
-   windows go through ``make_temporal_fleet_program(device="cuda",
-   backend="pallas")`` and ``run_fleet_attribution`` — B1 once per
+3. the Aggregator service (``fleet.aggregator.Aggregator(device="cuda")``
+   behind a live ``APIServer``): the same ratio fleet over HTTP, one
+   ``POST /v1/reports`` batch per interval, ``aggregate_once()`` per
+   interval on the fused tier (K = 4) — B2 once per flush, the rung
+   never leaving ``packed-fused-scan``, ``GET /v1/results`` checked
+   against the published windows; then a 50/50 ratio/MLP fleet on the
+   pipelined tier (depth 2) for 8 windows with one injected
+   ``device.dispatch_error`` — B1 in every dispatched window, one
+   demotion and one re-promotion;
+4. the temporal fleet window through the same service (``model:
+   temporal``, ``history_window`` 16), a 50/50 ratio/temporal fleet with
+   churn: the ingest pushes each model node's feature history, the
+   serial rung assembles the ``[N, W, T, F]`` windows and runs
+   ``make_temporal_fleet_program(backend="pallas")`` — B1 once per
    window, B3 never (the estimator's single-query fast path);
-4. the temporal model's full-sequence trunk on the same windows,
+5. the temporal model's full-sequence trunk on the same windows,
    ``predict_temporal(..., attention_fn=pallas_attention_fn())`` (d_model
    128, 4 heads of 32) — kernel B3 once per call over 262,144 sequences,
    every launch its tensor-core variant.
@@ -36,7 +45,8 @@ SIMT variant at bf16 and f32.
 
 Every published plane and watts tensor is checked against the same
 schedule through the port on ``device="cpu"`` (a 32-node subset for the
-temporal model) and for energy conservation. Each kernel's launch count
+temporal model; the same Aggregator and fault plan for the service
+phases) and for energy conservation. Each kernel's launch count
 is set to 0 just before a path runs and read just after. Every failed
 check raises, so the run exits non-zero.
 
@@ -49,12 +59,16 @@ prints any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -64,6 +78,7 @@ ZONES = ["package", "core", "dram", "uncore"]
 FUSED_K = 4
 RATIO_INTERVALS = 8
 MIXED_WINDOWS = 4
+AGG_MIXED_WINDOWS = 8
 SEED = 20261016
 # temporal paths: history ticks (config default ``history_window``),
 # windows driven (histories go from empty to full), the node subset held
@@ -203,6 +218,9 @@ def kernel_b1(dev: torch.device) -> dict:
         "plain_ms": time_ms(lambda: ca.outer_product_attribution_ref(
             ratio, active, power)),
         "library_ms": time_ms(lambda: (
+            torch.einsum("nw,nz->nwz", ratio, active),
+            torch.einsum("nw,nz->nwz", ratio, power))),
+        "library_device_ms": device_ms(lambda: (
             torch.einsum("nw,nz->nwz", ratio, active),
             torch.einsum("nw,nz->nwz", ratio, power))),
         "bound_ms": bound, "bound_by": by, "bound_us": bound * 1e3,
@@ -348,8 +366,11 @@ def kernel_b2_flush(dev: torch.device, k: int, db: int) -> dict:
 # -- the main path --------------------------------------------------------------
 
 class Agent:
-    """One simulated node agent: v2 keyframe first, then v2 delta frames
-    against its last acknowledged keyframe."""
+    """One simulated node agent: a v2 keyframe first, then v2 delta frames
+    against that keyframe (a node agent's delta base is its last
+    acknowledged keyframe; it re-keys every 16 windows, so never here).
+    A delta is FLAG_SAME exactly when nothing changed since the
+    keyframe (``dirty`` is False)."""
 
     def __init__(self, name: str, rng: np.random.Generator,
                  mode: int = 0) -> None:
@@ -361,6 +382,7 @@ class Agent:
         self.ratio = float(rng.uniform(0.2, 0.95))
         self.mode = mode
         self.base: bytes | None = None
+        self.dirty = False
 
     def change(self) -> None:
         k = int(self.rng.integers(1, 10))
@@ -370,6 +392,7 @@ class Agent:
         self.zones = self.rng.uniform(1e8, 1.5e9, len(ZONES)).astype(
             np.float32)
         self.ratio = float(self.rng.uniform(0.2, 0.95))
+        self.dirty = True
 
     def frame(self) -> bytes:
         from kepler_tpu_torch.fleet import wire
@@ -385,21 +408,25 @@ class Agent:
             mode=self.mode,
             workload_kinds=np.full(N_WORKLOADS, 3, np.int8))
         full = wire.encode_report_v2(report, ZONES, seq=self.seq, run="r1")
-        out = full
-        if self.base is not None:
-            delta = wire.encode_delta_v2(full, self.base)
-            check(delta is not None, "agent could not encode a delta")
-            out = delta
-        self.base = full  # acknowledged at once: the next delta is vs this
-        return out
+        if self.base is None:
+            self.base = full  # acknowledged at once
+            return full
+        delta = wire.encode_delta_v2(full, self.base)
+        check(delta is not None, "agent could not encode a delta")
+        check(wire.parse_header(delta).same == (not self.dirty),
+              f"{self.name}: FLAG_SAME does not match the agent's state")
+        return delta
 
 
 class Ingest:
-    """The aggregator's decode side: keyframes and deltas → RowInputs with
-    content identity (run, content_seq), as ``fleet.aggregator`` keeps."""
+    """The aggregator's decode side for the engine-level paths: keyframes
+    and deltas (merged against the node's keyframe) → RowInputs with
+    content identity (run, content_seq), as ``fleet.aggregator`` keeps
+    them (a FLAG_SAME delta keeps its keyframe's seq)."""
 
     def __init__(self) -> None:
         self.store: dict[str, tuple] = {}  # name → (report, run, cseq)
+        self.bases: dict[str, tuple] = {}  # name → (keyframe report, seq)
 
     def receive(self, frame: bytes) -> bool:
         """→ True when the frame was a FLAG_SAME delta."""
@@ -408,14 +435,15 @@ class Ingest:
         parsed = wire.parse_header(frame)
         name = parsed.header["node_name"]
         if parsed.is_delta:
-            base, run, cseq = self.store[name]
+            base, base_seq = self.bases[name]
             report, header, changed = wire.decode_delta(
                 frame, parsed, base, tuple(ZONES))
-            if changed:
-                cseq = header["seq"]
-            self.store[name] = (report, run, cseq)
+            run = self.store[name][1]
+            self.store[name] = (report, run,
+                                header["seq"] if changed else base_seq)
             return bool(parsed.same)
         report, header = wire.decode_report(frame, parsed)
+        self.bases[name] = (report, header["seq"])
         self.store[name] = (report, header["run"], header["seq"])
         return False
 
@@ -428,16 +456,17 @@ class Ingest:
                 for n in sorted(live)]
 
 
-def ratio_schedule() -> list[list]:
-    """Per interval, the RowInputs the aggregator hands the engine: ~10%
-    of nodes change each interval, three leave at interval 3, two join
-    at interval 5, and interval 2 changes nothing (all FLAG_SAME)."""
+def ratio_frames() -> list[tuple[list[str], list[bytes]]]:
+    """Per interval, the live nodes and their wire-v2 frames: keyframes
+    at interval 0 (and from the two nodes that join at interval 5),
+    deltas otherwise; ~10% of nodes change each interval, three leave at
+    interval 3, and interval 2 changes nothing — its deltas are
+    FLAG_SAME for every node not changed since its keyframe."""
     rng = np.random.default_rng(SEED)
     agents = {f"node-{i:04d}": Agent(f"node-{i:04d}", rng)
               for i in range(N_NODES)}
-    ingest = Ingest()
     live = list(agents)
-    windows = []
+    out = []
     for t in range(RATIO_INTERVALS):
         if t == 3:
             for name in live[10:13]:
@@ -450,9 +479,20 @@ def ratio_schedule() -> list[list]:
         if t > 0 and t != 2:
             for name in rng.choice(live, len(live) // 10, replace=False):
                 agents[name].change()
-        same = [ingest.receive(agents[name].frame()) for name in live]
+        out.append((list(live), [agents[name].frame() for name in live]))
+    return out
+
+
+def ratio_schedule() -> list[list]:
+    """Per interval, the RowInputs the aggregator hands the engine, from
+    ``ratio_frames``."""
+    ingest = Ingest()
+    windows = []
+    for t, (live, frames) in enumerate(ratio_frames()):
+        same = [ingest.receive(frame) for frame in frames]
         if t == 2:
-            check(all(same), "interval 2 must be all FLAG_SAME deltas")
+            check(sum(same) >= len(live) * 3 // 4,
+                  "interval 2 must be mostly FLAG_SAME deltas")
         windows.append(ingest.rows(live))
     return windows
 
@@ -581,24 +621,29 @@ def main_ratio(dev: torch.device) -> dict:
     return row
 
 
-def main_mixed(dev: torch.device) -> dict:
-    """Main path 2: 50/50 ratio/MLP fleet through the packed engine, B1
-    in every window."""
-    from kepler_tpu_torch.fleet import wire
-    from kepler_tpu_torch.fleet.window import (PackedWindowEngine,
-                                               fetch_plane)
+def mlp_params(seed: int) -> dict:
+    """init_mlp from ``seed`` with a non-zero output head (init zeroes
+    it), drawn from the same generator."""
     from kepler_tpu_torch.models.mlp import init_mlp
-    from kepler_tpu_torch.ops import cuda_attribution as ca
-    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
 
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator().manual_seed(seed)
     params = init_mlp(len(ZONES), generator=gen)
-    # a non-zero output head (init zeroes it), drawn from the same seed
     params["w2"] = torch.randn(params["w2"].shape, generator=gen) * 0.05
     params["w_skip"] = torch.randn(params["w_skip"].shape,
                                    generator=gen) * 0.01
     params["b2"] = torch.full_like(params["b2"], 0.5)
+    return params
 
+
+def main_mixed(dev: torch.device) -> dict:
+    """Main path 2: 50/50 ratio/MLP fleet through the packed engine, B1
+    in every window."""
+    from kepler_tpu_torch.fleet.window import (PackedWindowEngine,
+                                               fetch_plane)
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    params = mlp_params(SEED)
     rng = np.random.default_rng(SEED + 1)
     agents = [Agent(f"node-{i:04d}", rng, mode=MODE_MODEL if i % 2 else 0)
               for i in range(N_NODES)]
@@ -672,18 +717,12 @@ def main_serial_mlp(dev: torch.device) -> dict:
     (``make_fleet_program(model_mode="mlp")``) on the card against the
     CPU: the default bf16 trunk within rtol 1e-2 and atol 1e-2 ·
     max|watts|, accuracy mode (f32) within rtol 1e-4; ratio rows equal."""
-    from kepler_tpu_torch.models.mlp import init_mlp
     from kepler_tpu_torch.parallel import (assemble_fleet_batch,
                                            make_fleet_program,
                                            run_fleet_attribution)
     from kepler_tpu_torch.parallel.fleet import MODE_MODEL
 
-    gen = torch.Generator().manual_seed(SEED + 3)
-    params = init_mlp(len(ZONES), generator=gen)
-    params["w2"] = torch.randn(params["w2"].shape, generator=gen) * 0.05
-    params["w_skip"] = torch.randn(params["w_skip"].shape,
-                                   generator=gen) * 0.01
-    params["b2"] = torch.full_like(params["b2"], 0.5)
+    params = mlp_params(SEED + 3)
     rng = np.random.default_rng(SEED + 3)
     agents = [Agent(f"node-{i:04d}", rng, mode=MODE_MODEL if i % 2 else 0)
               for i in range(CPU_NODES)]
@@ -710,6 +749,440 @@ def main_serial_mlp(dev: torch.device) -> dict:
         check(np.array_equal(out[0][~model], out[1][~model]),
               f"serial-rung ratio rows ({what}) differ from the CPU")
         row[f"{what}_max_abs_w"] = float(np.abs(a - b).max())
+    emit(row)
+    return row
+
+
+# -- the Aggregator service -----------------------------------------------------
+
+# the aggregator's per-interval legs, as its ``_stats`` report them
+LEG_KEYS = ("last_assembly_ms", "last_dispatch_ms", "last_wait_ms",
+            "last_fetch_ms", "last_scatter_ms", "last_sync_per_window_ms",
+            "last_attribution_ms", "last_h2d_rows")
+
+
+def make_aggregator(dev, **kw):
+    """``Aggregator`` on ``dev`` at the north-star buckets, behind an
+    ``APIServer`` on 127.0.0.1:0, on a fake clock that the caller moves 5
+    s per interval (a node that skips an interval ages out: stale_after
+    4 s). Every published window is recorded in order, as a copy that
+    holds no pinned host memory: the aggregator itself keeps only its
+    latest window, so the pinned buffers its fetches land in go back to
+    PyTorch's host allocator and are reused, and the recorded legs are
+    those a running service sees.
+    → (aggregator, server, clock ticks, published windows)."""
+    from kepler_tpu_torch.fleet.aggregator import Aggregator
+    from kepler_tpu_torch.server.http import APIServer
+
+    ticks = [1e9]
+    server = APIServer(["127.0.0.1:0"])
+    agg = Aggregator(server, device=dev, clock=lambda: ticks[0],
+                     stale_after=4.0, skew_tolerance=0.0,
+                     node_bucket=N_NODES, workload_bucket=256, **kw)
+    agg.init()
+    published: list = []
+    publish = agg._publish
+
+    def record(pending):
+        res = publish(pending)
+        kept = copy.copy(res)
+        for name in type(res).__slots__:
+            value = getattr(res, name)
+            if isinstance(value, np.ndarray):
+                setattr(kept, name, value.copy())
+        published.append(kept)
+        return res
+
+    agg._publish = record
+    return agg, server, ticks, published
+
+
+@contextlib.contextmanager
+def serving(server):
+    """Run ``server`` on a thread → its base URL; stopped on exit."""
+    from kepler_tpu_torch.service.lifecycle import CancelContext
+
+    server.init()
+    ctx = CancelContext()
+    thread = threading.Thread(target=server.run, args=(ctx,), daemon=True)
+    thread.start()
+    try:
+        host, port = server.addresses[0]
+        yield f"http://{host}:{port}"
+    finally:
+        ctx.cancel()
+        thread.join(timeout=30)
+
+
+def http(base: str, path: str, body: bytes | None = None) -> bytes:
+    req = urllib.request.Request(base + path, data=body,
+                                 method="POST" if body else "GET")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        check(resp.status in (200, 204), f"{path}: HTTP {resp.status}")
+        return resp.read()
+
+
+def ingest_direct(agg, frames: list[bytes]) -> None:
+    """The same frames through the aggregator's ingest, without HTTP."""
+    for frame in frames:
+        status = agg._ingest_payload(frame)[0]
+        check(status == 204, f"ingest answered {status}")
+
+
+def same_window(got, ref, what: str, model_rtol: float | None = None) -> int:
+    """A published window against the CPU run's: ratio rows bit-equal
+    (f16 plane, node power, node energy, cumulative joules), model rows
+    within ``model_rtol`` (atol 1e-3 W) on the f16 plane. → ratio rows
+    compared."""
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    check(got.timestamp == ref.timestamp and sorted(got.names)
+          == sorted(ref.names), f"{what}: another window than the CPU's")
+    n_ratio = 0
+    for name in ref.names:
+        i, j = got.rows[name], ref.rows[name]
+        a = got._wl_watts_f16[i].astype(np.float32)
+        b = ref._wl_watts_f16[j].astype(np.float32)
+        check(np.isfinite(a).all(), f"{what}: {name} non-finite watts")
+        if int(ref.mode[j]) == MODE_MODEL:
+            check(np.allclose(a, b, rtol=model_rtol, atol=1e-3),
+                  f"{what}: model row {name} off the CPU by "
+                  f"{float(np.abs(a - b).max())} W")
+            continue
+        n_ratio += 1
+        check(np.array_equal(a, b)
+              and np.array_equal(got.node_power_uw[i], ref.node_power_uw[j])
+              and np.array_equal(got.node_energy_uj[i],
+                                 ref.node_energy_uj[j])
+              and np.array_equal(got.node_joules_total[i],
+                                 ref.node_joules_total[j]),
+              f"{what}: ratio row {name} differs from the CPU run")
+    return n_ratio
+
+
+def window_conservation(res, reports: dict) -> float:
+    """Σ workload watts == node ACTIVE watts on ratio nodes of a
+    published window (f16 sums: 2e-3 relative), and node power equals
+    the RAPL delta over dt (f64 here, rtol 1e-3). The window's zone axis
+    is the sorted union of the reported zones."""
+    worst = 0.0
+    for name in res.names:
+        i = res.rows[name]
+        rep = reports[name]
+        total = res.node_power_uw[i].astype(np.float64) * 1e-6
+        zone = dict(zip(ZONES, np.asarray(rep.zone_deltas_uj, np.float64)))
+        want = np.asarray([zone[z] for z in res.zones]) / 5.0 * 1e-6
+        check(np.allclose(total, want, rtol=1e-3),
+              f"node power of {name} off the RAPL delta")
+        wl = res._wl_watts_f16[i, :res.counts[i]].astype(np.float64)
+        active = want * min(max(rep.usage_ratio, 0.0), 1.0)
+        rel = np.abs(wl.sum(axis=0) - active) / np.maximum(active, 1e-3)
+        worst = max(worst, float(rel.max()))
+    check(worst <= 2e-3, f"conservation off by {worst:.2e} relative")
+    return worst
+
+
+class GcClock:
+    """Host ms the interpreter's cyclic garbage collector ran while
+    installed (``gc.callbacks``), any thread."""
+
+    def __init__(self) -> None:
+        self.ms = 0.0
+        self._start: float | None = None
+
+    def __call__(self, phase: str, _info: dict) -> None:
+        if phase == "start":
+            self._start = time.perf_counter()
+        elif self._start is not None:
+            self.ms += (time.perf_counter() - self._start) * 1e3
+            self._start = None
+
+
+def serve_intervals(agg, server, ticks, intervals: list,
+                    after=None) -> tuple[list, list]:
+    """Serve ``agg`` over HTTP and drive ``intervals``: one ``POST
+    /v1/reports`` batch per interval, then ``aggregate_once()``;
+    ``after(base)`` runs against the live server at the end.
+    → (the aggregator's legs per interval with the garbage collector's
+    ms during the ingest, HTTP ingest seconds)."""
+    import gc
+
+    from kepler_tpu_torch.fleet import wire
+
+    legs, ingest_s = [], []
+    with serving(server) as base:
+        for _live, frames in intervals:
+            ticks[0] += 5.0
+            batch = wire.encode_report_batch(frames)
+            clock = GcClock()
+            gc.callbacks.append(clock)
+            t0 = time.perf_counter()
+            try:
+                body = http(base, "/v1/reports", batch)
+            finally:
+                ingest_s.append(time.perf_counter() - t0)
+                gc.callbacks.remove(clock)
+            statuses = {r["status"] for r in json.loads(body)["results"]}
+            check(statuses == {204}, f"batch ingest answered {statuses}")
+            agg.aggregate_once()
+            legs.append({**{k: agg._stats[k] for k in LEG_KEYS},
+                         "ingest_gc_ms": clock.ms})
+        torch.cuda.synchronize()
+        if after is not None:
+            after(base)
+    return legs, ingest_s
+
+
+def pinned_alloc_ms(shape: tuple, n: int = 3) -> list[float]:
+    """Host ms of ``n`` pinned f16 allocations of ``shape`` held at once
+    (each one page-locks fresh memory), then of one more after they are
+    released (served from the host allocator's cache)."""
+    held, out = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        held.append(torch.empty(shape, dtype=torch.float16, pin_memory=True))
+        out.append((time.perf_counter() - t0) * 1e3)
+    del held
+    t0 = time.perf_counter()
+    torch.empty(shape, dtype=torch.float16, pin_memory=True)
+    out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def main_aggregator_fused(dev: torch.device) -> dict:
+    """The Aggregator service on the fused tier: ``ratio_frames`` over
+    real HTTP (one ``POST /v1/reports`` batch per interval) into
+    ``Aggregator(backend="pallas", model_mode=None, fused_window_k=4)``
+    and ``aggregate_once()`` per interval — kernel B2 once per flush."""
+    from kepler_tpu_torch.fleet import wire
+
+    intervals = ratio_frames()
+    kw = dict(backend="pallas", model_mode=None, fused_window_k=FUSED_K)
+    cpu, _, cpu_ticks, cpu_pub = make_aggregator("cpu", **kw)
+    snapshots = []
+    for _live, frames in intervals:
+        cpu_ticks[0] += 5.0
+        ingest_direct(cpu, frames)
+        snapshots.append({n: s.report for n, s in cpu._reports.items()})
+        cpu.aggregate_once()
+    check(len(cpu_pub) == RATIO_INTERVALS, "the CPU run skipped a window")
+
+    agg, server, ticks, published = make_aggregator(dev, **kw)
+    queried: list[str] = []
+
+    def query(base: str) -> None:
+        last = published[-1]
+        queried.extend([last.names[0], last.names[len(last.names) // 2],
+                        "join-1"])
+        for name in queried:
+            got = json.loads(http(base, f"/v1/results?node={name}"))
+            check(got == json.loads(json.dumps(last.render_node(name))),
+                  f"/v1/results?node={name} differs from the window")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    legs, ingest_s = serve_intervals(agg, server, ticks, intervals, query)
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    health = agg.window_health()
+    check(launches["fused_window_step"] == RATIO_INTERVALS // FUSED_K,
+          f"B2 launched {launches['fused_window_step']} times in "
+          f"{RATIO_INTERVALS} intervals")
+    check(launches["outer_product_attribution"] == 0
+          and launches["flash_block"] == 0, "the fused tier ran B1 or B3")
+    check(health["rung_name"] == "packed-fused-scan"
+          and agg._stats["window_demotions_total"] == 0
+          and not agg._rung_timeline, f"the ladder moved: {health}")
+    check(len(published) == RATIO_INTERVALS, "not every interval published")
+    worst = 0.0
+    for t, (got, ref) in enumerate(zip(published, cpu_pub)):
+        same_window(got, ref, f"interval {t}")
+        worst = max(worst, window_conservation(got, snapshots[t]))
+    # the same schedule through a second service in this warm process
+    # (kernels loaded, the host allocator holding pinned blocks): the
+    # legs a running service sees after its first flushes
+    del agg, server, published
+    warm_legs, warm_ingest_s = serve_intervals(*make_aggregator(dev, **kw)[:3],
+                                               intervals)
+    row = {"phase": "main_aggregator_fused", "nodes": N_NODES,
+           "workloads": N_WORKLOADS, "zones": len(ZONES), "k": FUSED_K,
+           "intervals": RATIO_INTERVALS, "launches": launches,
+           "rung": health["rung_name"], "max_conservation_rel": worst,
+           "results_queried": queried, "first_run_s": wall_s,
+           "http_ingest_s": ingest_s, "legs_ms_per_interval": legs,
+           "warm_http_ingest_s": warm_ingest_s,
+           "warm_legs_ms_per_interval": warm_legs,
+           "pinned_alloc_ms": pinned_alloc_ms((FUSED_K, N_NODES, 258,
+                                               len(ZONES))),
+           "batch_bytes": [len(wire.encode_report_batch(f))
+                           for _, f in intervals[:3]]}
+    emit(row)
+    return row
+
+
+def main_aggregator_mixed(dev: torch.device) -> dict:
+    """The Aggregator on the pipelined tier with a 50/50 ratio/MLP fleet
+    (``pipeline_depth=2``, ``backend="pallas"``): B1 in every dispatched
+    window; one injected ``device.dispatch_error`` demotes one rung and
+    the ladder re-promotes after ``repromote_after=2`` clean windows."""
+    from kepler_tpu_torch import fault
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    params = mlp_params(SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    agents = [Agent(f"node-{i:04d}", rng, mode=MODE_MODEL if i % 2 else 0)
+              for i in range(N_NODES)]
+    intervals = []
+    for t in range(AGG_MIXED_WINDOWS):
+        if t:
+            for a in rng.choice(agents, N_NODES // 10, replace=False):
+                a.change()
+        intervals.append([a.frame() for a in agents])
+    kw = dict(backend="pallas", model_mode="mlp", model_params=params,
+              pipeline_depth=2, repromote_after=2)
+    spec = fault.FaultSpec(site="device.dispatch_error", skip=2, count=1)
+
+    def run(device, on_card: bool):
+        agg, _, ticks, published = make_aggregator(device, **kw)
+        calls, legs = [], []
+        with fault.installed(fault.FaultPlan([spec])) as plan:
+            if on_card:
+                reset_launches()
+            for frames in intervals:
+                ticks[0] += 5.0
+                ingest_direct(agg, frames)
+                calls.append(agg.aggregate_once() is not None)
+                legs.append({k: agg._stats[k] for k in LEG_KEYS})
+            agg._drain_pipeline()
+            if on_card:
+                torch.cuda.synchronize()
+                launches = read_launches()
+        check(plan.fired("device.dispatch_error") == 1,
+              "the injected dispatch error did not fire once")
+        return agg, published, calls, legs, (launches if on_card else None)
+
+    cpu, cpu_pub, cpu_calls, _, _ = run("cpu", False)
+    t0 = time.perf_counter()
+    agg, published, calls, legs, launches = run(dev, True)
+    wall_s = time.perf_counter() - t0
+    check(launches["outer_product_attribution"] == AGG_MIXED_WINDOWS,
+          f"B1 launched {launches['outer_product_attribution']} times for "
+          f"{AGG_MIXED_WINDOWS} dispatched windows")
+    check(launches["fused_window_step"] == 0, "the mixed tier ran B2")
+    check(agg._demotions_by_reason == {"dispatch_error": 1}
+          and agg._stats["window_repromotions_total"] == 1
+          and agg.window_health()["rung_name"] == "packed-pipelined",
+          f"ladder: {agg._demotions_by_reason}, "
+          f"{agg._stats['window_repromotions_total']} repromotions")
+    # every call publishes but the pipeline's fill slots (at start and
+    # right after the re-promotion), exactly as on the CPU
+    gaps = [i for i, ok in enumerate(calls) if not ok]
+    check(calls == cpu_calls and gaps == [0, 2 + 2],
+          f"publish gaps {gaps} (CPU: {cpu_calls})")
+    check(len(published) == len(cpu_pub), "published count differs")
+    ratio_rows = sum(same_window(got, ref, f"window {t}", model_rtol=1e-3)
+                     for t, (got, ref) in enumerate(zip(published,
+                                                        cpu_pub)))
+    model_w = max(float(np.abs(r._wl_watts_f16[r.mode == MODE_MODEL]).max())
+                  for r in published)
+    check(model_w > 0.1, "model rows are all ~zero")
+    row = {"phase": "main_aggregator_mixed", "nodes": N_NODES,
+           "workloads": N_WORKLOADS, "zones": len(ZONES),
+           "windows": AGG_MIXED_WINDOWS, "launches": launches,
+           "published": len(published), "publish_gaps": gaps,
+           "ratio_rows_bit_equal": ratio_rows,
+           "timeline": [{k: e[k] for k in ("rung_name", "from_rung_name",
+                                           "reason")}
+                        for e in agg._rung_timeline],
+           "first_run_s": wall_s, "legs_ms_per_window": legs}
+    emit(row)
+    return row
+
+
+def main_aggregator_cmd() -> dict:
+    """The aggregator binary on the card: ``python -m
+    kepler_tpu_torch.cmd.aggregator`` (flags only, ``/metrics`` off, the
+    default 5 s interval, depth 1, ratio model), 64 nodes POST one
+    wire-v2 keyframe each, ``/v1/results`` answers for them after the
+    next window, and SIGTERM shuts the process down cleanly."""
+    import signal
+    import socket
+
+    from kepler_tpu_torch.fleet import wire
+    from kepler_tpu_torch.parallel.fleet import NodeReport
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    cmd = [sys.executable, "-m", "kepler_tpu_torch.cmd.aggregator",
+           "--tpu.fleet-backend", "pallas", "--aggregator.model", "",
+           "--aggregator.pipeline-depth", "1", "--no-exporter.prometheus",
+           "--aggregator.listen-address", f"127.0.0.1:{port}"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.perf_counter() + 120
+        while True:  # the binary builds (or finds) the kernels at init
+            check(proc.poll() is None, "the aggregator binary exited")
+            try:
+                http(base, "/readyz")
+                break
+            except OSError:
+                check(time.perf_counter() < deadline, "binary never ready")
+                time.sleep(0.25)
+        ready_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 5)
+        names = [f"node-{i:04d}" for i in range(64)]
+        for name in names:
+            cpu = rng.uniform(0.05, 5.0, N_WORKLOADS).astype(np.float32)
+            report = NodeReport(
+                node_name=name,
+                zone_deltas_uj=rng.uniform(1e8, 1.5e9, len(ZONES)).astype(
+                    np.float32),
+                zone_valid=np.ones(len(ZONES), bool),
+                usage_ratio=float(rng.uniform(0.2, 0.95)), cpu_deltas=cpu,
+                workload_ids=[f"{name}/pod-{i}" for i in range(N_WORKLOADS)],
+                node_cpu_delta=float(cpu.sum(dtype=np.float32)), dt_s=5.0,
+                workload_kinds=np.full(N_WORKLOADS, 3, np.int8))
+            http(base, "/v1/report",
+                 wire.encode_report_v2(report, ZONES, seq=1, run="r1"))
+        t1 = time.perf_counter()
+        while True:  # one window after the next 5 s tick
+            try:
+                node = json.loads(http(base, f"/v1/results?node={names[7]}"))
+                break
+            except OSError:
+                check(time.perf_counter() < t1 + 30, "no window published")
+                time.sleep(0.25)
+        first_window_s = time.perf_counter() - t1
+        watts = np.asarray([w["power_uw"] for w in node["workloads"]])
+        check(watts.shape == (N_WORKLOADS, len(ZONES))
+              and np.isfinite(watts).all() and watts.sum() > 0,
+              "the binary published no watts")
+        window = json.loads(http(base, "/debug/window"))
+        health = json.loads(http(base, "/healthz"))
+        check(window["rung_name"] == "packed-pipelined"
+              and window["stats"]["last_batch_nodes"] == len(names),
+              f"binary window: {window['rung_name']}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    check(proc.returncode == 0 and "Graceful shutdown completed" in out,
+          f"binary exit {proc.returncode}: {out[-500:]}")
+    row = {"phase": "main_aggregator_cmd", "nodes": len(names),
+           "ready_s": ready_s, "first_window_s": first_window_s,
+           "rung": window["rung_name"], "healthz_ok": health.get("status"),
+           "exit": proc.returncode,
+           "device_line": [ln for ln in out.splitlines()
+                           if "aggregator" in ln and " on " in ln][:1]}
     emit(row)
     return row
 
@@ -754,21 +1227,27 @@ def b3_check(got, want, v: torch.Tensor, cd: torch.dtype,
     return max(errs)
 
 
-def sdpa_ms(q, k, v, valid) -> tuple[float | None, str | None]:
+def sdpa_ms(q, k, v, valid) -> tuple[float | None, float | None,
+                                       str | None]:
     """``scaled_dot_product_attention`` on the same f32 inputs (causal
     and KV-validity mask) — the yardstick for ``full_attention_pallas``;
-    the port never calls it. → (ms, None) or (None, why it did not run)."""
+    the port never calls it. → (ms, device ms, None) or (None, None, why
+    it did not run)."""
     import torch.nn.functional as F
 
     t = q.shape[1]
     causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
     mask = valid[:, None, None, :] & causal
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
     try:
-        return time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), reps=5, batch=4), None
+        return (time_ms(call, reps=5, batch=4), device_ms(call, calls=4),
+                None)
     except RuntimeError as err:  # a yardstick only: record why
-        return None, str(err).splitlines()[0][:200]
+        return None, None, str(err).splitlines()[0][:200]
 
 
 def b3_variant_since(before: dict) -> str:
@@ -821,7 +1300,7 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
     acc = lambda: cat.flash_block_pallas(  # noqa: E731
         q, k, v, valid, 0, 0, compute_dtype=f32)
     plain = lambda: cat.flash_block_ref(q, k, v, valid, 0, 0)  # noqa: E731
-    lib_ms, lib_err = sdpa_ms(q, k, v, valid)
+    lib_ms, lib_device_ms, lib_err = sdpa_ms(q, k, v, valid)
     row = {
         "name": "flash_block", "route": "cuda",
         "source": "kepler_tpu_torch/ops/csrc/attention.cu",
@@ -840,7 +1319,8 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
         "f32_max_abs_err": f32_err,
         "plain_ms": time_ms(plain, reps=3, batch=2),
         "plain_device_ms": device_ms(plain, calls=2),
-        "library_ms": lib_ms, "library": "torch.nn.functional."
+        "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+        "library": "torch.nn.functional."
         "scaled_dot_product_attention (f32, causal & KV mask)",
         "bound_ms": bound, "bound_by": by,
         "compiled": {"tc": cat.flash_block_info("tc", t, d),
@@ -902,44 +1382,6 @@ def temporal_schedule() -> list[list]:
                 workload_kinds=np.full(len(live), 3, np.int8)))
         windows.append(reports)
     return windows
-
-
-class HistoryStore:
-    """The aggregator's per-node feature history: ``push`` is
-    ``Aggregator._push_history``, ``windows`` is ``_history_windows``."""
-
-    def __init__(self) -> None:
-        self.buffers: dict = {}
-
-    def push(self, report) -> None:
-        from kepler_tpu_torch.monitor.history import HistoryBuffer
-        from kepler_tpu_torch.resource.informer import FeatureBatch
-
-        buf = self.buffers.get(report.node_name)
-        if buf is None:
-            buf = self.buffers[report.node_name] = HistoryBuffer(
-                window=HISTORY_T)
-        buf.push(FeatureBatch(
-            kinds=report.workload_kinds, ids=list(report.workload_ids),
-            cpu_deltas=np.asarray(report.cpu_deltas, np.float32),
-            node_cpu_delta=float(report.node_cpu_delta),
-            usage_ratio=float(report.usage_ratio)), dt_s=float(report.dt_s))
-
-    def windows(self, batch) -> tuple[np.ndarray, np.ndarray]:
-        from kepler_tpu_torch.models.features import NUM_FEATURES
-
-        n, w = batch.cpu_deltas.shape
-        hist = np.zeros((n, w, HISTORY_T, NUM_FEATURES), np.float32)
-        tv = np.zeros((n, w, HISTORY_T), bool)
-        for i in range(batch.n_nodes):
-            ids = batch.workload_ids[i]
-            buf = self.buffers.get(batch.node_names[i])
-            if buf is None or not ids:
-                continue
-            f, v = buf.window_arrays(ids)
-            hist[i, :len(ids)] = f
-            tv[i, :len(ids)] = v
-        return hist, tv
 
 
 def temporal_params() -> dict:
@@ -1018,48 +1460,53 @@ def profile_top(fn, k: int = 8, match: str | None = None) -> dict:
 
 
 def main_temporal_fleet(dev: torch.device) -> tuple[dict, list, dict, list]:
-    """Main path 3: the temporal fleet window, B1 in every window, B3
-    never. → (row, per-window (batch, feat_hist, t_valid), params,
-    per-window FleetResult on the host)."""
-    from kepler_tpu_torch.parallel import (assemble_fleet_batch,
-                                           make_temporal_fleet_program,
+    """Main path 4: the temporal fleet window through the Aggregator
+    service (``model_mode="temporal"``, ``backend="pallas"``,
+    ``history_window=16``): each window's reports ingest as wire-v2
+    keyframes (the ingest pushes every model node's feature history),
+    then ``aggregate_once()`` runs the serial rung — B1 in every window,
+    B3 never. → (row, per-window (batch, feat_hist, t_valid) as the
+    aggregator dispatched them, params, per-window published workload
+    watts in µW)."""
+    from kepler_tpu_torch.fleet import wire
+    from kepler_tpu_torch.parallel import (make_temporal_fleet_program,
                                            run_fleet_attribution)
     from kepler_tpu_torch.parallel.fleet import MODE_MODEL
 
     t0 = time.perf_counter()
     windows = temporal_schedule()
+    frames = [[wire.encode_report_v2(r, ZONES, seq=t + 1, run="r1")
+               for r in reports] for t, reports in enumerate(windows)]
     schedule_s = time.perf_counter() - t0
     params = temporal_params()
+    agg, _, ticks, published = make_aggregator(
+        dev, backend="pallas", model_mode="temporal",
+        history_window=HISTORY_T, model_params=params)
     program = make_temporal_fleet_program(device=dev, backend="pallas")
-    store = HistoryStore()
-    legs = {k: [] for k in ("push", "assemble", "upload", "program",
-                            "fetch")}
-    saved, outs = [], []
+    saved = []
+    dispatch = agg._dispatch_legacy
+
+    def keep(*args):
+        pending = dispatch(*args)
+        saved.append((pending.batch, pending.feat_hist, pending.t_valid))
+        return pending
+
+    agg._dispatch_legacy = keep
+    legs = {k: [] for k in ("ingest", "assembly", "dispatch", "wait",
+                            "scatter", "window")}
     reset_launches()
-    for reports in windows:
+    for batch_frames in frames:
+        ticks[0] += 5.0
         t0 = time.perf_counter()
-        for report in reports:
-            store.push(report)
+        ingest_direct(agg, batch_frames)
         t1 = time.perf_counter()
-        batch = assemble_fleet_batch(reports, n_zones=len(ZONES),
-                                     node_bucket=N_NODES,
-                                     workload_bucket=256)
-        hist, tv = store.windows(batch)
+        check(agg.aggregate_once() is not None, "a window did not publish")
         t2 = time.perf_counter()
-        hist_d, tv_d = torch.from_numpy(hist).to(dev), torch.from_numpy(
-            tv).to(dev)
-        sync()
-        t3 = time.perf_counter()
-        res = run_fleet_attribution(program, batch, params, hist_d, tv_d)
-        sync()
-        t4 = time.perf_counter()
-        outs.append(host_result(res))
-        t5 = time.perf_counter()
-        for name, dt in zip(legs, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
-                                   t5 - t4)):
-            legs[name].append(dt * 1e3)
-        saved.append((batch, hist, tv))
-        del hist_d, tv_d, res
+        legs["ingest"].append((t1 - t0) * 1e3)
+        legs["window"].append((t2 - t1) * 1e3)
+        for k in ("assembly", "dispatch", "wait", "scatter"):
+            legs[k].append(agg._stats[f"last_{k}_ms"])
+    sync()
     launches = read_launches()
     check(launches["outer_product_attribution"] == TEMPORAL_WINDOWS,
           f"B1 launched {launches['outer_product_attribution']} times in "
@@ -1067,28 +1514,36 @@ def main_temporal_fleet(dev: torch.device) -> tuple[dict, list, dict, list]:
     check(launches["flash_block"] == 0, "the temporal fleet path ran B3")
     check(launches["fused_window_step"] == 0,
           "the temporal fleet path ran B2")
+    check(len(published) == len(saved) == TEMPORAL_WINDOWS
+          and agg._stats["window_demotions_total"] == 0,
+          "the temporal windows did not all publish at rung 0")
+    outs = [r.wl_power_uw for r in published]
 
-    # the same schedule: einsum backend on the card (ratio rows equal),
+    # the same windows: einsum backend on the card (ratio rows equal),
     # and the plain versions on the CPU over a node subset
     einsum = make_temporal_fleet_program(device=dev, backend="einsum")
     on_cpu = make_temporal_fleet_program(device="cpu", backend="pallas")
     worst = {"model_rel_vs_cpu": 0.0, "model_abs_vs_cpu_w": 0.0,
              "conservation_rel": 0.0}
-    for t, ((batch, hist, tv), out) in enumerate(zip(saved, outs)):
+    for t, ((batch, hist, tv), res) in enumerate(zip(saved, published)):
         model = batch.mode == MODE_MODEL
         ratio = ~model
-        check(all(np.isfinite(x).all() for x in out),
-              f"window {t}: non-finite FleetResult")
+        # the four arrays the aggregator fetches, in FleetResult order
+        out = {0: res.node_energy_uj, 3: res.node_power_uw,
+               6: res.wl_energy_uj, 7: res.wl_power_uw}
+        check(all(np.isfinite(x).all() for x in out.values()),
+              f"window {t}: non-finite published window")
         ref = host_result(run_fleet_attribution(einsum, batch, params,
                                                 hist, tv))
-        check(all(np.array_equal(a[ratio], b[ratio])
-                  for a, b in zip(out, ref)),
+        check(all(np.array_equal(a[ratio], ref[k][ratio])
+                  for k, a in out.items()),
               f"window {t}: ratio rows differ from the einsum program")
         wl_w = out[7] * 1e-6  # workload_power_uw → W
         check(float(wl_w[model].max()) > 0.1,
               f"window {t}: model rows are all ~zero")
         live = ratio & (batch.node_cpu_delta > 0)
-        active = out[4][live].astype(np.float64)  # node_active_power_uw
+        share = np.clip(batch.usage_ratio[live], 0.0, 1.0)[:, None]
+        active = out[3][live].astype(np.float64) * share
         summed = out[7][live].astype(np.float64).sum(axis=1)
         rel = np.abs(summed - active) / np.maximum(np.abs(active), 1.0)
         worst["conservation_rel"] = max(worst["conservation_rel"],
@@ -1134,7 +1589,8 @@ def main_temporal_fleet(dev: torch.device) -> tuple[dict, list, dict, list]:
            "workloads": N_WORKLOADS, "zones": len(ZONES),
            "history_t": HISTORY_T, "windows": TEMPORAL_WINDOWS,
            "launches": launches, "worst": worst,
-           "schedule_s": schedule_s,
+           "rung": agg.window_health()["rung_name"],
+           "schedule_and_encode_s": schedule_s,
            "leg_ms_per_window": {k: statistics.median(v[steady])
                                  for k, v in legs.items()},
            "leg_ms_window_0": {k: v[0] for k, v in legs.items()},
@@ -1146,7 +1602,7 @@ def main_temporal_fleet(dev: torch.device) -> tuple[dict, list, dict, list]:
 
 def main_temporal_trunk(dev: torch.device, saved: list,
                         params: dict, fleet_outs: list) -> dict:
-    """Main path 4: the full-sequence trunk through B3 on path 3's
+    """Main path 5: the full-sequence trunk through B3 on path 4's
     windows, once per window."""
     from kepler_tpu_torch.models.temporal import predict_temporal
     from kepler_tpu_torch.ops.cuda_attention import pallas_attention_fn
@@ -1187,7 +1643,7 @@ def main_temporal_trunk(dev: torch.device, saved: list,
     for t, ((batch, hist, tv), w) in enumerate(zip(saved, watts)):
         check(np.isfinite(w).all(), f"trunk window {t}: non-finite watts")
         model = batch.mode == MODE_MODEL
-        fast = fleet_outs[t][7][model] * 1e-6
+        fast = fleet_outs[t][model] * 1e-6
         diff = float(np.abs(w[model] - fast).max())
         # bf16 operands round at other places in the two paths (softmax
         # probabilities vs B3's unnormalised p): 1e-2 · max|watts|
@@ -1270,16 +1726,24 @@ def main() -> int:
     b2_flush = kernel_b2_flush(dev, FUSED_K, main_db)
     mixed = main_mixed(dev)
     main_serial_mlp(dev)
+    agg_fused = main_aggregator_fused(dev)
+    agg_mixed = main_aggregator_mixed(dev)
+    main_aggregator_cmd()
     fleet, saved, params, outs = main_temporal_fleet(dev)
     trunk = main_temporal_trunk(dev, saved, params, outs)
 
     b1["launches_by_path"] = {
         "main_mixed": mixed["launches"]["outer_product_attribution"],
+        "main_aggregator_mixed":
+            agg_mixed["launches"]["outer_product_attribution"],
         "main_temporal_fleet":
             fleet["launches"]["outer_product_attribution"]}
     b1["launches"] = sum(b1["launches_by_path"].values())
     b2 = dict(b2_flush)  # the main path's call: one launch per flush
-    b2["launches"] = ratio["launches"]["fused_window_step"]
+    b2["launches_by_path"] = {
+        "main_ratio_fused": ratio["launches"]["fused_window_step"],
+        "main_aggregator_fused": agg_fused["launches"]["fused_window_step"]}
+    b2["launches"] = sum(b2["launches_by_path"].values())
     b2["by_db"] = {str(db): {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "device_ms": r["device_ms"],
                              "bound_ms": r["bound_ms"]}
@@ -1294,11 +1758,13 @@ def main() -> int:
     b3["by_shape"] = {f"B{r['shape']['B']}_T{r['shape']['Tq']}": {
         k: r[k] for k in ("ms", "device_ms", "simt_bf16_device_ms",
                           "f32_device_ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms", "max_abs_err")}
+                          "bound_by", "library_ms", "library_device_ms",
+                          "max_abs_err")}
         for r in b3_rows}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "device_ms", "plain_device_ms", "shape", "by_db",
+            "library_ms", "library_device_ms", "device_ms",
+            "plain_device_ms", "shape", "by_db",
             "by_k", "by_shape", "launches_by_path", "launches_by_variant")
     print(smi, flush=True)
     emit({"kernels": [{k: row[k] for k in keys if k in row}

@@ -1,1 +1,38 @@
-"""Fleet path: wire frames and the device-resident window engines."""
+"""Fleet plane: wire frames, the device-resident window engines and the
+cluster ``Aggregator`` that ingests node reports and attributes the whole
+fleet on one CUDA device. The node-side ``FleetAgent`` and ``Spool`` come
+with the node-agent slice of the port."""
+
+from kepler_tpu_torch.fleet.aggregator import Aggregator
+from kepler_tpu_torch.fleet.membership import (
+    AutoscaleDecision,
+    AutoscalePolicy,
+    AutoscaleSignals,
+    CoordinatorLease,
+    MembershipError,
+    elect_successor,
+    plan_succession,
+)
+from kepler_tpu_torch.fleet.ring import HashRing
+from kepler_tpu_torch.fleet.scoreboard import FleetScoreboard
+from kepler_tpu_torch.fleet.wire import (
+    WireError,
+    decode_report,
+    encode_report,
+)
+
+__all__ = [
+    "Aggregator",
+    "AutoscaleDecision",
+    "AutoscalePolicy",
+    "AutoscaleSignals",
+    "CoordinatorLease",
+    "FleetScoreboard",
+    "HashRing",
+    "MembershipError",
+    "WireError",
+    "decode_report",
+    "elect_successor",
+    "encode_report",
+    "plan_succession",
+]

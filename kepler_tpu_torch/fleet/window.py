@@ -53,11 +53,14 @@ __all__ = [
     "DeviceWindowError",
     "FusedFlush",
     "FusedWindowEngine",
+    "HostCopy",
     "PackedWindowEngine",
     "RowInput",
     "WindowMeta",
     "WindowPlan",
     "align_zone_matrices",
+    "copy_to_host_async",
+    "fetch_plane",
 ]
 
 
@@ -165,6 +168,49 @@ class WindowPlan:
 def fetch_plane(out: torch.Tensor) -> np.ndarray:
     """Device watts plane → host array (the publish fetch; syncs)."""
     return out.cpu().numpy()
+
+
+class HostCopy:
+    """Device tensors on their way to pinned host memory.
+
+    Made by :func:`copy_to_host_async`. :meth:`wait` blocks on the event
+    recorded behind the copies, then returns the host arrays. Reading a
+    pinned buffer filled by a ``non_blocking`` copy before that event
+    completes reads stale bytes without any error, so every read goes
+    through :meth:`wait`. The event is explicit: :meth:`wait` may run on
+    another thread, whose current CUDA stream is not the one the copies
+    were queued on.
+    """
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, host: tuple[torch.Tensor, ...],
+                 event: torch.cuda.Event | None) -> None:
+        self.host = host
+        self.event = event
+
+    def wait(self) -> tuple[np.ndarray, ...]:
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(h.numpy() for h in self.host)
+
+
+def copy_to_host_async(*tensors: torch.Tensor) -> HostCopy:
+    """Queue a D2H copy of each tensor into pinned host memory on the
+    current stream (where the launches that made them were queued), with
+    one event recorded right behind the copies. CPU tensors are already
+    on the host and are taken as they are."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return HostCopy(tuple(t.detach() for t in tensors), None)
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return HostCopy(tuple(host), event)
 
 
 def align_zone_matrices(reports: Sequence[NodeReport],
@@ -571,8 +617,8 @@ class PackedWindowEngine:
                                 "packed window program")
 
     def _run_device(self, program: Callable, args: tuple, cold: bool,
-                    what: str) -> Any:
-        if fault.fire("device.dispatch_error") is not None:
+                    what: str, inject_faults: bool = True) -> Any:
+        if inject_faults and fault.fire("device.dispatch_error") is not None:
             self.reset()
             raise DeviceWindowError("dispatch_error",
                                     f"injected dispatch failure ({what})")
@@ -937,14 +983,19 @@ class FusedWindowEngine(PackedWindowEngine):
                           metas=[m for _, _, _, m in pending],
                           k=k, k_live=k_live, h2d_rows=h2d)
 
-    def dispatch(self, flush: FusedFlush) -> torch.Tensor:
+    def dispatch(self, flush: FusedFlush, *,
+                 inject_faults: bool = True) -> torch.Tensor:
         """Run one fused batch → the ``[K, N, W+2, Z]`` f16 outputs on the
         device. The resident block is updated in place; a flush cut
         before a rebuild (``rebind=False``) runs against the retired
         old-shape block, which is then dropped. A device failure resets
-        the ring and raises :class:`DeviceWindowError`."""
+        the ring and raises :class:`DeviceWindowError`.
+        ``inject_faults=False`` skips the ``device.dispatch_error`` site:
+        the aggregator consults it once per interval itself, flush or
+        not, as the reference aggregator does."""
         resident, outs = self._run_device(flush.program, flush.args,
-                                          flush.cold, "fused window loop")
+                                          flush.cold, "fused window loop",
+                                          inject_faults)
         if flush.rebind:
             self._buffers[0] = resident
         return outs

@@ -283,3 +283,79 @@ def test_flash_block_wrapper_rejects_what_the_kernel_does_not_take(
     with pytest.raises(TypeError, match="bf16 or f32"):
         cat.flash_block_pallas(q, q, q, valid, 0, 0,
                                compute_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+def test_copy_to_host_async_waits_on_its_event(cuda_device):
+    """The pinned D2H copy is read only after its event, from another
+    thread whose current stream is not the one the copy was queued on."""
+    import threading
+
+    from kepler_tpu_torch.fleet.window import copy_to_host_async
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        x = torch.randn((4096, 4096), device=cuda_device)
+        y = (x @ x).to(torch.float16)  # long enough to still be running
+        copy = copy_to_host_async(y, x[:8])
+    out: list = []
+    worker = threading.Thread(target=lambda: out.extend(copy.wait()))
+    worker.start()
+    worker.join(timeout=120)
+    torch.cuda.synchronize()
+    assert len(out) == 2
+    assert np.array_equal(out[0], y.cpu().numpy())
+    assert np.array_equal(out[1], x[:8].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_aggregator_fused_tier_on_the_card_equals_the_cpu(cuda_device):
+    """The Aggregator's fused tier (K = 2, kernel B2) on the card
+    publishes the same windows as on the CPU, one launch per flush."""
+    from kepler_tpu_torch.fleet.aggregator import Aggregator, _Stored
+    from kepler_tpu_torch.parallel.fleet import NodeReport
+    from kepler_tpu_torch.server.http import APIServer
+
+    zones = ("package", "dram")
+
+    def run(device):
+        ticks = [1e9]
+        agg = Aggregator(APIServer(), device=device, backend="pallas",
+                         model_mode=None, fused_window_k=2, node_bucket=16,
+                         workload_bucket=16, stale_after=1e9,
+                         clock=lambda: ticks[0])
+        agg.init()
+        published = []
+        publish = agg._publish
+        agg._publish = lambda p: published.append(publish(p)) or \
+            published[-1]
+        for win in range(6):
+            ticks[0] += 5.0
+            rng = np.random.default_rng(win)
+            for i in range(10 + win):
+                cpu = rng.uniform(0.1, 5.0, 12).astype(np.float32)
+                rep = NodeReport(
+                    node_name=f"n{i}", zone_valid=np.ones(2, bool),
+                    zone_deltas_uj=rng.uniform(1e7, 5e8, 2).astype(
+                        np.float32),
+                    usage_ratio=float(rng.uniform(0.2, 0.9)),
+                    cpu_deltas=cpu,
+                    workload_ids=[f"n{i}-w{k}" for k in range(12)],
+                    node_cpu_delta=float(cpu.sum()), dt_s=5.0, mode=0,
+                    workload_kinds=np.ones(12, np.int8))
+                agg._reports[rep.node_name] = _Stored(
+                    report=rep, zone_names=zones, received=ticks[0],
+                    seq=win + 1, run="r1")
+            agg.aggregate_once()
+        assert agg.window_health()["rung_name"] == "packed-fused-scan"
+        return published
+
+    ref = run("cpu")
+    before = ca.LAUNCHES["fused_window_step"]
+    got = run(cuda_device)
+    assert ca.LAUNCHES["fused_window_step"] - before == 3
+    assert len(got) == len(ref) == 6
+    for a, b in zip(got, ref):
+        assert a.names == b.names
+        assert np.array_equal(a._wl_watts_f16, b._wl_watts_f16)
+        assert np.array_equal(a.node_joules_total, b.node_joules_total)

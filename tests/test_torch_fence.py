@@ -4,7 +4,8 @@
 is checked in a fresh interpreter: importing every module of
 ``kepler_tpu_torch`` must leave ``jax`` and every ``kepler_tpu.*`` module
 out of ``sys.modules``, and the entry points built with their default
-device must raise when CUDA is absent instead of running on the CPU.
+device must raise when CUDA is absent instead of running on the CPU —
+the aggregator binary's ``main`` returns 1 and names CUDA.
 """
 
 from __future__ import annotations
@@ -30,8 +31,13 @@ leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "kepler_tpu" or m.startswith("kepler_tpu."))
 raised = {}
+cmd_main = None
 import torch
 if not torch.cuda.is_available():
+    import contextlib, io
+    from kepler_tpu_torch.cmd import aggregator as cmd
+    from kepler_tpu_torch.fleet.aggregator import Aggregator
+    from kepler_tpu_torch.server.http import APIServer
     from kepler_tpu_torch.fleet.window import (FusedWindowEngine,
                                                PackedWindowEngine)
     from kepler_tpu_torch.parallel.aggregator_core import (
@@ -47,14 +53,19 @@ if not torch.cuda.is_available():
              lambda: make_fused_window_program(8, 2, backend="pallas")),
             ("make_fleet_program", lambda: make_fleet_program()),
             ("make_temporal_fleet_program",
-             lambda: make_temporal_fleet_program(backend="pallas"))]:
+             lambda: make_temporal_fleet_program(backend="pallas")),
+            ("Aggregator", lambda: Aggregator(APIServer()).init())]:
         try:
             build()
             raised[label] = None
         except RuntimeError as err:
             raised[label] = str(err)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = cmd.main(["--no-exporter.prometheus"])
+    cmd_main = {"rc": rc, "log": log.getvalue()}
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
-                  "cuda": torch.cuda.is_available()}))
+                  "cmd_main": cmd_main, "cuda": torch.cuda.is_available()}))
 """
 
 
@@ -77,9 +88,11 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
     assert expected <= set(out["modules"])
     assert out["leaked"] == []
     if not out["cuda"]:
-        assert len(out["raised"]) == 6
+        assert len(out["raised"]) == 7
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
+        assert out["cmd_main"]["rc"] == 1
+        assert "CUDA is not available" in out["cmd_main"]["log"]
 
 
 def test_port_sources_name_no_jax_import():
