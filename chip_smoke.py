@@ -35,7 +35,23 @@ zones, buckets N = 1024, W = 256):
 5. the temporal model's full-sequence trunk on the same windows,
    ``predict_temporal(..., attention_fn=pallas_attention_fn())`` (d_model
    128, 4 heads of 32) — kernel B3 once per call over 262,144 sequences,
-   every launch its tensor-core variant.
+   every launch its tensor-core variant;
+6. the node agent on one fake host of 10,000 processes (half in
+   docker/kubepods cgroups, four RAPL zones, under ``/dev/shm``): the
+   native /proc reader, ``RaplPowerMeter`` and ``PowerMonitor(device=
+   "cuda")`` behind a ``PowerCollector``, 11 scrapes with 10 % CPU churn,
+   a burst of 2,000 processes, 1,000 terminations past
+   ``max_terminated=500`` and an injected read error and counter wrap —
+   every tick bit-equal to the same schedule on a second tree through
+   ``device="cpu"``;
+7. 64 such node stacks (100 processes each), each with a real
+   ``FleetAgent`` posting wire-v2 keyframes and deltas over HTTP to the
+   Aggregator service on the fused tier for 8 intervals — B2 once per
+   flush, every node's ``/v1/results`` watts within 1 f16 ulp of its own
+   monitor's;
+8. the two binaries together: ``python -m kepler_tpu_torch.cmd.aggregator``
+   and ``python -m kepler_tpu_torch.cmd.main`` on the card (fake CPU
+   meter over the real /proc) reporting to it, then SIGTERM to both.
 
 Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
@@ -1697,6 +1713,660 @@ def main_temporal_trunk(dev: torch.device, saved: list,
     return row
 
 
+# -- the node agent (paths 6-8) -----------------------------------------------
+
+NODE_PROCS = 10_000
+NODE_TICKS = 11  # refreshes: one that seeds the counters, then ten windows
+NODE_BURST, NODE_BURST_TICK = 2_000, 3
+NODE_KILL, NODE_KILL_TICK = 1_000, 6
+NODE_MAX_TERMINATED = 500
+# (site, skip, arg): each site is checked once per zone and tick, and
+# counter_wrap only on a zone whose read survived — a read error on tick
+# 4's first zone (16 checks before it), a wrap to 0 on tick 8's second
+# (31 checks in ticks 0-7, one more on tick 8's first zone)
+NODE_FAULTS = (("device.read_error", 16, None),
+               ("device.counter_wrap", 32, 0.0))
+FLEET_HOSTS, FLEET_PROCS, FLEET_INTERVALS = 64, 100, 8
+# the fake hosts' powercap zones (directory, name): the four RAPL zones
+# the fleet phases use
+RAPL_ZONES = (("intel-rapl:0", "package-0"), ("intel-rapl:0:0", "core"),
+              ("intel-rapl:0:1", "uncore"), ("intel-rapl:0:2", "dram"))
+RUNTIME_CGROUPS = (
+    "0::/system.slice/docker-{cid}.scope\n",
+    "0::/kubepods.slice/kubepods-burstable.slice/"
+    "kubepods-burstable-pod{pod}.slice/cri-containerd-{cid}.scope\n",
+)
+
+
+def write_stat_line(d: str, pid: int, comm: str, utime: int,
+                    stime: int) -> None:
+    head = f"{pid} ({comm}) S 1 1 1 0 -1 4194560 100 0 0 0"
+    tail = (f"{utime} {stime} 0 0 20 0 1 0 100 0 0 "
+            + " ".join(["0"] * 29))
+    with open(os.path.join(d, "stat"), "w") as f:
+        f.write(head + " " + tail)
+
+
+def write_proc_stat(proc: str, tick: int) -> None:
+    base = 1_000_000 + tick * 5_000
+    idle = 4_000_000 + tick * 2_000
+    with open(os.path.join(proc, "stat"), "w") as f:
+        f.write(f"cpu  {base} {base // 10} {base // 2} {idle} "
+                f"{idle // 8} 0 0 0 0 0\n")
+
+
+def write_proc(proc: str, pid: int, cgroup: str, comm: str, utime: int,
+               environ: bytes = b"") -> None:
+    d = os.path.join(proc, str(pid))
+    os.makedirs(d)
+    write_stat_line(d, pid, comm, utime, utime // 3)
+    for name, data in (("cgroup", cgroup.encode()),
+                       ("comm", f"{comm}\n".encode()),
+                       ("cmdline", f"/bin/{comm}".encode() + b"\0"),
+                       ("environ", environ)):
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(data)
+
+
+def build_fake_host(root: str, n_procs: int, pct_container: float = 0.5,
+                    seed: int = 0) -> tuple[str, str, list[int]]:
+    """A fake /proc and powercap /sys tree (the benchmark's node host):
+    ``n_procs`` processes, a ``pct_container`` share of them in docker or
+    kubepods cgroups (pods 0-996), the four RAPL zones.
+    → (proc dir, sysfs dir, pids)."""
+    rng = np.random.default_rng(seed)
+    proc = os.path.join(root, "proc")
+    sysfs = os.path.join(root, "sys")
+    os.makedirs(proc)
+    pids = list(range(100, 100 + n_procs))
+    for i, pid in enumerate(pids):
+        utime = int(rng.integers(100, 100000))
+        if rng.random() < pct_container:
+            cgroup = RUNTIME_CGROUPS[i % 2].format(
+                cid=f"{pid:064x}"[-64:], pod=f"pod{pid % 997}")
+        else:
+            cgroup = "0::/system.slice/ssh.service\n"
+        write_proc(proc, pid, cgroup, f"proc-{pid}", utime)
+    write_proc_stat(proc, tick=0)
+    for dirname, name in RAPL_ZONES:
+        zd = os.path.join(sysfs, "class", "powercap", dirname)
+        os.makedirs(zd)
+        for fname, val in (("name", name), ("energy_uj", 10_000_000),
+                           ("max_energy_range_uj", 2**40)):
+            with open(os.path.join(zd, fname), "w") as f:
+                f.write(f"{val}\n")
+    return proc, sysfs, pids
+
+
+def advance_host(proc: str, sysfs: str, pids: list[int], tick: int,
+                 churn_frac: float = 0.1) -> None:
+    """One interval: a rotating ``churn_frac`` slice of ``pids`` burns CPU,
+    /proc/stat advances, the RAPL counters accrete."""
+    n = len(pids)
+    span = max(1, int(n * churn_frac))
+    lo = (tick * span) % n
+    for pid in (pids + pids)[lo:lo + span]:
+        utime = 100_000 + tick * 150 + pid % 97
+        write_stat_line(os.path.join(proc, str(pid)), pid, f"proc-{pid}",
+                        utime, utime // 3)
+    write_proc_stat(proc, tick)
+    for i, (dirname, _) in enumerate(RAPL_ZONES):
+        path = os.path.join(sysfs, "class", "powercap", dirname,
+                            "energy_uj")
+        with open(path, "w") as f:
+            f.write(f"{10_000_000 + tick * (40_000_000 + i * 7_000_000)}\n")
+
+
+def spawn_burst(proc: str, start_pid: int, n: int) -> list[int]:
+    """A mass pod reschedule: ``n`` new containerized processes appear in
+    one tick → their pids."""
+    rng = np.random.default_rng(start_pid)
+    new = list(range(start_pid, start_pid + n))
+    for i, pid in enumerate(new):
+        cgroup = RUNTIME_CGROUPS[i % 2].format(cid=f"{pid:064x}"[-64:],
+                                               pod=f"pod{pid % 997}")
+        write_proc(proc, pid, cgroup, f"burst-{pid}",
+                   int(rng.integers(100, 100000)),
+                   environ=b"CONTAINER_NAME=burst\0")
+    return new
+
+
+def kill_procs(proc: str, pids: list[int]) -> None:
+    import shutil
+
+    for pid in pids:
+        shutil.rmtree(os.path.join(proc, str(pid)))
+
+
+class FakeClock:
+    """The monitors' wall and monotonic clock; the schedule moves it 5 s
+    per interval, so dt (and every watt) is the same in every run."""
+
+    def __init__(self, t: float = 1e9) -> None:
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def node_host(root: str, device, n_procs: int, seed: int, clock, **kw):
+    """A fake host and the port's node stack over it: the native /proc
+    reader, ``RaplPowerMeter`` and ``PowerMonitor(device=device)`` (every
+    refresh a new window, on ``clock``) behind a ``PowerCollector``.
+    → (monitor, collector, reader, proc, sysfs, pids)."""
+    from kepler_tpu_torch.device import RaplPowerMeter
+    from kepler_tpu_torch.exporter.prometheus import PowerCollector
+    from kepler_tpu_torch.monitor import PowerMonitor
+    from kepler_tpu_torch.resource import ResourceInformer, make_proc_reader
+
+    proc, sysfs, pids = build_fake_host(root, n_procs, seed=seed)
+    reader = make_proc_reader(proc, use_native=True)
+    monitor = PowerMonitor(
+        RaplPowerMeter(sysfs_path=sysfs),
+        ResourceInformer(reader=reader, procfs_path=proc, clock=clock),
+        interval=0, staleness=0.0, clock=clock, device=device, **kw)
+    monitor.init()
+    collector = PowerCollector(monitor, node_name="smoke-node")
+    return monitor, collector, reader, proc, sysfs, pids
+
+
+def exposition_series(text: bytes) -> dict[str, set]:
+    """family → the label sets of its samples in a classic-text render."""
+    out: dict[str, set] = {}
+    for line in text.decode().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series = line.rsplit(" ", 1)[0]
+        name, _, labels = series.partition("{")
+        out.setdefault(name, set()).add(labels)
+    return out
+
+
+def node_state(snap) -> dict:
+    """A snapshot's arrays, ids, meta and terminated tables, as numpy."""
+    kinds = ("processes", "containers", "virtual_machines", "pods")
+    out = {f"node.{k}": np.array(getattr(snap.node, k))
+           for k in ("energy_uj", "active_uj", "idle_uj", "power_uw",
+                     "active_power_uw", "idle_power_uw")}
+    for kind in kinds:
+        for tag in ("", "terminated_"):
+            table = getattr(snap, tag + kind)
+            out[f"{tag}{kind}.ids"] = table.ids
+            out[f"{tag}{kind}.meta"] = [dict(m) for m in table.meta]
+            out[f"{tag}{kind}.energy_uj"] = np.array(table.energy_uj)
+            out[f"{tag}{kind}.power_uw"] = np.array(table.power_uw)
+    return out
+
+
+def node_schedule(device, root: str, on_card: bool) -> dict:
+    """The node phase's schedule on one fresh tree: a refresh that seeds
+    the counters, then ``NODE_TICKS - 1`` scrapes (each a refresh, as
+    ``staleness=0`` makes it, then the render) with 10 % CPU
+    churn, a burst of ``NODE_BURST`` processes, ``NODE_KILL``
+    terminations and the fault plan. → per-tick states, renders and
+    host timings (and, on the card, the launches and device time of
+    the attribution leg)."""
+    from kepler_tpu_torch import fault, telemetry
+    from kepler_tpu_torch.native import lib_path
+    from kepler_tpu_torch.resource import FastProcFSReader
+    from kepler_tpu_torch.telemetry.spans import SpanRecorder
+
+    t0 = time.perf_counter()
+    clock = FakeClock()
+    monitor, collector, reader, proc, sysfs, pids = node_host(
+        root, device, NODE_PROCS, SEED + 6, clock,
+        max_terminated=NODE_MAX_TERMINATED, min_terminated_energy_uj=0.0)
+    build_s = time.perf_counter() - t0
+    check(isinstance(reader, FastProcFSReader),
+          f"the node ran the {type(reader).__name__}, not the native reader")
+    attribute_ms: list[float] = []
+    leg = monitor._attribute
+
+    def timed_leg(*args):
+        t = time.perf_counter()
+        try:
+            return leg(*args)
+        finally:
+            attribute_ms.append((time.perf_counter() - t) * 1e3)
+
+    monitor._attribute = timed_leg
+    specs = [fault.FaultSpec(site=s, skip=skip, count=1, arg=arg)
+             for s, skip, arg in NODE_FAULTS]
+    live = list(pids)
+    states, series, scrape_ms, render_ms, burst_ms = [], [], [], [], None
+    conservation = 0.0
+    killed: list[str] = []
+    prof = None
+    with fault.installed(fault.FaultPlan(specs)) as plan, \
+            telemetry.installed(SpanRecorder()) as rec:
+        for tick in range(NODE_TICKS):
+            clock.t += 5.0
+            if tick == NODE_BURST_TICK:
+                live += spawn_burst(proc, 10_000_000, NODE_BURST)
+            if tick == NODE_KILL_TICK:
+                gone = live[:NODE_KILL]
+                kill_procs(proc, gone)
+                live = live[NODE_KILL:]
+                killed = [str(p) for p in gone]
+            advance_host(proc, sysfs, live, tick)
+            if tick == 0:  # seeds the counters; the collector is ready
+                monitor.refresh()
+                states.append(node_state(monitor._snapshot))
+                continue
+            if on_card and tick == NODE_TICKS - 1:
+                # the last scrape under the profiler (untimed): its device
+                # work is the attribution leg's copies and kernels
+                held: list[bytes] = []
+                prof = profile_top(lambda: held.append(
+                    collector.render_text()))
+                out = held[0]
+            else:
+                t = time.perf_counter()
+                out = collector.render_text()  # refresh + render
+                scrape_ms.append((time.perf_counter() - t) * 1e3)
+                if tick == NODE_BURST_TICK:
+                    burst_ms = scrape_ms[-1]
+            monitor._staleness = 1e9  # render alone, no refresh
+            t = time.perf_counter()
+            collector.render_text()
+            render_ms.append((time.perf_counter() - t) * 1e3)
+            monitor._staleness = 0.0
+            snap = monitor._snapshot
+            states.append(node_state(snap))
+            series.append(exposition_series(out))
+            # Σ process power == node active power (the attribution
+            # denominator is Σ process Δcpu)
+            got = snap.processes.power_uw.sum(axis=0)
+            want = snap.node.active_power_uw
+            rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+            conservation = max(conservation, float(rel.max()))
+        fired = {s: plan.fired(s) for s, _, _ in NODE_FAULTS}
+        refresh_ms = [ev.duration_s * 1e3 for tr in rec.recent_traces()
+                      for ev in tr.events if ev.name == "monitor.refresh"]
+    # the first refresh classifies every process; on the card the last
+    # one ran under the profiler
+    first_refresh_ms = refresh_ms[0]
+    refresh_ms = refresh_ms[1:-1] if on_card else refresh_ms[1:]
+    check(all(n == 1 for n in fired.values()), f"faults fired {fired}")
+    check(conservation <= 1e-5,
+          f"Σ process power off node active power by {conservation:.2e}")
+    term = states[NODE_KILL_TICK]["terminated_processes.ids"]
+    check(len(term) == NODE_MAX_TERMINATED and set(term) <= set(killed),
+          f"{len(term)} terminated processes tracked after {NODE_KILL} "
+          f"ended (top-k of {NODE_MAX_TERMINATED})")
+    check(len(states[-1]["processes.ids"]) == NODE_PROCS + NODE_BURST
+          - NODE_KILL, "the process table lost rows")
+    return {"states": states, "series": series, "scrape_ms": scrape_ms,
+            "render_ms": render_ms, "refresh_ms": refresh_ms,
+            "first_refresh_ms": first_refresh_ms,
+            "burst_ms": burst_ms, "attribute_ms": attribute_ms,
+            "profile": prof, "build_s": build_s,
+            "reader": type(reader).__name__, "library": lib_path(),
+            "zones": list(monitor.zone_names()),
+            "conservation_rel": conservation, "fired": fired,
+            "pods": len(states[-1]["pods.ids"]),
+            "containers": len(states[-1]["containers.ids"])}
+
+
+def same_state(got: dict, ref: dict, what: str) -> None:
+    """Every array of ``node_state`` bit-equal, every id and label equal."""
+    for key, want in ref.items():
+        have = got[key]
+        if isinstance(want, np.ndarray):
+            equal = have.shape == want.shape and np.array_equal(have, want)
+            check(equal, f"{what}: {key} differs from the CPU run "
+                  f"({have.shape} vs {want.shape})")
+        else:
+            check(have == want, f"{what}: {key} differs from the CPU run")
+
+
+def pct(vals: list[float], q: float) -> float:
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, max(0, int(np.ceil(q * len(vals))) - 1))]
+
+
+def main_node_agent(dev: torch.device) -> dict:
+    """Path 6: one node at full width on the card. A fake host of 10,000
+    processes (half in docker/kubepods cgroups) with four RAPL zones; the
+    native /proc reader, ``RaplPowerMeter`` and ``PowerMonitor(device=
+    "cuda", interval=0, staleness=0)`` behind a ``PowerCollector``; 11
+    scrapes with 10 % churn, a burst of 2,000 processes, 1,000
+    terminations past ``max_terminated=500`` and a read error and a
+    counter wrap from a fault plan. The same schedule on a second tree
+    through ``device="cpu"`` is the reference: every tick's node and
+    workload arrays bit-equal, ids, meta and terminated tables equal,
+    and the same exposition families and label sets."""
+    import shutil
+    import tempfile
+
+    base = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="kt-node-", dir=base)
+    try:
+        card = node_schedule(dev, os.path.join(root, "card"), True)
+        cpu = node_schedule("cpu", os.path.join(root, "cpu"), False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for t, (got, ref) in enumerate(zip(card["states"], cpu["states"])):
+        same_state(got, ref, f"node tick {t}")
+    for t, (got, ref) in enumerate(zip(card["series"], cpu["series"])):
+        check(got == ref, f"node tick {t}: the exposition's families or "
+              "label sets differ from the CPU run")
+    fams = card["series"][-1]
+    check(any(f.startswith("kepler_node_cpu_") for f in fams)
+          and any(f.startswith("kepler_process_cpu_") for f in fams),
+          "the render lacks kepler_node_cpu_* or kepler_process_cpu_*")
+    prof = card["profile"]
+    row = {"phase": "main_node_agent", "processes": NODE_PROCS,
+           "ticks": NODE_TICKS, "zones": card["zones"],
+           "reader": card["reader"],
+           "native_library": os.path.basename(card["library"]),
+           "containers": card["containers"], "pods": card["pods"],
+           "tree_build_s": card["build_s"],
+           "first_refresh_ms": card["first_refresh_ms"],
+           "refresh_ms_p50": pct(card["refresh_ms"], 0.5),
+           "refresh_ms_p99": pct(card["refresh_ms"], 0.99),
+           "render_ms_p50": pct(card["render_ms"], 0.5),
+           "scrape_to_export_ms_p50": pct(card["scrape_ms"], 0.5),
+           "scrape_to_export_ms_p99": pct(card["scrape_ms"], 0.99),
+           "burst_new_procs": NODE_BURST,
+           "burst_refresh_ms": card["burst_ms"],
+           "attribute_leg_host_ms_p50": pct(card["attribute_ms"], 0.5),
+           "attribute_leg_host_ms": card["attribute_ms"],
+           "attribute_leg_device_ms": prof["device_ms"],
+           "profile_top": prof["top"],
+           "cpu_run": {k: pct(cpu[k], 0.5) for k in
+                       ("refresh_ms", "render_ms", "scrape_ms",
+                        "attribute_ms")},
+           "conservation_rel": card["conservation_rel"],
+           "faults_fired": card["fired"],
+           "bit_equal_ticks": len(card["states"])}
+    emit(row)
+    return row
+
+
+def fleet_run(device, root: str, on_card: bool) -> dict:
+    """64 node stacks (``node_host``, 100 processes each) on ``device``,
+    each with a real ``FleetAgent`` (wire v2: a keyframe, then deltas)
+    posting over HTTP to the port's ``Aggregator(device=device,
+    backend="pallas", fused_window_k=4)`` behind a live ``APIServer``; 8
+    intervals with 10 % CPU churn, 3 hosts losing and 2 gaining processes
+    per interval. The agents drain synchronously after each refresh (the
+    send path of their thread, without the thread); ``aggregate_once()``
+    then runs. → the published windows, each node's monitor snapshot per
+    interval, /v1/results after each flush (window index → node → payload),
+    the legs."""
+    from kepler_tpu_torch.fleet import FleetAgent
+
+    agg, server, ticks, published = make_aggregator(
+        device, backend="pallas", model_mode=None, fused_window_k=FUSED_K)
+    def clock() -> float:  # one clock for the hosts and the service
+        return ticks[0]
+
+    hosts = []
+    for h in range(FLEET_HOSTS):
+        monitor, _, _, proc, sysfs, pids = node_host(
+            os.path.join(root, f"node-{h:02d}"), device, FLEET_PROCS,
+            SEED + 100 + h, clock)
+        advance_host(proc, sysfs, pids, 0)
+        monitor.refresh()  # seeds the counters; no agent listens yet
+        hosts.append({"name": f"node-{h:02d}", "monitor": monitor,
+                      "proc": proc, "sysfs": sysfs, "pids": list(pids)})
+    snaps, results, legs, drain_s = [], {}, [], []
+    with serving(server) as base:
+        endpoint = base.removeprefix("http://")
+        for host in hosts:
+            agent = FleetAgent(host["monitor"], endpoint=endpoint,
+                               node_name=host["name"], clock=clock,
+                               jitter_seed=0)
+            agent.init()
+            host["agent"] = agent
+        if on_card:
+            reset_launches()
+        for t in range(1, FLEET_INTERVALS + 1):
+            ticks[0] += 5.0
+            for h, host in enumerate(hosts):
+                if (h - 3 * t) % FLEET_HOSTS < 3:  # loses 2 processes
+                    kill_procs(host["proc"], host["pids"][:2])
+                    host["pids"] = host["pids"][2:]
+                if (h - 5 * t) % FLEET_HOSTS < 2:  # gains 2 processes
+                    host["pids"] += spawn_burst(host["proc"],
+                                                200_000 + 10 * t, 2)
+                advance_host(host["proc"], host["sysfs"], host["pids"], t)
+            t0 = time.perf_counter()
+            for host in hosts:
+                host["monitor"].refresh()
+                host["agent"]._drain(None)
+            drain_s.append(time.perf_counter() - t0)
+            agg.aggregate_once()
+            legs.append({k: agg._stats[k] for k in LEG_KEYS})
+            snaps.append({host["name"]: host["monitor"]._snapshot
+                          for host in hosts})
+            if t % FUSED_K == 0:  # a flush published K windows
+                results[t - 1] = {host["name"]: json.loads(http(
+                    base, f"/v1/results?node={host['name']}"))
+                    for host in hosts}
+        sync()
+        launches = read_launches() if on_card else None
+        for host in hosts:
+            check(host["agent"]._stats["send_failures"] == 0,
+                  f"{host['name']}: agent send failures "
+                  f"{host['agent']._stats}")
+        sent = {k: sum(h["agent"]._stats[k] for h in hosts)
+                for k in ("keyframes_sent", "deltas_sent")}
+    return {"agg": agg, "published": published, "snaps": snaps,
+            "results": results, "legs": legs, "drain_s": drain_s,
+            "launches": launches, "sent": sent}
+
+
+def main_node_fleet(dev: torch.device) -> dict:
+    """Path 7: 64 node agents into the Aggregator on the card. Every
+    window holds all 64 nodes on the fused tier (B2 once per flush of
+    K = 4, which publishes its K windows); each node's results payload
+    in every window (fetched over ``/v1/results`` for the newest window
+    of each flush) is within 1 f16 ulp of its own monitor's snapshot
+    power for the window; Σ process watts equals
+    node active watts; every window equals the same schedule through
+    ``device="cpu"``."""
+    import shutil
+    import tempfile
+
+    from kepler_tpu_torch.parallel.fleet import MODE_RATIO
+
+    base = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="kt-fleet-", dir=base)
+    try:
+        t0 = time.perf_counter()
+        card = fleet_run(dev, os.path.join(root, "card"), True)
+        wall_s = time.perf_counter() - t0
+        cpu = fleet_run("cpu", os.path.join(root, "cpu"), False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    agg, published = card["agg"], card["published"]
+    launches = card["launches"]
+    check(launches["fused_window_step"] == FLEET_INTERVALS // FUSED_K,
+          f"B2 launched {launches['fused_window_step']} times in "
+          f"{FLEET_INTERVALS} intervals")
+    check(launches["outer_product_attribution"] == 0
+          and launches["flash_block"] == 0, "the fleet ran B1 or B3")
+    health = agg.window_health()
+    check(health["rung_name"] == "packed-fused-scan"
+          and agg._stats["window_demotions_total"] == 0,
+          f"the ladder moved: {health}")
+    check(len(published) == FLEET_INTERVALS == len(cpu["published"]),
+          "not every interval published")
+    worst_ulps, worst_cons, rows = 0, 0.0, 0
+    for t, (got, ref) in enumerate(zip(published, cpu["published"])):
+        check(len(got.names) == FLEET_HOSTS,
+              f"window {t} holds {len(got.names)} nodes")
+        same_window(got, ref, f"fleet window {t}")
+        served = card["results"].get(t, {})
+        for name in got.names:
+            # the payload /v1/results serves for this window; the latest
+            # window of each flush was also fetched over HTTP
+            res = json.loads(json.dumps(got.render_node(name)))
+            check(served.get(name, res) == res,
+                  f"/v1/results?node={name} differs from window {t}")
+            snap = card["snaps"][t][name]
+            zi = [list(snap.node.zone_names).index(z) for z in res["zones"]]
+            mine = {}
+            for kind in ("processes", "containers", "virtual_machines",
+                         "pods"):
+                table = getattr(snap, kind)
+                for wid, p in zip(table.ids, table.power_uw):
+                    mine[wid] = p[zi]
+            check(len(mine) == len(res["workloads"]),
+                  f"window {t}: {name} row count differs from its monitor")
+            got_w = np.asarray([w["power_uw"] for w in res["workloads"]])
+            want_w = np.asarray([mine[w["id"]] for w in res["workloads"]])
+            ulps = f16_ulps(got_w * 1e-6, want_w * 1e-6)
+            worst_ulps = max(worst_ulps, int(ulps.max()))
+            rows += len(got_w)
+            # conservation: Σ process watts == node active watts
+            check(res["mode"] == MODE_RATIO, f"{name} is not a ratio node")
+            procs = np.asarray([w["kind"] == 0 for w in res["workloads"]])
+            active = snap.node.active_power_uw[zi] * 1e-6
+            total = got_w[procs].sum(axis=0) * 1e-6
+            rel = np.abs(total - active) / np.maximum(active, 1e-3)
+            worst_cons = max(worst_cons, float(rel.max()))
+    check(worst_ulps <= 1, f"/v1/results watts {worst_ulps} f16 ulps off "
+          "the agents' own monitors")
+    check(worst_cons <= 2e-3, f"conservation off by {worst_cons:.2e}")
+    row = {"phase": "main_node_fleet", "nodes": FLEET_HOSTS,
+           "processes_per_node": FLEET_PROCS, "intervals": FLEET_INTERVALS,
+           "k": FUSED_K, "launches": launches, "rung": health["rung_name"],
+           "wire_frames": card["sent"],
+           "results_fetched": sum(len(r) for r in card["results"].values()),
+           "workload_rows_checked": rows,
+           "max_f16_ulps_vs_monitor": worst_ulps,
+           "max_conservation_rel": worst_cons, "run_s": wall_s,
+           "agents_refresh_and_send_s": card["drain_s"],
+           "legs_ms_per_interval": card["legs"]}
+    emit(row)
+    return row
+
+
+def wait_http(proc, base: str, path: str, deadline_s: float,
+              what: str) -> bytes:
+    """GET ``path`` until it answers (the process must stay alive)."""
+    deadline = time.perf_counter() + deadline_s
+    while True:
+        check(proc.poll() is None, f"the {what} exited")
+        try:
+            return http(base, path)
+        except OSError:
+            check(time.perf_counter() < deadline, f"{what}: {path} never "
+                  "answered")
+            time.sleep(0.1)
+
+
+def stop_all(procs: list) -> list[str]:
+    """SIGTERM every process, then wait for each (killed after 60 s)
+    → their outputs."""
+    import signal
+
+    for proc in procs:
+        proc.send_signal(signal.SIGTERM)
+    outs = []
+    for proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        outs.append(out)
+    return outs
+
+
+def main_node_cmd() -> dict:
+    """Path 8: the two binaries together on the card. ``python -m
+    kepler_tpu_torch.cmd.aggregator`` (interval 2 s), then ``python -m
+    kepler_tpu_torch.cmd.main`` (default ``--device cuda``, the fake CPU
+    meter over this machine's real /proc, interval 2 s, reporting to the
+    aggregator): ``/metrics`` has node and process families, ``/healthz``
+    is ok, the aggregator's ``/v1/results`` returns the node within two
+    intervals, and SIGTERM stops both cleanly."""
+    import socket
+    import tempfile
+
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    agg_port, node_port = ports
+    interval = 2.0
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    tmp = tempfile.mkdtemp(prefix="kt-cmd-")
+    agg_cfg = os.path.join(tmp, "aggregator.yaml")
+    node_cfg = os.path.join(tmp, "node.yaml")
+    # the interval of the aggregator and the fake meter have no flags
+    with open(agg_cfg, "w") as f:
+        f.write(f"aggregator:\n  interval: {interval:g}s\n")
+    with open(node_cfg, "w") as f:
+        f.write("dev:\n  fake-cpu-meter:\n    enabled: true\n")
+    popen = dict(cwd=here, env=env, stdout=subprocess.PIPE,
+                 stderr=subprocess.STDOUT, text=True)
+    agg = subprocess.Popen(
+        [sys.executable, "-m", "kepler_tpu_torch.cmd.aggregator",
+         "--config.file", agg_cfg, "--tpu.fleet-backend", "pallas",
+         "--aggregator.model", "", "--aggregator.pipeline-depth", "1",
+         "--no-exporter.prometheus",
+         "--aggregator.listen-address", f"127.0.0.1:{agg_port}"], **popen)
+    node = None
+    agg_base = f"http://127.0.0.1:{agg_port}"
+    node_base = f"http://127.0.0.1:{node_port}"
+    try:
+        wait_http(agg, agg_base, "/readyz", 120, "aggregator binary")
+        t0 = time.perf_counter()
+        node = subprocess.Popen(
+            [sys.executable, "-m", "kepler_tpu_torch.cmd.main",
+             "--config.file", node_cfg, "--monitor.interval",
+             f"{interval:g}s", "--web.listen-address",
+             f"127.0.0.1:{node_port}", "--kube.node-name", "smoke-node",
+             "--aggregator.endpoint", f"127.0.0.1:{agg_port}"], **popen)
+        wait_http(node, node_base, "/readyz", 120, "node binary")
+        ready_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        res = json.loads(wait_http(agg, agg_base,
+                                   "/v1/results?node=smoke-node", 30,
+                                   "aggregator binary"))
+        results_s = time.perf_counter() - t1
+        # two intervals, and the poll's own 0.1 s step
+        check(results_s <= 2 * interval + 0.2,
+              f"the node reached /v1/results after {results_s:.2f} s")
+        check(len(res["workloads"]) > 0 and np.isfinite(np.asarray(
+            [w["power_uw"] for w in res["workloads"]])).all(),
+            "the node's results hold no finite workload watts")
+        fams = exposition_series(http(node_base, "/metrics"))
+        check(any(f.startswith("kepler_node_cpu_") for f in fams)
+              and any(f.startswith("kepler_process_cpu_") for f in fams),
+              f"node /metrics families: {sorted(fams)[:12]}")
+        health = json.loads(http(node_base, "/healthz"))
+        check(health.get("status") == "ok", f"node /healthz: {health}")
+    finally:
+        import shutil
+
+        procs = [p for p in (node, agg) if p is not None]
+        outs = dict(zip(procs, stop_all(procs)))
+        shutil.rmtree(tmp, ignore_errors=True)
+    for proc, what in ((node, "node binary"), (agg, "aggregator binary")):
+        check(proc.returncode == 0
+              and "Graceful shutdown completed" in outs[proc],
+              f"{what} exit {proc.returncode}: {outs[proc][-800:]}")
+    node_out = outs[node]
+    row = {"phase": "main_node_cmd", "node_ready_s": ready_s,
+           "results_after_ready_s": results_s,
+           "result_workloads": len(res["workloads"]),
+           "node_families": sorted(f for f in fams
+                                   if f.startswith("kepler_"))[:40],
+           "healthz": health.get("status"),
+           "device_line": [ln for ln in node_out.splitlines()
+                           if "kepler-tpu" in ln and " on " in ln][:1]}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1731,6 +2401,9 @@ def main() -> int:
     main_aggregator_cmd()
     fleet, saved, params, outs = main_temporal_fleet(dev)
     trunk = main_temporal_trunk(dev, saved, params, outs)
+    main_node_agent(dev)
+    node_fleet = main_node_fleet(dev)
+    main_node_cmd()
 
     b1["launches_by_path"] = {
         "main_mixed": mixed["launches"]["outer_product_attribution"],
@@ -1742,7 +2415,8 @@ def main() -> int:
     b2 = dict(b2_flush)  # the main path's call: one launch per flush
     b2["launches_by_path"] = {
         "main_ratio_fused": ratio["launches"]["fused_window_step"],
-        "main_aggregator_fused": agg_fused["launches"]["fused_window_step"]}
+        "main_aggregator_fused": agg_fused["launches"]["fused_window_step"],
+        "main_node_fleet": node_fleet["launches"]["fused_window_step"]}
     b2["launches"] = sum(b2["launches_by_path"].values())
     b2["by_db"] = {str(db): {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "device_ms": r["device_ms"],

@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points.
+"""Device layer: hardware energy meters (reference ``internal/device/``)
+and the compute device the port's entry points run on.
 
 The engines and program builders take an explicit ``device``. The
 default is ``"cuda"``, and a missing CUDA device is an error, never a
@@ -13,6 +14,32 @@ turns TF32 off for both matmuls and cuDNN.
 from __future__ import annotations
 
 import torch
+
+from kepler_tpu_torch.device.aggregated import AggregatedZone
+from kepler_tpu_torch.device.energy import Energy, Power
+from kepler_tpu_torch.device.fake import FakeCPUMeter, FakeEnergyZone
+from kepler_tpu_torch.device.meter import (
+    CPUPowerMeter,
+    EnergyZone,
+    ZONE_PRIORITY,
+    zone_rank,
+)
+from kepler_tpu_torch.device.rapl import RaplPowerMeter, SysfsRaplZone
+
+__all__ = [
+    "AggregatedZone",
+    "CPUPowerMeter",
+    "Energy",
+    "EnergyZone",
+    "FakeCPUMeter",
+    "FakeEnergyZone",
+    "Power",
+    "RaplPowerMeter",
+    "SysfsRaplZone",
+    "ZONE_PRIORITY",
+    "resolve_device",
+    "zone_rank",
+]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

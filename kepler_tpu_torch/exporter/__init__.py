@@ -1,1 +1,5 @@
-"""Exporters: the fleet aggregator's Prometheus exposition."""
+"""Exporters (reference ``internal/exporter/``)."""
+
+from kepler_tpu_torch.exporter.stdout import StdoutExporter
+
+__all__ = ["StdoutExporter"]

@@ -1,12 +1,9 @@
-"""Prometheus exposition (reference ``internal/exporter/prometheus/``).
+"""Prometheus exporter (reference ``internal/exporter/prometheus/``)."""
 
-Only what the aggregator binary serves: the registry handler, the fast
-renderers and the info collectors. Importing this package imports
-``prometheus_client``; the aggregator does so only when ``/metrics`` is on.
-"""
-
+from kepler_tpu_torch.exporter.prometheus.collector import PowerCollector
 from kepler_tpu_torch.exporter.prometheus.exporter import (
-    make_registry_handler,
+    PrometheusExporter,
+    create_collectors,
 )
 from kepler_tpu_torch.exporter.prometheus.info_collectors import (
     BuildInfoCollector,
@@ -18,5 +15,7 @@ __all__ = [
     "BuildInfoCollector",
     "CPUInfoCollector",
     "HealthCollector",
-    "make_registry_handler",
+    "PowerCollector",
+    "PrometheusExporter",
+    "create_collectors",
 ]

@@ -1,8 +1,9 @@
-"""Fleet plane: wire frames, the device-resident window engines and the
-cluster ``Aggregator`` that ingests node reports and attributes the whole
-fleet on one CUDA device. The node-side ``FleetAgent`` and ``Spool`` come
-with the node-agent slice of the port."""
+"""Fleet plane: wire frames, the node-side ``FleetAgent`` with its durable
+``Spool``, the device-resident window engines and the cluster
+``Aggregator`` that ingests node reports and attributes the whole fleet on
+one CUDA device."""
 
+from kepler_tpu_torch.fleet.agent import FleetAgent
 from kepler_tpu_torch.fleet.aggregator import Aggregator
 from kepler_tpu_torch.fleet.membership import (
     AutoscaleDecision,
@@ -15,6 +16,7 @@ from kepler_tpu_torch.fleet.membership import (
 )
 from kepler_tpu_torch.fleet.ring import HashRing
 from kepler_tpu_torch.fleet.scoreboard import FleetScoreboard
+from kepler_tpu_torch.fleet.spool import Spool
 from kepler_tpu_torch.fleet.wire import (
     WireError,
     decode_report,
@@ -27,9 +29,11 @@ __all__ = [
     "AutoscalePolicy",
     "AutoscaleSignals",
     "CoordinatorLease",
+    "FleetAgent",
     "FleetScoreboard",
     "HashRing",
     "MembershipError",
+    "Spool",
     "WireError",
     "decode_report",
     "elect_successor",

@@ -359,3 +359,59 @@ def test_aggregator_fused_tier_on_the_card_equals_the_cpu(cuda_device):
         assert a.names == b.names
         assert np.array_equal(a._wl_watts_f16, b._wl_watts_f16)
         assert np.array_equal(a.node_joules_total, b.node_joules_total)
+
+
+def stable_top_k(energies: np.ndarray, k: int, min_energy: float):
+    """The reference selection rule in numpy: f32 compare, descending,
+    lower index first among equal values."""
+    masked = np.where(energies >= min_energy, energies.astype(np.float32),
+                      np.float32(-np.inf))
+    order = np.argsort(-masked, kind="stable")[:k]
+    return order[masked[order] > -np.inf]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,levels", [(500, 100, 3), (20_000, 500, 4),
+                                        (1000, 999, 1)])
+def test_top_k_on_the_card_takes_the_lower_index_among_ties(
+        cuda_device, n, k, levels):
+    from kepler_tpu_torch.ops.topk import top_k_by_energy
+
+    rng = np.random.default_rng(n)
+    energies = rng.integers(0, levels, n).astype(np.float64)
+    energies[: n // 10] += 1e8 + rng.uniform(0, 4, n // 10)  # f32 ties
+    want = stable_top_k(energies, k, 1.0)
+    got = top_k_by_energy(energies, k, 1.0, device=cuda_device)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        top_k_by_energy(energies, k, 1.0, device="cpu"), want)
+
+
+@pytest.mark.cuda
+def test_monitor_on_the_card_equals_the_cpu_bit_for_bit(cuda_device,
+                                                        tmp_path):
+    """The node stack on two identical fake hosts, one monitor on the
+    card and one on the CPU: every array of every snapshot is equal (each
+    is one IEEE f32 operation per element in both)."""
+    import chip_smoke as host
+
+    clock = host.FakeClock()
+    sides = []
+    for side, dev in enumerate((cuda_device, "cpu")):
+        monitor, _, _, proc, sysfs, pids = host.node_host(
+            str(tmp_path / f"host-{side}"), dev, 400, 11, clock,
+            max_terminated=30, min_terminated_energy_uj=0.0)
+        sides.append((monitor, proc, sysfs, list(pids)))
+    for tick in range(6):
+        clock.t += 5.0
+        for monitor, proc, sysfs, live in sides:
+            if tick == 2:
+                live += host.spawn_burst(proc, 90_000, 120)
+            if tick == 3:
+                host.kill_procs(proc, live[:100])
+                del live[:100]
+            host.advance_host(proc, sysfs, live, tick)
+            monitor.refresh()
+        got, ref = (host.node_state(s[0]._snapshot) for s in sides)
+        host.same_state(got, ref, f"tick {tick}")
+    assert len(ref["terminated_processes.ids"]) == 30

@@ -5,7 +5,7 @@ is checked in a fresh interpreter: importing every module of
 ``kepler_tpu_torch`` must leave ``jax`` and every ``kepler_tpu.*`` module
 out of ``sys.modules``, and the entry points built with their default
 device must raise when CUDA is absent instead of running on the CPU —
-the aggregator binary's ``main`` returns 1 and names CUDA.
+the aggregator and node binaries' ``main`` return 1 and name CUDA.
 """
 
 from __future__ import annotations
@@ -31,11 +31,16 @@ leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "kepler_tpu" or m.startswith("kepler_tpu."))
 raised = {}
-cmd_main = None
+cmd_main = node_main = None
 import torch
 if not torch.cuda.is_available():
     import contextlib, io
     from kepler_tpu_torch.cmd import aggregator as cmd
+    from kepler_tpu_torch.cmd import main as node_cmd
+    from kepler_tpu_torch.device import FakeCPUMeter
+    from kepler_tpu_torch.monitor import PowerMonitor, TerminatedTracker
+    from kepler_tpu_torch.ops.topk import top_k_by_energy
+    from kepler_tpu_torch.resource import ResourceInformer
     from kepler_tpu_torch.fleet.aggregator import Aggregator
     from kepler_tpu_torch.server.http import APIServer
     from kepler_tpu_torch.fleet.window import (FusedWindowEngine,
@@ -54,7 +59,11 @@ if not torch.cuda.is_available():
             ("make_fleet_program", lambda: make_fleet_program()),
             ("make_temporal_fleet_program",
              lambda: make_temporal_fleet_program(backend="pallas")),
-            ("Aggregator", lambda: Aggregator(APIServer()).init())]:
+            ("Aggregator", lambda: Aggregator(APIServer()).init()),
+            ("PowerMonitor",
+             lambda: PowerMonitor(FakeCPUMeter(), ResourceInformer())),
+            ("TerminatedTracker", lambda: TerminatedTracker(4, 0)),
+            ("top_k_by_energy", lambda: top_k_by_energy([1.0, 2.0], 1))]:
         try:
             build()
             raised[label] = None
@@ -64,8 +73,13 @@ if not torch.cuda.is_available():
     with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
         rc = cmd.main(["--no-exporter.prometheus"])
     cmd_main = {"rc": rc, "log": log.getvalue()}
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = node_cmd.main(["--no-exporter.prometheus"])
+    node_main = {"rc": rc, "log": log.getvalue()}
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
-                  "cmd_main": cmd_main, "cuda": torch.cuda.is_available()}))
+                  "cmd_main": cmd_main, "node_main": node_main,
+                  "cuda": torch.cuda.is_available()}))
 """
 
 
@@ -88,11 +102,12 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
     assert expected <= set(out["modules"])
     assert out["leaked"] == []
     if not out["cuda"]:
-        assert len(out["raised"]) == 7
+        assert len(out["raised"]) == 10
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
-        assert out["cmd_main"]["rc"] == 1
-        assert "CUDA is not available" in out["cmd_main"]["log"]
+        for binary in ("cmd_main", "node_main"):
+            assert out[binary]["rc"] == 1, binary
+            assert "CUDA is not available" in out[binary]["log"], binary
 
 
 def test_port_sources_name_no_jax_import():

@@ -370,7 +370,14 @@ COPIED = ("utils/rowstore.py", "telemetry/hlc.py", "fleet/delivery.py",
           "fleet/ring.py", "fleet/membership.py", "fleet/admission.py",
           "fleet/journal.py", "fleet/scoreboard.py", "service/lifecycle.py",
           "server/health.py", "server/http.py", "server/shacrypt.py",
-          "config/level.py", "version.py", "exporter/prometheus/fastexpo.py")
+          "config/level.py", "version.py", "exporter/prometheus/fastexpo.py",
+          "device/energy.py", "device/meter.py", "device/aggregated.py",
+          "device/fake.py", "device/rapl.py", "device/msr.py",
+          "native/__init__.py", "resource/types.py", "resource/procfs.py",
+          "resource/fast_procfs.py", "resource/container.py",
+          "resource/vm.py", "k8s/pod.py", "utils/atomicio.py",
+          "ops/deltas.py", "monitor/snapshot.py", "monitor/watchdog.py",
+          "fleet/spool.py", "fleet/agent.py")
 
 
 @pytest.mark.parametrize("rel", COPIED)
