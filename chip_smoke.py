@@ -51,7 +51,19 @@ zones, buckets N = 1024, W = 256):
    monitor's;
 8. the two binaries together: ``python -m kepler_tpu_torch.cmd.aggregator``
    and ``python -m kepler_tpu_torch.cmd.main`` on the card (fake CPU
-   meter over the real /proc) reporting to it, then SIGTERM to both.
+   meter over the real /proc) reporting to it, then SIGTERM to both;
+9. the Aggregator's pipelined tier with the 50/50 fleet of path 3 served
+   by ``model: moe`` (8 experts of 128) and by ``model: deep`` (4 blocks
+   of 128), 8 windows each — B1 in every window, each window against
+   ``device="cpu"``;
+10. the train half of the loop: Aggregators on the card write training
+   dumps (``training_dump_dir``) of the 50/50 fleet and of the temporal
+   fleet, ``kepler_tpu_torch.cmd.train`` fits each of the five families
+   on the card (the loss falls; a run checkpointed halfway and resumed
+   ends at the same params; its first steps agree with ``--device cpu``;
+   the ``.npz`` serves in the Aggregator on the card, moe's and deep's
+   through ``python -m kepler_tpu_torch.cmd.aggregator`` too), and the
+   binary ``python -m kepler_tpu_torch.cmd.train`` exits 0.
 
 Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
@@ -78,10 +90,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -105,6 +119,19 @@ TEMPORAL_WINDOWS = 20
 CPU_NODES = 32
 B3_SHAPES = ((N_NODES * 256, 16), (256 * 64, 128))
 D_MODEL, N_HEADS = 128, 4
+# the accuracy-mode check's head scale: predictions of tens of watts
+ACC_SCALE = 40.0
+# training (path 10): AdamW steps of each family on the card, the steps
+# the CPU repeats of the same run, the dumped windows (single-tick and
+# temporal) and the dump aggregators' workload bucket (100 workloads fit)
+TRAIN_STEPS = 24
+TRAIN_CPU_STEPS = 6
+TRAIN_DUMP_WINDOWS = 2
+TRAIN_TEMPORAL_WINDOWS = 6
+TRAIN_W = 128
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_LR = "3e-3"  # deep diverges at cmd.train's default 1e-2
+FAMILIES = ("linear", "mlp", "moe", "deep", "temporal")
 
 
 def emit(obj: dict) -> None:
@@ -423,6 +450,7 @@ class Agent:
             node_cpu_delta=float(self.cpu.sum(dtype=np.float32)), dt_s=5.0,
             mode=self.mode,
             workload_kinds=np.full(N_WORKLOADS, 3, np.int8))
+        self.report = report
         full = wire.encode_report_v2(report, ZONES, seq=self.seq, run="r1")
         if self.base is None:
             self.base = full  # acknowledged at once
@@ -792,9 +820,9 @@ def make_aggregator(dev, **kw):
 
     ticks = [1e9]
     server = APIServer(["127.0.0.1:0"])
+    kw = {"node_bucket": N_NODES, "workload_bucket": 256, **kw}
     agg = Aggregator(server, device=dev, clock=lambda: ticks[0],
-                     stale_after=4.0, skew_tolerance=0.0,
-                     node_bucket=N_NODES, workload_bucket=256, **kw)
+                     stale_after=4.0, skew_tolerance=0.0, **kw)
     agg.init()
     published: list = []
     publish = agg._publish
@@ -876,13 +904,13 @@ def same_window(got, ref, what: str, model_rtol: float | None = None) -> int:
     return n_ratio
 
 
-def window_conservation(res, reports: dict) -> float:
+def window_conservation(res, reports: dict, names=None) -> float:
     """Σ workload watts == node ACTIVE watts on ratio nodes of a
-    published window (f16 sums: 2e-3 relative), and node power equals
-    the RAPL delta over dt (f64 here, rtol 1e-3). The window's zone axis
-    is the sorted union of the reported zones."""
+    published window (``names``, default all; f16 sums: 2e-3 relative),
+    and node power equals the RAPL delta over dt (f64 here, rtol 1e-3).
+    The window's zone axis is the sorted union of the reported zones."""
     worst = 0.0
-    for name in res.names:
+    for name in res.names if names is None else names:
         i = res.rows[name]
         rep = reports[name]
         total = res.node_power_uw[i].astype(np.float64) * 1e-6
@@ -1036,6 +1064,26 @@ def main_aggregator_fused(dev: torch.device) -> dict:
     return row
 
 
+def mixed_intervals(seed: int, windows: int = AGG_MIXED_WINDOWS
+                    ) -> tuple[list[list[bytes]], list[dict]]:
+    """aggregator-mixed's schedule: 1024 nodes, every odd one a model
+    node, ~10% of nodes change each interval after the first. → per
+    interval the wire-v2 frames and the reports they carry by node."""
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    rng = np.random.default_rng(seed)
+    agents = [Agent(f"node-{i:04d}", rng, mode=MODE_MODEL if i % 2 else 0)
+              for i in range(N_NODES)]
+    frames, reports = [], []
+    for t in range(windows):
+        if t:
+            for a in rng.choice(agents, N_NODES // 10, replace=False):
+                a.change()
+        frames.append([a.frame() for a in agents])
+        reports.append({a.name: a.report for a in agents})
+    return frames, reports
+
+
 def main_aggregator_mixed(dev: torch.device) -> dict:
     """The Aggregator on the pipelined tier with a 50/50 ratio/MLP fleet
     (``pipeline_depth=2``, ``backend="pallas"``): B1 in every dispatched
@@ -1045,15 +1093,7 @@ def main_aggregator_mixed(dev: torch.device) -> dict:
     from kepler_tpu_torch.parallel.fleet import MODE_MODEL
 
     params = mlp_params(SEED + 4)
-    rng = np.random.default_rng(SEED + 4)
-    agents = [Agent(f"node-{i:04d}", rng, mode=MODE_MODEL if i % 2 else 0)
-              for i in range(N_NODES)]
-    intervals = []
-    for t in range(AGG_MIXED_WINDOWS):
-        if t:
-            for a in rng.choice(agents, N_NODES // 10, replace=False):
-                a.change()
-        intervals.append([a.frame() for a in agents])
+    intervals, _ = mixed_intervals(SEED + 4)
     kw = dict(backend="pallas", model_mode="mlp", model_params=params,
               pipeline_depth=2, repromote_after=2)
     spec = fault.FaultSpec(site="device.dispatch_error", skip=2, count=1)
@@ -1115,17 +1155,18 @@ def main_aggregator_mixed(dev: torch.device) -> dict:
     return row
 
 
-def main_aggregator_cmd() -> dict:
+def main_aggregator_cmd(model: str = "", params_path: str = "") -> dict:
     """The aggregator binary on the card: ``python -m
     kepler_tpu_torch.cmd.aggregator`` (flags only, ``/metrics`` off, the
-    default 5 s interval, depth 1, ratio model), 64 nodes POST one
+    default 5 s interval, depth 1; ratio attribution, or ``model`` with
+    the params in ``params_path`` for every odd node), 64 nodes POST one
     wire-v2 keyframe each, ``/v1/results`` answers for them after the
     next window, and SIGTERM shuts the process down cleanly."""
     import signal
     import socket
 
     from kepler_tpu_torch.fleet import wire
-    from kepler_tpu_torch.parallel.fleet import NodeReport
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL, NodeReport
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -1133,9 +1174,11 @@ def main_aggregator_cmd() -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here)
     cmd = [sys.executable, "-m", "kepler_tpu_torch.cmd.aggregator",
-           "--tpu.fleet-backend", "pallas", "--aggregator.model", "",
+           "--tpu.fleet-backend", "pallas", "--aggregator.model", model,
            "--aggregator.pipeline-depth", "1", "--no-exporter.prometheus",
            "--aggregator.listen-address", f"127.0.0.1:{port}"]
+    if params_path:
+        cmd += ["--aggregator.params-path", params_path]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -1153,7 +1196,7 @@ def main_aggregator_cmd() -> dict:
         ready_s = time.perf_counter() - t0
         rng = np.random.default_rng(SEED + 5)
         names = [f"node-{i:04d}" for i in range(64)]
-        for name in names:
+        for i, name in enumerate(names):
             cpu = rng.uniform(0.05, 5.0, N_WORKLOADS).astype(np.float32)
             report = NodeReport(
                 node_name=name,
@@ -1163,6 +1206,7 @@ def main_aggregator_cmd() -> dict:
                 usage_ratio=float(rng.uniform(0.2, 0.95)), cpu_deltas=cpu,
                 workload_ids=[f"{name}/pod-{i}" for i in range(N_WORKLOADS)],
                 node_cpu_delta=float(cpu.sum(dtype=np.float32)), dt_s=5.0,
+                mode=MODE_MODEL if model and i % 2 else 0,
                 workload_kinds=np.full(N_WORKLOADS, 3, np.int8))
             http(base, "/v1/report",
                  wire.encode_report_v2(report, ZONES, seq=1, run="r1"))
@@ -1193,12 +1237,128 @@ def main_aggregator_cmd() -> dict:
             out, _ = proc.communicate()
     check(proc.returncode == 0 and "Graceful shutdown completed" in out,
           f"binary exit {proc.returncode}: {out[-500:]}")
-    row = {"phase": "main_aggregator_cmd", "nodes": len(names),
+    row = {"phase": "main_aggregator_cmd" + (f"_{model}" if model else ""),
+           "nodes": len(names),
            "ready_s": ready_s, "first_window_s": first_window_s,
            "rung": window["rung_name"], "healthz_ok": health.get("status"),
            "exit": proc.returncode,
            "device_line": [ln for ln in out.splitlines()
                            if "aggregator" in ln and " on " in ln][:1]}
+    emit(row)
+    return row
+
+
+def single_tick_params(mode: str, seed: int) -> dict:
+    """init_moe (E = 8, H = 128) or init_deep (S = 4, D = 128) at their
+    default widths from ``seed``, with non-zero output layers (the
+    initialisers zero them) drawn from the same generator."""
+    from kepler_tpu_torch.models import initializer
+
+    gen = torch.Generator().manual_seed(seed)
+    params = initializer(mode)(len(ZONES), generator=gen)
+    out_w, out_b = ("w1", "b1") if mode == "moe" else ("w_head", "b_head")
+    params[out_w] = torch.randn(params[out_w].shape, generator=gen) * 0.05
+    params["w_skip"] = torch.randn(params["w_skip"].shape,
+                                   generator=gen) * 0.01
+    params[out_b] = torch.full_like(params[out_b], 0.5)
+    return params
+
+
+def mixed_conservation(res, reports: dict) -> float:
+    """Σ workload watts = node active watts in every row of a published
+    mixed window: ratio rows against their RAPL split
+    (``window_conservation``), model rows against the node power the
+    program summed from the same predictions (f16 terms: 2e-3)."""
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    model = [n for n in res.names if res.mode[res.rows[n]] == MODE_MODEL]
+    ratio = [n for n in res.names if res.mode[res.rows[n]] != MODE_MODEL]
+    worst = window_conservation(res, reports, ratio)
+    for name in model:
+        i = res.rows[name]
+        wl = res._wl_watts_f16[i, :res.counts[i]].astype(np.float64)
+        node = res.node_power_uw[i].astype(np.float64) * 1e-6
+        rel = np.abs(wl.sum(axis=0) - node) / np.maximum(node, 1e-3)
+        worst = max(worst, float(rel.max()))
+    check(worst <= 2e-3, f"conservation off by {worst:.2e} relative")
+    return worst
+
+
+def main_aggregator_models(dev: torch.device) -> dict:
+    """The Aggregator's pipelined tier (depth 2, ``backend="pallas"``)
+    with aggregator-mixed's 50/50 schedule, once with ``model: moe`` (E =
+    8, H = 128) and once with ``model: deep`` (S = 4, D = 128): B1 in
+    every window; each window against ``device="cpu"`` (ratio rows
+    bit-equal, model rows within 1e-3 on the f16 plane) and conserving.
+    The last window runs under the profiler for the program's device
+    ms."""
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    intervals, reports = mixed_intervals(SEED + 4)
+    row = {"phase": "main_aggregator_models", "nodes": N_NODES,
+           "workloads": N_WORKLOADS, "zones": len(ZONES),
+           "windows": AGG_MIXED_WINDOWS}
+    for mode in ("moe", "deep"):
+        kw = dict(backend="pallas", model_mode=mode, pipeline_depth=2,
+                  model_params=single_tick_params(mode, SEED + 7))
+
+        def run(device, on_card: bool):
+            agg, _, ticks, published = make_aggregator(device, **kw)
+            legs, prof, launches = [], None, None
+            if on_card:
+                reset_launches()
+            for t, frames in enumerate(intervals):
+                ticks[0] += 5.0
+                ingest_direct(agg, frames)
+                if on_card and t == len(intervals) - 1:
+                    prof = profile_top(agg.aggregate_once, k=6)
+                else:
+                    agg.aggregate_once()
+                legs.append({k: agg._stats[k] for k in LEG_KEYS})
+            agg._drain_pipeline()
+            if on_card:
+                torch.cuda.synchronize()
+                launches = read_launches()
+            return agg, published, legs, launches, prof
+
+        t0 = time.perf_counter()
+        _, cpu_pub, _, _, _ = run("cpu", False)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        agg, published, legs, launches, prof = run(dev, True)
+        wall_s = time.perf_counter() - t0
+        check(launches["outer_product_attribution"] == AGG_MIXED_WINDOWS,
+              f"{mode}: B1 launched {launches['outer_product_attribution']}"
+              f" times for {AGG_MIXED_WINDOWS} windows")
+        check(launches["fused_window_step"] == 0
+              and launches["flash_block"] == 0, f"{mode}: B2 or B3 ran")
+        check(agg.window_health()["rung_name"] == "packed-pipelined"
+              and agg._stats["window_demotions_total"] == 0,
+              f"{mode}: left the pipelined tier")
+        check(len(published) == len(cpu_pub) == AGG_MIXED_WINDOWS,
+              f"{mode}: {len(published)} windows published")
+        ratio_rows = sum(
+            same_window(got, ref, f"{mode} window {t}", model_rtol=1e-3)
+            for t, (got, ref) in enumerate(zip(published, cpu_pub)))
+        worst_rel = 0.0
+        for got, ref in zip(published, cpu_pub):
+            m = ref.mode == MODE_MODEL
+            a = got._wl_watts_f16[m].astype(np.float32)
+            b = ref._wl_watts_f16[m].astype(np.float32)
+            worst_rel = max(worst_rel, float(
+                (np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max()))
+        conservation = max(mixed_conservation(res, reports[t])
+                           for t, res in enumerate(published))
+        model_w = max(float(np.abs(r._wl_watts_f16[r.mode == MODE_MODEL])
+                            .max()) for r in published)
+        check(model_w > 0.1, f"{mode}: model rows are all ~zero")
+        row[mode] = {"launches": launches, "ratio_rows_bit_equal": ratio_rows,
+                     "max_model_rel_vs_cpu": worst_rel,
+                     "max_model_watts": model_w,
+                     "conservation_rel": conservation,
+                     "first_run_s": wall_s, "cpu_run_s": cpu_s,
+                     "legs_ms_per_window": legs,
+                     "profiled_window": prof}
     emit(row)
     return row
 
@@ -1400,18 +1560,20 @@ def temporal_schedule() -> list[list]:
     return windows
 
 
-def temporal_params() -> dict:
+def temporal_params(scale: float = 1.0) -> dict:
     """init_temporal at its default widths (d_model 128, 4 heads, t_max
-    128) from the seed, with a non-zero head (init zeroes it)."""
+    128) from the seed, with a non-zero head (init zeroes it); ``scale``
+    multiplies the head, the skip path and the bias (40 makes the
+    predictions tens of watts)."""
     from kepler_tpu_torch.models.temporal import init_temporal
 
     gen = torch.Generator().manual_seed(SEED)
     params = init_temporal(len(ZONES), generator=gen)
     params["w_head"] = torch.randn(params["w_head"].shape,
-                                   generator=gen) * 0.05
+                                   generator=gen) * 0.05 * scale
     params["w_skip"] = torch.randn(params["w_skip"].shape,
-                                   generator=gen) * 0.01
-    params["b_head"] = torch.full_like(params["b_head"], 0.5)
+                                   generator=gen) * 0.01 * scale
+    params["b_head"] = torch.full_like(params["b_head"], 0.5 * scale)
     return params
 
 
@@ -1580,20 +1742,37 @@ def main_temporal_fleet(dev: torch.device) -> tuple[dict, list, dict, list]:
         check(np.allclose(out[7][:CPU_NODES][~m], cpu[7][~m], rtol=1e-6),
               f"window {t}: ratio rows off the CPU program")
 
-    # accuracy mode (f32 compute) on the last window's node subset
+    # accuracy mode (f32 compute) on the last window's node subset, with
+    # the head scaled so the model predicts tens of watts: rtol 1e-4 with
+    # an atol of 1e-5 · max|watts| (a prediction the 0 W floor leaves just
+    # above it carries the f32 noise of its sum's largest terms)
     batch, hist, tv = saved[-1]
     sub = node_subset(batch, CPU_NODES)
+    m = sub.mode == MODE_MODEL
+    acc_params = temporal_params(scale=ACC_SCALE)
     acc = [host_result(run_fleet_attribution(
         make_temporal_fleet_program(device=d, backend="pallas",
                                     accuracy_mode=True),
-        sub, params, hist[:CPU_NODES], tv[:CPU_NODES]))[7]
+        sub, acc_params, hist[:CPU_NODES], tv[:CPU_NODES]))[7]
         for d in (dev, "cpu")]
-    check(np.allclose(acc[0], acc[1], rtol=1e-4, atol=10.0),
-          "accuracy-mode model watts off the CPU program (rtol 1e-4)")
-    worst["accuracy_abs_vs_cpu_w"] = float(np.abs(acc[0] - acc[1]).max()
-                                           * 1e-6)
-    worst["accuracy_rel_vs_cpu"] = float(
-        (np.abs(acc[0] - acc[1]) / np.maximum(np.abs(acc[1]), 1e3)).max())
+    a, b = acc[0][m] * 1e-6, acc[1][m] * 1e-6  # µW → W
+    top = float(np.abs(b).max())
+    check(top > 10.0, f"accuracy-mode model watts peak at {top} W")
+    check(np.allclose(a, b, rtol=1e-4, atol=1e-5 * top),
+          "accuracy-mode model watts off the CPU program (rtol 1e-4, "
+          "atol 1e-5 · max|watts|)")
+    check(np.array_equal(acc[0][~m], acc[1][~m]) or np.allclose(
+        acc[0][~m], acc[1][~m], rtol=1e-6), "accuracy-mode ratio rows")
+    gap = np.abs(a - b)
+    big = np.abs(b) >= 1e-2 * top
+    worst["accuracy_max_watts"] = top
+    worst["accuracy_abs_vs_cpu_w"] = float(gap.max())
+    worst["accuracy_abs_over_max"] = float(gap.max()) / top
+    # over predictions of at least 1% of the largest; below, a prediction
+    # is the f32 cancellation of terms of tens of watts
+    worst["accuracy_rel_vs_cpu"] = float((gap[big] / np.abs(b[big])).max())
+    worst["accuracy_rtol_holds_above_w"] = float(
+        np.abs(b[gap > 1e-4 * np.abs(b)]).max(initial=0.0))
 
     hist_d, tv_d = (torch.from_numpy(x).to(dev) for x in (hist, tv))
     prof = profile_top(lambda: run_fleet_attribution(program, batch, params,
@@ -1709,6 +1888,260 @@ def main_temporal_trunk(dev: torch.device, saved: list,
            "call_ms_median": statistics.median(call_ms),
            "call_ms_first": call_ms[0], "peak_memory_gb": peak_gb,
            "profile": prof}
+    emit(row)
+    return row
+
+
+# -- training (path 10) ------------------------------------------------------------
+
+class TrainLog(logging.Handler):
+    """``cmd.train``'s per-step losses and the step it resumed from, read
+    from its log records."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.losses: list[float] = []
+        self.resumed: int | None = None
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if record.msg.startswith("step "):
+            self.losses.append(float(record.args[2]))
+        elif record.msg.startswith("resumed"):
+            self.resumed = int(record.args[0])
+
+
+def train_cli(argv: list[str]) -> TrainLog:
+    """``kepler_tpu_torch.cmd.train.main(argv)`` in this process; fails
+    the run unless it exits 0."""
+    from kepler_tpu_torch.cmd import train as cmd
+
+    logger = logging.getLogger("kepler.train")
+    handler = TrainLog()
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    logger.propagate = False  # per-step lines stay off stderr
+    try:
+        rc = cmd.main(argv)
+    finally:
+        logger.removeHandler(handler)
+    check(rc == 0, f"cmd.train {' '.join(argv)} exited {rc}")
+    return handler
+
+
+def train_dumps(dev: torch.device, root: str, mixed: list,
+                temporal: list) -> tuple[str, str]:
+    """Training dumps written by Aggregators on the card
+    (``training_dump_dir``): ``mixed``'s first windows on the MLP serial
+    rung, and ``temporal``'s windows with ``model: temporal`` (the last
+    window's file kept, its histories up to that many ticks long). →
+    (single-tick dump dir, temporal dump dir)."""
+    from kepler_tpu_torch.fleet import wire
+
+    single_dir = os.path.join(root, "dump-single")
+    temporal_dir = os.path.join(root, "dump-temporal")
+    agg, _, ticks, _ = make_aggregator(
+        dev, backend="pallas", model_mode="mlp",
+        model_params=mlp_params(SEED + 8), training_dump_dir=single_dir,
+        workload_bucket=TRAIN_W)
+    for frames in mixed[:TRAIN_DUMP_WINDOWS]:
+        ticks[0] += 5.0
+        ingest_direct(agg, frames)
+        agg.aggregate_once()
+    agg._drain_pipeline()
+    agg, _, ticks, _ = make_aggregator(
+        dev, backend="pallas", model_mode="temporal",
+        history_window=HISTORY_T, model_params=temporal_params(),
+        training_dump_dir=temporal_dir, training_dump_max_files=1,
+        workload_bucket=TRAIN_W)
+    for t, reports in enumerate(temporal[:TRAIN_TEMPORAL_WINDOWS]):
+        ticks[0] += 5.0
+        ingest_direct(agg, [wire.encode_report_v2(r, ZONES, seq=t + 1,
+                                                  run="r1")
+                            for r in reports])
+        check(agg.aggregate_once() is not None, "a dump window is missing")
+    agg._drain_pipeline()
+    check(len(os.listdir(single_dir)) == TRAIN_DUMP_WINDOWS
+          and len(os.listdir(temporal_dir)) == 1,
+          "the aggregators wrote other dumps than asked")
+    return single_dir, temporal_dir
+
+
+def train_step_ms(argv: list[str], dev: torch.device,
+                  steps: int = 10) -> tuple[float, float]:
+    """The family's train step as ``cmd.train`` builds it, on the card:
+    CUDA-event ms per step over ``steps`` after two warm steps, and the
+    peak device memory (MiB) from building the state on."""
+    from kepler_tpu_torch.cmd import train as cmd
+
+    args = cmd.parse_args(argv)
+    data, _ = cmd.load_windows(args.data)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_fn, inputs = cmd.build_trainer(args, data, dev)
+    for _ in range(2):
+        state, _ = step_fn(state, *inputs)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        state, _ = step_fn(state, *inputs)
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    del state, step_fn, inputs
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / steps, peak
+
+
+def serve_trained(dev: torch.device, family: str, path: str,
+                  frames: list[list[bytes]]) -> dict:
+    """The ``.npz`` ``cmd.train`` wrote, served by the Aggregator on the
+    card (``backend="pallas"``) for ``frames``' windows: every window
+    publishes, model rows finite and not all zero."""
+    from kepler_tpu_torch.models.estimator import load_params
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    kw = dict(backend="pallas", model_mode=family,
+              model_params=load_params(path))
+    if family == "temporal":
+        kw["history_window"] = HISTORY_T
+    agg, _, ticks, published = make_aggregator(dev, **kw)
+    for batch in frames:
+        ticks[0] += 5.0
+        ingest_direct(agg, batch)
+        agg.aggregate_once()
+    agg._drain_pipeline()
+    check(len(published) == len(frames)
+          and agg._stats["window_demotions_total"] == 0,
+          f"{family}: the trained params did not serve every window")
+    top = 0.0
+    for res in published:
+        w = res.wl_power_uw[res.mode == MODE_MODEL] * 1e-6
+        check(np.isfinite(w).all(), f"{family}: non-finite served watts")
+        top = max(top, float(np.abs(w).max()))
+    check(top > 0.01, f"{family}: the trained model serves ~0 W")
+    return {"windows": len(published), "max_model_watts": top,
+            "rung": agg.window_health()["rung_name"]}
+
+
+def main_train(dev: torch.device) -> dict:
+    """Path 10, the train half of the loop on the card: dumps from the
+    Aggregator (``training_dump_dir``), then ``cmd.train.main`` for each
+    of the five families on ``cuda`` for TRAIN_STEPS AdamW steps (the
+    loss must fall); the same run checkpointed halfway and resumed ends
+    at the same params; the run's first TRAIN_CPU_STEPS steps with
+    ``--device cpu`` give the same losses within TRAIN_LOSS_RTOL (bf16
+    trunks round their operands after sums taken in another order); the
+    output ``.npz`` serves in the Aggregator on the card (moe's and
+    deep's through the aggregator binary too); and the binary ``python -m
+    kepler_tpu_torch.cmd.train`` exits 0. Training launches
+    no kernel (as in JAX); the dumps and the serving windows launch B1."""
+    from kepler_tpu_torch.cmd.train import load_windows
+    from kepler_tpu_torch.fleet import wire
+    from kepler_tpu_torch.models.estimator import load_params, param_leaves
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    mixed, _ = mixed_intervals(SEED + 8, windows=TRAIN_DUMP_WINDOWS)
+    temporal_windows = temporal_schedule()[:TRAIN_TEMPORAL_WINDOWS]
+    temporal_frames = [[wire.encode_report_v2(r, ZONES, seq=t + 1, run="r1")
+                        for r in reports]
+                       for t, reports in enumerate(temporal_windows[:2])]
+    row = {"phase": "main_train", "steps": TRAIN_STEPS,
+           "cpu_steps": TRAIN_CPU_STEPS, "loss_rtol": TRAIN_LOSS_RTOL,
+           "families": {}}
+    with tempfile.TemporaryDirectory(prefix="kt-train-") as root:
+        reset_launches()
+        t0 = time.perf_counter()
+        single_dir, temporal_dir = train_dumps(dev, root, mixed,
+                                               temporal_windows)
+        row["dump_s"] = time.perf_counter() - t0
+        for name, d in (("single", single_dir), ("temporal", temporal_dir)):
+            data, files = load_windows(d)
+            row[f"{name}_rows"] = list(data["cpu_deltas"].shape)
+            row[f"{name}_labelled"] = int(data["workload_valid"].sum())
+        for fam in FAMILIES:
+            data = temporal_dir if fam == "temporal" else single_dir
+            out = os.path.join(root, fam)
+            base = ["--data", data, "--model", fam, "--lr", TRAIN_LR,
+                    "--log-every", "1"]
+            t0 = time.perf_counter()
+            straight = train_cli(base + ["--steps", str(TRAIN_STEPS),
+                                         "--out", f"{out}-straight.npz"])
+            card_s = time.perf_counter() - t0
+            losses = straight.losses
+            check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+                  f"{fam}: the loss did not fall ({losses[:1]} → "
+                  f"{losses[-1:]})")
+            ck = f"{out}-ck"
+            train_cli(base + ["--steps", str(TRAIN_STEPS // 2), "--out",
+                              f"{out}-half.npz", "--ckpt-dir", ck])
+            resumed = train_cli(base + ["--steps", str(TRAIN_STEPS),
+                                        "--out", f"{out}-resumed.npz",
+                                        "--ckpt-dir", ck,
+                                        "--ckpt-every", "5"])
+            check(resumed.resumed == TRAIN_STEPS // 2,
+                  f"{fam}: resumed from {resumed.resumed}")
+            a = param_leaves(load_params(f"{out}-straight.npz"))
+            b = param_leaves(load_params(f"{out}-resumed.npz"))
+            resume_diff = max(float((x - y).abs().max())
+                              for x, y in zip(a, b))
+            check(resume_diff == 0.0, f"{fam}: the resumed run ends "
+                  f"{resume_diff} away from the straight run")
+            t0 = time.perf_counter()
+            cpu = train_cli(base + ["--steps", str(TRAIN_CPU_STEPS),
+                                    "--device", "cpu",
+                                    "--out", f"{out}-cpu.npz"])
+            cpu_s = time.perf_counter() - t0
+            rel = [abs(g - c) / abs(c) for g, c in
+                   zip(losses[:TRAIN_CPU_STEPS], cpu.losses)]
+            check(len(cpu.losses) == TRAIN_CPU_STEPS
+                  and max(rel) <= TRAIN_LOSS_RTOL,
+                  f"{fam}: card losses off the CPU's by {max(rel):.2e}")
+            ms, peak = train_step_ms(
+                base + ["--steps", "1", "--out", f"{out}-x.npz"], dev)
+            served = serve_trained(
+                dev, fam, f"{out}-straight.npz",
+                temporal_frames if fam == "temporal" else mixed)
+            row["families"][fam] = {
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "loss_rel_vs_cpu": max(rel),
+                "loss_at_cpu_steps": [losses[TRAIN_CPU_STEPS - 1],
+                                      cpu.losses[-1]],
+                "resume_max_abs_diff": resume_diff,
+                "ms_per_step": ms, "peak_mib": peak,
+                "straight_run_s": card_s, "cpu_run_s": cpu_s,
+                "served": served}
+        for fam in ("moe", "deep"):  # the trained params in the binary
+            row[f"aggregator_cmd_{fam}"] = main_aggregator_cmd(
+                fam, os.path.join(root, f"{fam}-straight.npz"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kepler_tpu_torch.cmd.train", "--data",
+             single_dir, "--model", "mlp", "--steps", str(TRAIN_STEPS),
+             "--out", os.path.join(root, "binary.npz")],
+            cwd=here, env=dict(os.environ, PYTHONPATH=here),
+            capture_output=True, text=True, timeout=600, check=False)
+        check(proc.returncode == 0
+              and os.path.exists(os.path.join(root, "binary.npz"))
+              and f"for {TRAIN_STEPS} steps" in proc.stderr,
+              f"the training binary exited {proc.returncode}: "
+              f"{proc.stderr[-800:]}")
+        row["binary"] = {"exit": proc.returncode,
+                         "seconds": time.perf_counter() - t0,
+                         "device_line": [ln for ln in
+                                         proc.stderr.splitlines()
+                                         if "loaded" in ln][:1]}
+        torch.cuda.synchronize()
+        launches = read_launches()
+    want_b1 = TRAIN_DUMP_WINDOWS + TRAIN_TEMPORAL_WINDOWS + 2 * len(FAMILIES)
+    # (the binaries' windows run in their own processes: not counted here)
+    check(launches["outer_product_attribution"] == want_b1,
+          f"B1 launched {launches['outer_product_attribution']} times in "
+          f"the dump and serving windows, not {want_b1}")
+    check(launches["flash_block"] == 0 and launches["fused_window_step"] == 0,
+          "training or its windows launched B2 or B3")
+    row["launches"] = launches
     emit(row)
     return row
 
@@ -2399,8 +2832,11 @@ def main() -> int:
     agg_fused = main_aggregator_fused(dev)
     agg_mixed = main_aggregator_mixed(dev)
     main_aggregator_cmd()
+    agg_models = main_aggregator_models(dev)
     fleet, saved, params, outs = main_temporal_fleet(dev)
     trunk = main_temporal_trunk(dev, saved, params, outs)
+    del saved, outs
+    train = main_train(dev)
     main_node_agent(dev)
     node_fleet = main_node_fleet(dev)
     main_node_cmd()
@@ -2409,8 +2845,13 @@ def main() -> int:
         "main_mixed": mixed["launches"]["outer_product_attribution"],
         "main_aggregator_mixed":
             agg_mixed["launches"]["outer_product_attribution"],
+        "main_aggregator_models_moe":
+            agg_models["moe"]["launches"]["outer_product_attribution"],
+        "main_aggregator_models_deep":
+            agg_models["deep"]["launches"]["outer_product_attribution"],
         "main_temporal_fleet":
-            fleet["launches"]["outer_product_attribution"]}
+            fleet["launches"]["outer_product_attribution"],
+        "main_train": train["launches"]["outer_product_attribution"]}
     b1["launches"] = sum(b1["launches_by_path"].values())
     b2 = dict(b2_flush)  # the main path's call: one launch per flush
     b2["launches_by_path"] = {

@@ -1,10 +1,11 @@
-"""Cluster-aggregator entry point, on one CUDA device.
+"""Cluster-aggregator entry point, on one CUDA device (or the CPU).
 
 ``python -m kepler_tpu_torch.cmd.aggregator`` starts the fleet ingest and
 attribution service of the PyTorch/CUDA port: the same flags, config
-file and HTTP surface as ``python -m kepler_tpu.cmd.aggregator``. Node
-agents point at it via ``--aggregator.endpoint``. It always serves on
-``cuda`` and exits with status 1 when CUDA is absent; the sharded and
+file and HTTP surface as ``python -m kepler_tpu.cmd.aggregator``, plus
+``--device {cuda,cpu}`` (default ``cuda``). Node agents point at it via
+``--aggregator.endpoint``. Without CUDA it exits with status 1 naming
+CUDA unless run with ``--device cpu``; the sharded and
 multi-host tiers (``aggregator.meshShape`` over several devices,
 ``aggregator.multihost``) are not yet ported and fail at start-up.
 ``--tpu.fleet-backend pallas`` runs the hand-written CUDA kernels.
@@ -23,6 +24,7 @@ from typing import Sequence
 import torch
 
 from kepler_tpu_torch import version
+from kepler_tpu_torch.cmd import split_device
 from kepler_tpu_torch.config import parse_args_and_config
 from kepler_tpu_torch.device import resolve_device
 from kepler_tpu_torch.fleet import Aggregator
@@ -40,6 +42,8 @@ log = logging.getLogger("kepler.aggregator")
 
 def main(argv: Sequence[str] | None = None) -> int:
     try:
+        device_name, argv = split_device(
+            sys.argv[1:] if argv is None else argv)
         cfg = parse_args_and_config(argv, skip_validation=("host",))
         # the aggregator binary IS the replica role regardless of the
         # aggregator.enabled flag (which gates the node binary's embedded
@@ -56,14 +60,16 @@ def main(argv: Sequence[str] | None = None) -> int:
     fault.install_from_config(cfg.fault)
     telemetry.install_from_config(cfg.telemetry)
     try:
-        device = resolve_device("cuda")
+        device = resolve_device(device_name)
     except RuntimeError as err:
-        log.error("the aggregator serves on a CUDA device: %s", err)
+        log.error("the aggregator serves on a CUDA device unless run "
+                  "with --device cpu: %s", err)
         return 1
     info = version.info()
     log.info("kepler-tpu aggregator %s (%s, %s) on %s", info.version,
              info.python_version, info.platform,
-             torch.cuda.get_device_name(device))
+             torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
 
     params = None
     if cfg.aggregator.params_path:

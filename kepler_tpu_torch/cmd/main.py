@@ -24,6 +24,7 @@ import torch
 
 from kepler_tpu_torch import fault, telemetry, version
 from kepler_tpu_torch.config import Config, parse_args_and_config
+from kepler_tpu_torch.cmd import split_device
 from kepler_tpu_torch.device import resolve_device
 from kepler_tpu_torch.device.fake import FakeCPUMeter
 from kepler_tpu_torch.device.rapl import RaplPowerMeter
@@ -240,24 +241,6 @@ def create_services(cfg: Config,
         log.warning("aggregator.enabled is set — the aggregator role runs "
                     "as its own binary: python -m kepler_tpu_torch.cmd.aggregator")
     return services
-
-
-def split_device(argv: Sequence[str]) -> tuple[str, list[str]]:
-    """→ (the ``--device`` value, default ``cuda``; argv without it). The
-    flag is the port's own: it leaves argv before the config parser, a
-    copy of the reference package's, sees it."""
-    device, rest = "cuda", []
-    it = iter(argv)
-    for arg in it:
-        if arg == "--device":
-            device = next(it, "")
-        elif arg.startswith("--device="):
-            device = arg.split("=", 1)[1]
-        else:
-            rest.append(arg)
-    if device not in ("cuda", "cpu"):
-        raise ValueError(f"--device must be cuda or cpu, not {device!r}")
-    return device, rest
 
 
 def main(argv: Sequence[str] | None = None) -> int:

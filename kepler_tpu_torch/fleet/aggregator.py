@@ -3213,7 +3213,7 @@ class Aggregator:
         in_key, f_axis = {"mlp": ("w0", 0), "linear": ("weight", 0),
                           "moe": ("w0", 1), "deep": ("in_proj", 0),
                           "temporal": ("in_proj", 0)}[self._model_mode]
-        got_f = int(np.asarray(self._params[in_key]).shape[f_axis])
+        got_f = int(np.shape(self._params[in_key])[f_axis])
         if got_f != NUM_FEATURES:
             raise ValueError(
                 f"params' {in_key} has feature dim {got_f} but this build's "
@@ -3221,7 +3221,7 @@ class Aggregator:
                 "predates a feature-set change; retrain it "
                 "(models.features.build_features documents the vector)")
         if self._model_mode == "temporal":
-            t_max = int(np.asarray(self._params["pos_emb"]).shape[0])
+            t_max = int(np.shape(self._params["pos_emb"])[0])
             if t_max < self._history_window:
                 raise ValueError(
                     f"temporal params were trained with t_max={t_max} < "
@@ -3236,7 +3236,7 @@ class Aggregator:
         key = _OUTPUT_BIAS_KEY.get(self._model_mode)
         if key is None or key not in self._params:
             return None
-        return int(np.asarray(self._params[key]).shape[-1])
+        return int(np.shape(self._params[key])[-1])
 
     # -- read endpoints ----------------------------------------------------
 

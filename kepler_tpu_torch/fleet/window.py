@@ -45,6 +45,7 @@ import torch
 
 from kepler_tpu_torch import fault, telemetry
 from kepler_tpu_torch.device import resolve_device
+from kepler_tpu_torch.models.estimator import params_to
 from kepler_tpu_torch.parallel.fleet import (MODE_MODEL, NodeReport,
                                              assemble_fleet_batch)
 
@@ -358,7 +359,7 @@ class PackedWindowEngine:
         self._updates: dict[tuple, list] = {}  # (n, width, db) key
         self.compile_count = 0  # program-cache misses (attribution + update)
         self._params_src: Any = None
-        self._params_dev: dict[str, torch.Tensor] | None = None
+        self._params_dev: dict | None = None
 
         # resident state (invalid until the first plan_window). The
         # resident batch rotates over `staging_slots` device buffers: the
@@ -391,17 +392,14 @@ class PackedWindowEngine:
 
     # -- params ------------------------------------------------------------
 
-    def _device_params(self, params: Any) -> dict[str, torch.Tensor] | None:
-        """Estimator params → f32 tensors on the engine's device (cached
-        per params object); None for ratio-only fleets."""
+    def _device_params(self, params: Any) -> dict | None:
+        """Estimator params → f32 tensors on the engine's device, nested
+        dicts kept (cached per params object); None for ratio-only
+        fleets."""
         if not self._model_mode or not isinstance(params, Mapping):
             return None
         if params is not self._params_src:
-            self._params_dev = {
-                k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.array(v, np.float32))).to(
-                        self.device, torch.float32)
-                for k, v in params.items()}
+            self._params_dev = params_to(params, self.device)
             self._params_src = params
         return self._params_dev
 

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from kepler_tpu_torch.device import resolve_device
-from kepler_tpu_torch.models.estimator import LINEAR, TEMPORAL, predictor
+from kepler_tpu_torch.models.estimator import (LINEAR, TEMPORAL, params_to,
+                                               predictor)
 from kepler_tpu_torch.models.features import build_features
 from kepler_tpu_torch.models.temporal import predict_temporal
 from kepler_tpu_torch.ops.attribution import AttributionResult, attribute_fleet
@@ -255,7 +256,7 @@ def run_fleet_attribution(
     def put(x: Any) -> torch.Tensor:
         return torch.as_tensor(x).to(dev)
 
-    params = ({k: put(v) for k, v in model_params.items()}
+    params = (params_to(model_params, dev)
               if model_params is not None else None)
     args = [put(batch.zone_deltas_uj), put(batch.zone_valid),
             put(batch.usage_ratio), put(batch.cpu_deltas),

@@ -115,6 +115,16 @@ def mlp_params(n_zones: int) -> dict:
 def model_params(mode: str | None, n_zones: int) -> dict | None:
     if mode == "mlp":
         return mlp_params(n_zones)
+    if mode == "linear":
+        rng = np.random.default_rng(n_zones)
+        return {"weight": rng.normal(0.0, 0.3, (7, n_zones)).astype(
+                    np.float32),
+                "bias": np.full(n_zones, 0.2, np.float32)}
+    if mode in ("moe", "deep"):
+        from tests.test_torch_models import deep_params, moe_params
+
+        return (moe_params if mode == "moe" else deep_params)(
+            n_zones, n_zones=n_zones)
     if mode == "temporal":
         return temporal_params(z=n_zones, d_model=32, t_max=128,
                                seed=n_zones)

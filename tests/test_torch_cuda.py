@@ -415,3 +415,142 @@ def test_monitor_on_the_card_equals_the_cpu_bit_for_bit(cuda_device,
         got, ref = (host.node_state(s[0]._snapshot) for s in sides)
         host.same_state(got, ref, f"tick {tick}")
     assert len(ref["terminated_processes.ids"]) == 30
+
+
+# -- estimators and training on the card ----------------------------------------
+
+def seeded_family_params(family: str) -> dict:
+    """Small params of ``family`` from a seeded generator, with non-zero
+    output layers (the initialisers zero them)."""
+    from kepler_tpu_torch.models import initializer
+
+    gen = torch.Generator().manual_seed(3)
+    kw = {"moe": dict(n_experts=3, hidden=16),
+          "deep": dict(n_stages=2, d_model=16),
+          "mlp": dict(hidden=16),
+          "temporal": dict(d_model=16, t_max=8)}.get(family, {})
+    p = initializer(family)(4, generator=gen, **kw)
+    for k in ("w1", "w2", "w_head", "w_skip"):
+        if k in p and not (family == "mlp" and k == "w1"):
+            p[k] = torch.randn(p[k].shape, generator=gen) * 0.3
+    return p
+
+
+def family_batch(family: str, seed: int, n: int = 64, w: int = 32):
+    gen = torch.Generator().manual_seed(seed)
+    valid = torch.rand((n, w), generator=gen) > 0.25
+    targets = torch.rand((n, w, 4), generator=gen) * 3.0
+    label_valid = torch.rand((n, w, 4), generator=gen) > 0.2
+    if family == "temporal":
+        hist = torch.rand((n, w, 8, 7), generator=gen)
+        tv = (torch.arange(8)[None, None, :]
+              < torch.randint(0, 9, (n, w), generator=gen)[..., None])
+        return (hist, valid, tv), targets, label_valid
+    return (torch.rand((n, w, 7), generator=gen) * 4.0, valid), targets, \
+        label_valid
+
+
+@pytest.mark.cuda
+def test_lstsq_min_norm_on_the_card_equals_the_cpu(cuda_device):
+    """The SVD solve (``torch.linalg.lstsq`` on CUDA has only the
+    full-rank driver) on rank-deficient and all-zero systems, batched:
+    rtol 1e-4."""
+    from kepler_tpu_torch.models.linear import (fit_linear_exact,
+                                                lstsq_min_norm)
+
+    gen = torch.Generator().manual_seed(4)
+    a = torch.randn((3, 100_000, 7), generator=gen)
+    a[1, :, 4] = a[1, :, 2] * 3.0
+    a[2] = 0.0
+    b = torch.randn((3, 100_000, 2), generator=gen)
+    want = lstsq_min_norm(a, b)
+    got = lstsq_min_norm(a.to(cuda_device), b.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    assert not got[2].any()
+    (feats, valid), targets, lv = family_batch("linear", 5)
+    lv[..., 2] = False  # a zone with no labels
+    for label_valid in (None, lv):
+        ref = fit_linear_exact(feats, valid, targets, label_valid)
+        out = fit_linear_exact(
+            feats.to(cuda_device), valid.to(cuda_device),
+            targets.to(cuda_device),
+            None if label_valid is None else label_valid.to(cuda_device))
+        torch.testing.assert_close(out["weight"].cpu(), ref["weight"],
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["moe", "deep"])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_moe_and_deep_on_the_card_match_the_cpu(cuda_device, family, cd):
+    """f32 compute within rtol 1e-5 (atol 1e-5 · max|watts|); the bf16
+    trunk within atol 1e-2 · max|watts|."""
+    from kepler_tpu_torch.models.estimator import params_to, predictor
+
+    params = seeded_family_params(family)
+    (feats, valid), _, _ = family_batch(family, 6)
+    fn = predictor(family)
+    want = fn(params, feats, valid, compute_dtype=cd)
+    got = fn(params_to(params, cuda_device), feats.to(cuda_device),
+             valid.to(cuda_device), compute_dtype=cd).cpu()
+    top = float(want.abs().max())
+    assert top > 0.1
+    if cd == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * top)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["linear", "mlp", "moe", "deep",
+                                    "temporal"])
+def test_train_steps_on_the_card_match_the_cpu(cuda_device, family):
+    """Five AdamW steps at f32 compute: every loss within rtol 1e-4; a
+    checkpoint saved on the card restores onto the CPU and the next step
+    agrees there too."""
+    import functools
+
+    from kepler_tpu_torch.models import train
+    from kepler_tpu_torch.models.checkpoint import TrainCheckpointer
+    from kepler_tpu_torch.models.estimator import params_to, predictor
+
+    args, targets, lv = family_batch(family, 7)
+    if family == "temporal":
+        step = train.make_temporal_train_step(None, torch.float32)
+    else:
+        fn = predictor(family)
+        if family != "linear":
+            fn = functools.partial(fn, compute_dtype=torch.float32)
+        step = train.make_train_step(fn)
+    losses = {}
+    states = {}
+    for dev in ("cpu", cuda_device):
+        state = train.create_train_state(
+            params_to(seeded_family_params(family), dev),
+            train.make_optimizer(1e-2))
+        put = [a.to(dev) for a in (*args, targets, lv)]
+        out = []
+        for _ in range(5):
+            state, loss = step(state, *put)
+            out.append(float(loss))
+        losses[str(dev)] = out
+        states[str(dev)] = state
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = TrainCheckpointer(d)
+        assert ck.save(states["cuda"])
+        like = train.create_train_state(
+            params_to(seeded_family_params(family), "cpu"),
+            train.make_optimizer(1e-2))
+        back = ck.restore_latest(like)
+    assert back.step == 5
+    for a, b in zip(train.param_leaves(back.params),
+                    train.param_leaves(states["cuda"].params)):
+        assert a.device.type == "cpu"
+        assert torch.equal(a, b.detach().cpu())
+    _, loss = step(back, *args, targets, lv)
+    _, ref = step(states["cuda"], *[a.to(cuda_device)
+                                    for a in (*args, targets, lv)])
+    np.testing.assert_allclose(float(loss), float(ref), rtol=1e-4)

@@ -170,11 +170,11 @@ def test_registry_modes():
     assert str(port_err.value) == str(jax_err.value).replace(
         "make_temporal_program", "make_temporal_fleet_program")
     assert port_est.initializer("temporal") is not None
-    for mode in ("moe", "deep"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            port_est.predictor(mode)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            port_est.initializer(mode)
+    for mode in ("moe", "deep"):  # ported: the JAX registry's entries
+        assert (port_est.predictor(mode).__name__
+                == jest.predictor(mode).__name__)
+        assert (port_est.initializer(mode).__name__
+                == jest.initializer(mode).__name__)
     with pytest.raises(ValueError, match="unknown estimator"):
         port_est.predictor("bogus")
     with pytest.raises(ValueError, match="no learned parameters"):

@@ -3,9 +3,11 @@
 ``tests/conftest.py`` imports jax into every test process, so the fence
 is checked in a fresh interpreter: importing every module of
 ``kepler_tpu_torch`` must leave ``jax`` and every ``kepler_tpu.*`` module
-out of ``sys.modules``, and the entry points built with their default
-device must raise when CUDA is absent instead of running on the CPU —
-the aggregator and node binaries' ``main`` return 1 and name CUDA.
+out of ``sys.modules`` (and optax and orbax, the JAX package's training
+libraries), and the entry points built with their default device must
+raise when CUDA is absent instead of running on the CPU — the
+aggregator, node and training binaries' ``main`` return 1 and name
+CUDA.
 """
 
 from __future__ import annotations
@@ -28,10 +30,10 @@ for info in pkgutil.walk_packages(kepler_tpu_torch.__path__,
     importlib.import_module(info.name)
     names.append(info.name)
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.")
-                or m == "kepler_tpu" or m.startswith("kepler_tpu."))
+                if m.split(".")[0] in ("jax", "optax", "orbax",
+                                       "kepler_tpu"))
 raised = {}
-cmd_main = node_main = None
+cmd_main = node_main = train_main = None
 import torch
 if not torch.cuda.is_available():
     import contextlib, io
@@ -77,8 +79,16 @@ if not torch.cuda.is_available():
     with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
         rc = node_cmd.main(["--no-exporter.prometheus"])
     node_main = {"rc": rc, "log": log.getvalue()}
+    import logging
+    from kepler_tpu_torch.cmd import train as train_cmd
+    log = io.StringIO()
+    handler = logging.StreamHandler(log)
+    logging.getLogger("kepler.train").addHandler(handler)
+    rc = train_cmd.main(["--data", "no-such-dir", "--out", "p.npz"])
+    train_main = {"rc": rc, "log": log.getvalue()}
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
                   "cmd_main": cmd_main, "node_main": node_main,
+                  "train_main": train_main,
                   "cuda": torch.cuda.is_available()}))
 """
 
@@ -105,7 +115,7 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
         assert len(out["raised"]) == 10
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
-        for binary in ("cmd_main", "node_main"):
+        for binary in ("cmd_main", "node_main", "train_main"):
             assert out[binary]["rc"] == 1, binary
             assert "CUDA is not available" in out[binary]["log"], binary
 
@@ -119,6 +129,7 @@ def test_port_sources_name_no_jax_import():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
-                if mod.split(".")[0] in ("jax", "jaxlib", "kepler_tpu"):
+                if mod.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
+                                         "kepler_tpu"):
                     bad.append(f"{path.relative_to(REPO)}:{n}: {s}")
     assert bad == []

@@ -278,7 +278,8 @@ def test_registry_serves_temporal_as_jax_does():
         predict_temporal(tparams, hist, wv, tv).numpy())
     with pytest.raises(ValueError, match="history windows"):
         port_est.predictor("temporal")
-    assert port_est.NOT_PORTED == ("moe", "deep")
+    assert port_est.initializer("moe") is not None
+    assert port_est.initializer("deep") is not None
 
 
 # -- monitor.history ------------------------------------------------------------------
@@ -420,6 +421,32 @@ def test_temporal_fleet_program_matches_jax(backend, accuracy):
         accuracy_mode=accuracy)
     for a, b in zip(got, direct):
         assert torch.equal(a, b)
+
+
+def test_accuracy_mode_at_watt_scale_matches_jax():
+    """Accuracy mode (f32 compute) with the head scaled so the model
+    predicts tens of watts, not a fraction of one: rtol 1e-4 with an
+    atol of 1e-5 · max|watts| (a prediction that the floor at 0 W leaves
+    just above it carries the f32 noise of the largest terms of its
+    sum)."""
+    port_batch, ref_batch = batches(seed=31)
+    params = jax_params(seed=32)
+    for k in ("w_head", "w_skip", "b_head"):
+        params[k] = params[k] * 100.0
+    hist, tv = history_for(port_batch, 8, seed=33)
+    want = jcore.run_fleet_attribution(
+        jcore.make_temporal_fleet_program(
+            make_mesh(devices=jax.devices()[:1]), accuracy_mode=True),
+        ref_batch, {k: jnp.asarray(v) for k, v in params.items()}, hist, tv)
+    got = tcore.run_fleet_attribution(
+        tcore.make_temporal_fleet_program(device="cpu", accuracy_mode=True),
+        port_batch, port_est.params_from_numpy("temporal", params), hist, tv)
+    model = port_batch.mode == MODE_MODEL
+    a = got.workload_power_uw.numpy()[model] * 1e-6
+    b = np.asarray(want.workload_power_uw)[model] * 1e-6
+    assert np.abs(b).max() > 10.0  # watts, not milliwatts
+    np.testing.assert_allclose(a, b, rtol=1e-4,
+                               atol=1e-5 * np.abs(b).max())
 
 
 @pytest.mark.parametrize("model_mode,accuracy", [
