@@ -63,7 +63,17 @@ zones, buckets N = 1024, W = 256):
    ends at the same params; its first steps agree with ``--device cpu``;
    the ``.npz`` serves in the Aggregator on the card, moe's and deep's
    through ``python -m kepler_tpu_torch.cmd.aggregator`` too), and the
-   binary ``python -m kepler_tpu_torch.cmd.train`` exits 0.
+   binary ``python -m kepler_tpu_torch.cmd.train`` exits 0;
+11. kepchaos (``kepler_tpu_torch.chaos``): ``CHAOS_r01.json``'s sweep, 25
+   schedules at seed 1 of faults, kills, restarts, joins, leaves and
+   autoscales against 3-5 of the port's Aggregators on the card, once
+   with ``backend="einsum"`` (held to the file's verdicts, windows,
+   events and fault fires; each schedule whose trace hash differs is
+   compared with its rerun on ``device="cpu"``) and once with
+   ``backend="pallas"`` — B1 in every device-rung window — then the
+   binaries ``python -m kepler_tpu_torch.chaos --schedule 0`` (the file's
+   trace hash) and ``python -m kepler_tpu_torch.blackbox`` over one run's
+   journals (the timeline SHA of the same run on ``device="cpu"``).
 
 Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
@@ -2800,6 +2810,183 @@ def main_node_cmd() -> dict:
     return row
 
 
+# -- kepchaos on the card --------------------------------------------------
+
+CHAOS_SEED, CHAOS_SCHEDULES = 1, 25  # CHAOS_r01.json's sweep
+CHAOS_BLACKBOX_INDEX = 0
+
+
+def chaos_sweep(device, backend: str):
+    """The reference's sweep (default ``ChaosConfig``: 3 replicas, 1
+    standby, 4 agents, 24 windows) → (report, artifact, seconds)."""
+    from kepler_tpu_torch.chaos.conductor import run_many
+    from kepler_tpu_torch.chaos.harness import ChaosConfig
+
+    t0 = time.perf_counter()
+    report = run_many(CHAOS_SEED, CHAOS_SCHEDULES,
+                      ChaosConfig(device=str(device), backend=backend),
+                      do_shrink=False)
+    torch.cuda.synchronize()
+    return report, report.to_artifact(), time.perf_counter() - t0
+
+
+def chaos_rerun_cpu(index: int):
+    """One schedule of the sweep again, on ``device="cpu"``."""
+    from kepler_tpu_torch.chaos.conductor import run_schedule
+    from kepler_tpu_torch.chaos.harness import ChaosConfig
+    from kepler_tpu_torch.chaos.schedule import generate
+
+    cfg = ChaosConfig(device="cpu")
+    peers = [f"10.99.0.{i + 1}:28283"
+             for i in range(cfg.replicas + cfg.standbys)]
+    return run_schedule(generate(CHAOS_SEED, index, horizon=cfg.horizon,
+                                 members=peers[:cfg.replicas],
+                                 standbys=peers[cfg.replicas:]), cfg)
+
+
+def main_chaos(dev: torch.device) -> dict:
+    """Path 11: kepchaos on the card. The reference's 25-schedule sweep
+    at seed 1 drives the port's replicated Aggregators twice: with
+    ``backend="einsum"`` (as the reference runs it) held to
+    ``CHAOS_r01.json`` (all green, windows published, events, fault
+    fires; the trace hashes counted, and each schedule whose hash
+    differs compared event by event with a rerun on ``device="cpu"``),
+    then with ``backend="pallas"`` — B1 in every device-rung window of
+    the per-window packed program, under dispatch errors, compile
+    errors and re-promotions. Then the two binaries: ``python -m
+    kepler_tpu_torch.chaos --schedule 0`` (its trace hash is the
+    file's) and ``python -m kepler_tpu_torch.blackbox`` over one run's
+    journals, whose timeline SHA is the one the CPU run gives."""
+    from kepler_tpu_torch.blackbox import (analyze, merge_events,
+                                           timeline_sha256)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "CHAOS_r01.json")) as f:
+        ref = json.load(f)
+    t_phase = time.perf_counter()
+    quiet = logging.getLogger("kepler")
+    level = quiet.level
+    quiet.setLevel(logging.CRITICAL)  # every membership change logs
+    try:
+        report, art, einsum_s = chaos_sweep(dev, "einsum")
+        reset_launches()
+        p_report, p_art, pallas_s = chaos_sweep(dev, "pallas")
+        launches = read_launches()
+        mismatched = []
+        for i, h in sorted(art["trace_hashes"].items(), key=lambda kv:
+                           int(kv[0])):
+            if h == ref["trace_hashes"][i]:
+                continue
+            card = report.results[int(i)]
+            cpu = chaos_rerun_cpu(int(i))
+            kinds = [a["kind"] for a, b in zip(card.trace.events,
+                                                cpu.trace.events) if a != b]
+            mismatched.append({
+                "index": int(i), "cpu_hash_equal":
+                    cpu.trace_hash == card.trace_hash,
+                "first_diff_kind_vs_cpu": kinds[0] if kinds else None,
+                "rung_transitions": sum(len(tl) for tl in
+                                        card.record.timelines.values())})
+        bb_card = report.results[CHAOS_BLACKBOX_INDEX].record.journals
+        bb_cpu = chaos_rerun_cpu(CHAOS_BLACKBOX_INDEX).record.journals
+    finally:
+        quiet.setLevel(level)
+    for what, a in (("einsum", art), ("pallas", p_art)):
+        check(a["verdicts"] == {"green": CHAOS_SCHEDULES, "red": 0},
+              f"chaos {what}: verdicts {a['verdicts']} "
+              f"{a.get('failure')}")
+    check(art["windows_published"] == ref["windows_published"],
+          f"chaos einsum: {art['windows_published']} windows published, "
+          f"the file {ref['windows_published']}")
+    check(art["events_total"] == ref["events_total"],
+          f"chaos einsum: {art['events_total']} events")
+    check(art["fault_fires"] == ref["fault_fires"],
+          f"chaos einsum: fault fires {art['fault_fires']}")
+    check(p_art["windows_published"] == art["windows_published"]
+          and p_art["fault_fires"] == art["fault_fires"],
+          f"chaos pallas: {p_art['windows_published']} windows, fires "
+          f"{p_art['fault_fires']}")
+    check(launches["outer_product_attribution"] > 0,
+          "the pallas sweep launched B1 no time")
+    # every published row's digest is in the trace, and the einsum pass
+    # is B1's plain version on the same inputs: this holds B1 bit for
+    # bit against it at the chaos path's shapes
+    differ = sorted((int(i) for i, h in p_art["trace_hashes"].items()
+                     if h != art["trace_hashes"][i]))
+    check(not differ and p_art["trace_hashes"].keys()
+          == art["trace_hashes"].keys(),
+          f"chaos pallas: trace hashes differ from einsum at {differ}")
+    check(launches["fused_window_step"] == 0, "the chaos sweep ran B2")
+    check(all(m["cpu_hash_equal"] for m in mismatched),
+          f"card and CPU traces differ: {mismatched}")
+    # the reference's sweep ran on an 8-device mesh, whose rung 0 is
+    # named packed-sharded-pipelined: only a schedule with a rung
+    # transition may differ from the file
+    check(all(m["rung_transitions"] > 0 for m in mismatched),
+          f"a schedule without rung transitions differs: {mismatched}")
+
+    env = dict(os.environ, PYTHONPATH=here)
+    tmp = tempfile.mkdtemp(prefix="kt-chaos-")
+    try:
+        art_path = os.path.join(tmp, "schedule0.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kepler_tpu_torch.chaos", "--seed",
+             str(CHAOS_SEED), "--schedule", "0", "--artifact", art_path],
+            cwd=here, env=env, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"chaos binary exit {proc.returncode}: "
+              f"{(proc.stdout + proc.stderr)[-800:]}")
+        with open(art_path) as f:
+            cli_hash = json.load(f)["trace_hashes"]["0"]
+        check(cli_hash == ref["trace_hashes"]["0"],
+              f"chaos binary trace {cli_hash}")
+        bundles = []
+        for k, inc in enumerate(sorted(bb_card)):
+            path = os.path.join(tmp, f"bundle{k}.json")
+            with open(path, "w") as f:
+                json.dump({"schema": "kepler-bundle/v1", "node": inc,
+                           "journal": bb_card[inc]}, f)
+            bundles.append(path)
+        proc = subprocess.run(
+            [sys.executable, "-m", "kepler_tpu_torch.blackbox", "--sha",
+             *bundles], cwd=here, env=env, capture_output=True, text=True,
+            timeout=120)
+        check(proc.returncode == 0,
+              f"blackbox binary exit {proc.returncode}: {proc.stderr[-800:]}")
+        bb_sha = proc.stdout.strip()
+        merged = merge_events(bb_cpu[inc] for inc in sorted(bb_cpu))
+        cpu_sha = timeline_sha256(merged, analyze(merged))
+        check(bb_sha == cpu_sha,
+              f"black-box timeline {bb_sha} on the card, {cpu_sha} on the CPU")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "main_chaos", "seed": CHAOS_SEED,
+           "schedules": CHAOS_SCHEDULES,
+           "einsum": {k: art[k] for k in ("verdicts", "windows_published",
+                                          "events_total", "fault_fires")},
+           "einsum_s": einsum_s,
+           "einsum_hashes_equal_file": sum(
+               h == ref["trace_hashes"][i]
+               for i, h in art["trace_hashes"].items()),
+           "einsum_hash_mismatches": mismatched,
+           "pallas": {k: p_art[k] for k in ("verdicts", "windows_published",
+                                            "fault_fires")},
+           "pallas_s": pallas_s, "launches": launches,
+           "pallas_hashes_equal_einsum": sum(
+               h == art["trace_hashes"][i]
+               for i, h in p_art["trace_hashes"].items()),
+           "cli_trace": cli_hash[:16], "cli_s": cli_s,
+           "blackbox_bundles": len(bundles), "blackbox_sha": bb_sha,
+           "blackbox_events": len(merged),
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2840,6 +3027,7 @@ def main() -> int:
     main_node_agent(dev)
     node_fleet = main_node_fleet(dev)
     main_node_cmd()
+    chaos = main_chaos(dev)
 
     b1["launches_by_path"] = {
         "main_mixed": mixed["launches"]["outer_product_attribution"],
@@ -2851,7 +3039,9 @@ def main() -> int:
             agg_models["deep"]["launches"]["outer_product_attribution"],
         "main_temporal_fleet":
             fleet["launches"]["outer_product_attribution"],
-        "main_train": train["launches"]["outer_product_attribution"]}
+        "main_train": train["launches"]["outer_product_attribution"],
+        "main_chaos_pallas":
+            chaos["launches"]["outer_product_attribution"]}
     b1["launches"] = sum(b1["launches_by_path"].values())
     b2 = dict(b2_flush)  # the main path's call: one launch per flush
     b2["launches_by_path"] = {

@@ -115,6 +115,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         dispatch_timeout=cfg.aggregator.dispatch_timeout,
         mesh_shape=cfg.aggregator.mesh_shape,
         multihost_enabled=cfg.aggregator.multihost.enabled,
+        multihost_takeover=cfg.aggregator.multihost.takeover,
         membership_auto_apply=cfg.aggregator.membership.auto_apply,
         membership_autoscale=cfg.aggregator.membership.autoscale_enabled,
         membership_scale_up_load=cfg.aggregator.membership.scale_up_load,

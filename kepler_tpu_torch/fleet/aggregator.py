@@ -138,6 +138,15 @@ log = logging.getLogger("kepler.fleet.aggregator")
 # body is buffered
 MAX_REPORT_BYTES = 64 << 20
 
+# TEST-ONLY chaos regression seed: when flipped (monkeypatched by the
+# kepchaos shrinking-proof test, never set in production code), the
+# membership fan-out stamps this replica as the issuer instead of the
+# current lease holder — the historical holder-self-leave bug, where
+# receivers adopt the DEPARTED peer as lease holder. kepchaos must
+# catch this from a randomized schedule and shrink it to the minimal
+# repro; see tests/test_torch_chaos.py.
+_BUG_BROADCAST_SELF_ISSUER = False
+
 # degradation-ladder rungs for the window's device leg
 # (docs/developer/resilience.md "Device-plane faults"): every device
 # failure demotes ONE rung; `repromote_after` consecutive clean windows
@@ -479,6 +488,7 @@ class Aggregator:
         dispatch_timeout: float = 30.0,
         mesh_shape: Sequence[int] | None = None,
         multihost_enabled: bool = False,
+        multihost_takeover: bool = True,
         membership_auto_apply: bool = False,
         membership_autoscale: bool = False,
         membership_scale_up_load: float = 1.0,
@@ -550,6 +560,9 @@ class Aggregator:
         # running on one device
         self._mesh_shape = list(mesh_shape or [])
         self._multihost_enabled = bool(multihost_enabled)
+        # aggregator.multihost.takeover: whether a survivor of a host
+        # death may issue the survivor membership (_demote_mesh)
+        self._multihost_takeover = bool(multihost_takeover)
         # temporal mode: per-node feature-history ring buffers, fed on
         # report receipt so the window advances at each node's own cadence.
         # Each node's buffer carries its OWN lock: ingest for node A never
@@ -664,16 +677,18 @@ class Aggregator:
                 elect_successor(self._config_peers),
                 epoch=self._ring.epoch)
         mtopo = dict(membership_topology or {})
-        # test seam for the membership POST (default: HTTP
-        # /v1/membership POST)
+        # test seams for the liveness probe and the membership POST
+        # (defaults: HTTP /healthz GET and /v1/membership POST)
+        self._peer_alive_fn = mtopo.get("peer_alive")
         self._deliver_fn = mtopo.get("deliver")
         self._membership_probe_timeout = max(
             0.1, float(membership_probe_timeout))
         self._membership_auto_apply = bool(membership_auto_apply)
         self._standby_peers = list(membership_standby_peers or [])
-        # "degraded, awaiting membership": set by the multi-host tier's
-        # host-death succession, so it stays False on one device; the
-        # fleet-ring probe, /debug/ring and the awaiting gauge report it
+        # "degraded, awaiting membership": a survivor that is NOT the
+        # succession issuer (or has succession disabled) holds position
+        # until the issuer's membership broadcast arrives — surfaced by
+        # the fleet-ring probe, /debug/ring and the awaiting gauge
         self._awaiting_membership = False  # keplint: guarded-by=_results_lock
         self._membership_rejected: dict[str, int] = {}  # keplint: guarded-by=_lock
         self._membership_applied: dict[str, int] = {}  # keplint: guarded-by=_lock
@@ -902,7 +917,7 @@ class Aggregator:
                               "one-shot incident snapshot: journal + "
                               "rung timeline + scoreboard + ring + "
                               "config fingerprint (canonical JSON — "
-                              "feed to python -m kepler_tpu.blackbox)",
+                              "feed to python -m kepler_tpu_torch.blackbox)",
                               self._handle_bundle_debug)
         if self._ring is not None:
             self._server.register("/v1/membership", "Elastic membership",
@@ -927,6 +942,68 @@ class Aggregator:
         log.info("aggregator: device=%s backend=%s model=%s "
                  "interval=%.1fs", self._device, self._backend,
                  self._model_mode, self._interval)
+
+    def _demote_mesh(self, reason: str) -> None:
+        """Host-death succession, under the reference's name (there is
+        no mesh here: one device, one process per replica). The window
+        engine is dropped, so the next window rebuilds it and re-seeds
+        its resident ring, as the reference's demotion does.
+
+        Ring healing runs by DETERMINISTIC SUCCESSION: every survivor
+        probes the peer set and computes the same entitled issuer — the
+        incumbent lease holder while it survives, else the lowest
+        surviving peer. Exactly ONE survivor therefore bumps the epoch
+        and broadcasts the survivor membership; the rest hold position
+        "degraded, awaiting membership" until the broadcast lands. The
+        equal-epoch conflict check at apply stays as the backstop a
+        partitioned prober could still trip. Displaced agents follow
+        421s to the new owners and replay their spool tails — the
+        existing hand-off machinery, zero windows lost.
+
+        Only the kepchaos harness calls this today (its host-death tick);
+        the service gains a caller with the multi-host tier, as the
+        reference's multi-host window failure calls it."""
+        self._engine = None  # next window rebuilds and re-seeds
+        log.error("peer lost (%s): dropping the window engine (the next "
+                  "window rebuilds it); displaced agents will be "
+                  "redirected by epoch bump", reason)
+        if self._ring is None:
+            return
+        if not self._multihost_takeover:
+            # succession disabled: the operator owns the rebalance —
+            # flag the wait so the probe says WHY ingest is degraded
+            with self._results_lock:
+                self._awaiting_membership = True
+            return
+        survivors = self._probe_survivors()
+        if set(survivors) == set(self._ring.peers):
+            # the issuer's broadcast landed BEFORE this process noticed
+            # the death: membership already reflects the survivor set,
+            # so there is neither a bump to issue nor one to await
+            return
+        holder = self._lease.holder if self._lease is not None else ""
+        issuer = plan_succession(holder, survivors)
+        if issuer != self._self_peer:
+            with self._results_lock:
+                self._awaiting_membership = True
+            log.warning(
+                "mesh demotion: membership succession belongs to "
+                "surviving peer %s (lease %s) — holding position, "
+                "awaiting its membership broadcast", issuer,
+                self._lease.lease_id if self._lease is not None
+                else "?")
+            return
+        epoch = self._ring.epoch + 1
+        try:
+            self.apply_membership(survivors, epoch,
+                                  source="succession",
+                                  issuer=self._self_peer)
+        except ValueError as err:
+            log.error("mesh-demotion succession failed: %s", err)
+            with self._results_lock:
+                self._awaiting_membership = True
+            return
+        self._broadcast_membership(survivors, epoch)
 
     def run(self, ctx: CancelContext) -> None:
         while not ctx.cancelled():
@@ -1622,6 +1699,41 @@ class Aggregator:
 
     # -- elastic membership plane ------------------------------------------
 
+    def _peer_alive(self, peer: str) -> bool:
+        """Liveness probe for one peer: the injected seam, or an HTTP
+        GET of its ``/healthz`` — ANY HTTP answer (even 503) proves a
+        listener; only transport failures read as death."""
+        probe = self._peer_alive_fn
+        if probe is not None:
+            try:
+                return bool(probe(peer))
+            except Exception:
+                return False
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(
+                    f"http://{peer}/healthz",
+                    timeout=self._membership_probe_timeout):
+                return True
+        except urllib.error.HTTPError:
+            return True
+        except Exception:
+            return False
+
+    def _probe_survivors(self) -> list[str]:
+        """The current peer set filtered by liveness (self is alive by
+        definition). Every survivor runs the same probe over the same
+        set, so — probe flakes aside, which the equal-epoch conflict
+        check backstops — they compute the same survivor list and
+        therefore the same succession issuer."""
+        ring = self._ring
+        if ring is None:
+            return [self._self_peer]
+        return [peer for peer in ring.peers
+                if peer == self._self_peer or self._peer_alive(peer)]
+
     def _deliver_membership(self, peer: str,
                             payload: Mapping[str, Any]) -> dict:
         """POST one membership payload to ``peer`` (the injected seam,
@@ -1673,7 +1785,8 @@ class Aggregator:
         # its successor in the local apply, and the fan-out must carry
         # that successor or receivers would adopt the departed holder
         issuer = self._self_peer
-        if self._lease is not None and self._lease.holder:
+        if not _BUG_BROADCAST_SELF_ISSUER \
+                and self._lease is not None and self._lease.holder:
             issuer = self._lease.holder
         payload: dict[str, Any] = {
             "op": "apply", "peers": list(peers), "epoch": int(epoch),
@@ -3382,7 +3495,7 @@ class Aggregator:
         journal + rung timeline + scoreboard + ring view + config
         fingerprint, as CANONICAL JSON (sorted keys, no whitespace) so
         two captures of the same state are byte-identical. Feed the
-        file straight to ``python -m kepler_tpu.blackbox``."""
+        file straight to ``python -m kepler_tpu_torch.blackbox``."""
         return (200, {"Content-Type": "application/json"},
                 canonical_json(self.bundle()) + b"\n")
 

@@ -96,7 +96,7 @@ class DebugService:
             "HLC-stamped causal event journal (?since=&lt;cursor&gt; "
             "paginates)</li>"
             '<li><a href="/debug/bundle">bundle</a> — one-shot incident '
-            "snapshot (feed to python -m kepler_tpu.blackbox)</li>"
+            "snapshot (feed to python -m kepler_tpu_torch.blackbox)</li>"
             "</ul></body></html>"
         ).encode()
         return 200, {"Content-Type": "text/html"}, body

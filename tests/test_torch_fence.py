@@ -6,8 +6,8 @@ is checked in a fresh interpreter: importing every module of
 out of ``sys.modules`` (and optax and orbax, the JAX package's training
 libraries), and the entry points built with their default device must
 raise when CUDA is absent instead of running on the CPU — the
-aggregator, node and training binaries' ``main`` return 1 and name
-CUDA.
+aggregator, node, training and chaos binaries' ``main`` return 1 and
+name CUDA.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ if not torch.cuda.is_available():
     from kepler_tpu_torch.ops.topk import top_k_by_energy
     from kepler_tpu_torch.resource import ResourceInformer
     from kepler_tpu_torch.fleet.aggregator import Aggregator
+    from kepler_tpu_torch.chaos import ChaosConfig, ChaosFleet, Trace
+    from kepler_tpu_torch.chaos.__main__ import main as chaos_cmd
     from kepler_tpu_torch.server.http import APIServer
     from kepler_tpu_torch.fleet.window import (FusedWindowEngine,
                                                PackedWindowEngine)
@@ -62,6 +64,7 @@ if not torch.cuda.is_available():
             ("make_temporal_fleet_program",
              lambda: make_temporal_fleet_program(backend="pallas")),
             ("Aggregator", lambda: Aggregator(APIServer()).init()),
+            ("ChaosFleet", lambda: ChaosFleet(ChaosConfig(), Trace())),
             ("PowerMonitor",
              lambda: PowerMonitor(FakeCPUMeter(), ResourceInformer())),
             ("TerminatedTracker", lambda: TerminatedTracker(4, 0)),
@@ -86,9 +89,13 @@ if not torch.cuda.is_available():
     logging.getLogger("kepler.train").addHandler(handler)
     rc = train_cmd.main(["--data", "no-such-dir", "--out", "p.npz"])
     train_main = {"rc": rc, "log": log.getvalue()}
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = chaos_cmd(["--schedule", "0"])
+    chaos_main = {"rc": rc, "log": log.getvalue()}
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
                   "cmd_main": cmd_main, "node_main": node_main,
-                  "train_main": train_main,
+                  "train_main": train_main, "chaos_main": chaos_main,
                   "cuda": torch.cuda.is_available()}))
 """
 
@@ -110,12 +117,16 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
                          .with_suffix("").parts)
                 for p in PKG.rglob("*.py") if p.name != "__init__.py"}
     assert expected <= set(out["modules"])
+    # the slice-7 packages are among them, their entry points included
+    for mod in ("chaos.conductor", "chaos.harness", "chaos.__main__",
+                "blackbox", "blackbox.__main__"):
+        assert f"kepler_tpu_torch.{mod}" in out["modules"], mod
     assert out["leaked"] == []
     if not out["cuda"]:
-        assert len(out["raised"]) == 10
+        assert len(out["raised"]) == 11
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
-        for binary in ("cmd_main", "node_main", "train_main"):
+        for binary in ("cmd_main", "node_main", "train_main", "chaos_main"):
             assert out[binary]["rc"] == 1, binary
             assert "CUDA is not available" in out[binary]["log"], binary
 

@@ -377,7 +377,9 @@ COPIED = ("utils/rowstore.py", "telemetry/hlc.py", "fleet/delivery.py",
           "resource/fast_procfs.py", "resource/container.py",
           "resource/vm.py", "k8s/pod.py", "utils/atomicio.py",
           "ops/deltas.py", "monitor/snapshot.py", "monitor/watchdog.py",
-          "fleet/spool.py", "fleet/agent.py", "cmd/train.py::load_windows")
+          "fleet/spool.py", "fleet/agent.py", "cmd/train.py::load_windows",
+          "chaos/trace.py", "chaos/invariants.py", "chaos/schedule.py",
+          "blackbox/__init__.py")
 
 
 @pytest.mark.parametrize("rel", COPIED)
