@@ -48,6 +48,10 @@ def main(argv: list[str] | None = None) -> int:
                         default="einsum",
                         help="the Aggregators' window backend (pallas: "
                              "the hand-written CUDA kernels)")
+    parser.add_argument("--shards", type=int, default=8,
+                        help="virtual shards of the device in each "
+                             "replica's mesh (8, as the reference's "
+                             "sweep runs on 8 host devices)")
     args = parser.parse_args(argv)
 
     if args.keep and args.schedule is None:
@@ -66,7 +70,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {err} (run with --device cpu to use the CPU)",
               file=sys.stderr)
         return 1
-    cfg = ChaosConfig(device=args.device, backend=args.backend)
+    cfg = ChaosConfig(device=args.device, backend=args.backend,
+                      shards=max(1, args.shards))
     if args.windows is not None:
         cfg.horizon = max(1, args.windows)
     if args.agents is not None:
@@ -109,13 +114,15 @@ def main(argv: list[str] | None = None) -> int:
               f"index={fail.schedule.index}):")
         for violation in fail.violations:
             print(f"  {violation}")
-        print(f"repro: {repro_command(fail.schedule, cfg.device)}")
+        print(f"repro: "
+              f"{repro_command(fail.schedule, cfg.device, cfg.shards)}")
         if report.shrunk is not None:
             print(f"shrunk to {len(report.shrunk.events)} events in "
                   f"{report.shrink_runs} replays:")
             for event in report.shrunk.events:
                 print(f"  {event.to_dict()}")
-            print(f"repro (shrunk): {repro_command(report.shrunk, cfg.device)}")
+            print("repro (shrunk): "
+                  f"{repro_command(report.shrunk, cfg.device, cfg.shards)}")
     else:
         print(f"all {len(report.results)} schedules green "
               f"(seed={report.seed})")

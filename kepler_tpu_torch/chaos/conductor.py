@@ -245,13 +245,16 @@ def _sum_fires(results: Sequence[RunResult]) -> dict[str, int]:
     return dict(sorted(total.items()))
 
 
-def repro_command(schedule: Schedule, device: str = "cuda") -> str:
+def repro_command(schedule: Schedule, device: str = "cuda",
+                  shards: int = 8) -> str:
     cmd = (f"python -m kepler_tpu_torch.chaos --seed {schedule.seed} "
            f"--schedule {schedule.index}")
     if schedule.keep:
         cmd += " --keep " + ",".join(str(k) for k in schedule.keep)
     if device != "cuda":
         cmd += f" --device {device}"
+    if shards != 8:
+        cmd += f" --shards {shards}"
     return cmd
 
 

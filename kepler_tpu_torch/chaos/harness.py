@@ -35,6 +35,7 @@ from kepler_tpu_torch.fleet import wire
 from kepler_tpu_torch.fleet.aggregator import Aggregator
 from kepler_tpu_torch.fleet.journal import EventJournal
 from kepler_tpu_torch.parallel.fleet import MODE_RATIO, NodeReport
+from kepler_tpu_torch.parallel.mesh import make_mesh
 from kepler_tpu_torch.server.http import APIServer
 
 ZONES: tuple[str, ...] = ("package", "dram")
@@ -80,6 +81,10 @@ class ChaosConfig:
     # the Aggregator's window backend: "einsum" is the reference's
     # harness default, "pallas" launches the hand-written kernels
     backend: str = "einsum"
+    # virtual shards of `device` each replica's mesh holds: the
+    # reference's sweep runs on 8 forced host devices, so rung 0 is the
+    # sharded engine there and here alike (the trace hashes pin it)
+    shards: int = 8
 
     @property
     def degraded_ttl(self) -> float:
@@ -295,6 +300,8 @@ class ChaosFleet:
             model_mode=None,
             backend=self.cfg.backend,
             device=self.cfg.device,
+            mesh=make_mesh([self.cfg.shards],
+                           devices=[self.cfg.device] * self.cfg.shards),
             node_bucket=8,
             workload_bucket=8,
             stale_after=1e9,

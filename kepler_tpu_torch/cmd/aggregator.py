@@ -5,10 +5,11 @@ attribution service of the PyTorch/CUDA port: the same flags, config
 file and HTTP surface as ``python -m kepler_tpu.cmd.aggregator``, plus
 ``--device {cuda,cpu}`` (default ``cuda``). Node agents point at it via
 ``--aggregator.endpoint``. Without CUDA it exits with status 1 naming
-CUDA unless run with ``--device cpu``; the sharded and
-multi-host tiers (``aggregator.meshShape`` over several devices,
-``aggregator.multihost``) are not yet ported and fail at start-up.
-``--tpu.fleet-backend pallas`` runs the hand-written CUDA kernels.
+CUDA unless run with ``--device cpu``. ``aggregator.meshShape`` ``[]``
+shards the fleet window over every visible device (one card: unsharded);
+``aggregator.multihost`` joins a multi-process job (gloo) before the
+mesh is built. ``--tpu.fleet-backend pallas`` runs the hand-written CUDA
+kernels.
 
 ``yaml`` is imported only to read a config file or a web config file,
 and ``prometheus_client`` only when ``/metrics`` is on
@@ -65,6 +66,25 @@ def main(argv: Sequence[str] | None = None) -> int:
         log.error("the aggregator serves on a CUDA device unless run "
                   "with --device cpu: %s", err)
         return 1
+    # multi-host: join the job BEFORE the mesh is built (no-op
+    # single-host). Config knobs take precedence over torch's env
+    # convention (MASTER_ADDR/MASTER_PORT, WORLD_SIZE, RANK); a failed
+    # join logs its DISTINCT reason (coordinator_unreachable vs
+    # init_error) and the fleet-window health probe republishes it, so
+    # a half-joined mesh is diagnosable.
+    from kepler_tpu_torch.parallel import initialize_multihost
+
+    mh = cfg.aggregator.multihost
+    joined = initialize_multihost(
+        coordinator_address=mh.coordinator or None,
+        num_processes=(mh.num_processes
+                       if mh.num_processes != -1 else None),
+        process_id=mh.process_id if mh.process_id != -1 else None,
+        init_timeout=mh.init_timeout or None)
+    if mh.enabled and not joined:
+        log.warning("multihost enabled but not joined (%s)%s — running "
+                    "single-host", joined.reason,
+                    f": {joined.detail}" if joined.detail else "")
     info = version.info()
     log.info("kepler-tpu aggregator %s (%s, %s) on %s", info.version,
              info.python_version, info.platform,
@@ -114,6 +134,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         repromote_after=cfg.aggregator.repromote_after,
         dispatch_timeout=cfg.aggregator.dispatch_timeout,
         mesh_shape=cfg.aggregator.mesh_shape,
+        mesh_axes=cfg.aggregator.mesh_axes,
         multihost_enabled=cfg.aggregator.multihost.enabled,
         multihost_takeover=cfg.aggregator.multihost.takeover,
         membership_auto_apply=cfg.aggregator.membership.auto_apply,

@@ -185,7 +185,9 @@ class TPUConfig:
     Controls where attribution math runs and how fleet batches are shaped.
     In the PyTorch/CUDA port the keys keep their meaning: ``fleetBackend:
     pallas`` runs the hand-written CUDA kernels, ``einsum`` plain tensor
-    ops; ``platform``, the mesh and the XLA cache are read but unused.
+    ops; ``platform``, ``meshShape``/``meshAxes`` and the XLA cache are
+    read but unused (the aggregator's mesh is ``aggregator.meshShape``,
+    as in the reference).
     """
 
     platform: str = "auto"  # auto | tpu | cpu — jax platform for attribution
@@ -339,25 +341,24 @@ class DevConfig:
 
 @dataclass
 class MultihostConfig:
-    """Multi-host SPMD fleet window (``docs/user/fleet.md`` "Multi-host"):
-    N aggregator processes form ONE ``jax.distributed`` job whose mesh
-    spans every host's devices; rung 0 runs the multi-host window engine
-    (host-local rings, one SPMD dispatch) and — with ``aggregator.peers``
-    set — ingest ownership derives from the mesh shard map, so each
-    replica ingests exactly the agents whose packed rows live on its
-    local devices."""
+    """Multi-host fleet window (``docs/user/fleet.md`` "Multi-host"):
+    N aggregator processes form ONE ``torch.distributed`` job (gloo)
+    whose mesh spans every host's devices; rung 0 runs the multi-host
+    window engine (host-local rings, each process launching its own
+    shards) and — with ``aggregator.peers`` set — ingest ownership
+    derives from the mesh shard map, so each replica ingests exactly the
+    agents whose packed rows live on its local devices."""
 
     enabled: bool = False
-    # coordinator endpoint ("" = take JAX_COORDINATOR_ADDRESS from the
-    # env, the TPU pod runtime convention)
+    # coordinator endpoint host:port ("" = take MASTER_ADDR /
+    # MASTER_PORT from the env, torch.distributed's convention)
     coordinator: str = ""
-    # process topology (-1 = take JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    # from the env)
+    # process topology (-1 = take WORLD_SIZE / RANK from the env)
     num_processes: int = -1
     process_id: int = -1
     # bound on the coordinator join — an unreachable coordinator is
     # surfaced as a DISTINCT failure reason (coordinator_unreachable) in
-    # the log, the return, and the fleet-window probe (0 = jax default)
+    # the log, the return, and the fleet-window probe (0 = 300 s)
     init_timeout: float = 0.0
     # on a mesh demotion, run coordinator-lease succession: the elected
     # issuer (incumbent lease holder if alive, else the lowest surviving

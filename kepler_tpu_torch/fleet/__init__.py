@@ -1,7 +1,8 @@
 """Fleet plane: wire frames, the node-side ``FleetAgent`` with its durable
 ``Spool``, the device-resident window engines and the cluster
-``Aggregator`` that ingests node reports and attributes the whole fleet on
-one CUDA device."""
+``Aggregator`` that ingests node reports and attributes the whole fleet
+over a mesh of CUDA devices (one card, or virtual shards of it, in the
+common case)."""
 
 from kepler_tpu_torch.fleet.agent import FleetAgent
 from kepler_tpu_torch.fleet.aggregator import Aggregator

@@ -1,7 +1,7 @@
 """Cluster aggregator: ingest node reports, attribute the whole fleet on
-one CUDA device.
+CUDA devices.
 
-The counterpart of ``kepler_tpu.fleet.aggregator`` (single device). Node
+The counterpart of ``kepler_tpu.fleet.aggregator``. Node
 agents POST per-window feature rows; every ``interval`` the aggregator
 runs one fleet window over the latest report from each node and
 publishes:
@@ -36,9 +36,16 @@ packed layout), and training-dump capture (which needs the assembled
 host batch). Its programs are the port's ``make_fleet_program`` and
 ``make_temporal_fleet_program``.
 
-Single device: no mesh. A ``mesh_shape`` over more than one device or
-``multihost_enabled`` is refused at :meth:`Aggregator.init`; the sharded
-and multi-host rung-0 names stay defined but are never reported.
+The device mesh (``parallel.mesh``; ``mesh_shape`` ``[]`` = every
+visible device, 1-D over ``node``): on a node mesh of two or more shards
+rung 0 is the ``ShardedWindowEngine`` (per-shard rings, sticky node→shard
+assignment, one launch per shard) and the packed-serial rung a
+single-device engine on the first shard's device. Shards may be virtual
+(several on one card). With ``multihost_enabled`` and a mesh spanning
+several processes, rung 0 is the ``MultiHostWindowEngine`` (only this
+process's shards, bucket needs agreed across processes), ingest
+ownership derives from the mesh shard map, and a cross-host failure
+demotes to "mesh minus one host" and runs membership succession.
 
 Device errors. The ladder (fused/pipelined → packed-serial → einsum-serial
 → NumPy host) demotes one rung per device failure. A
@@ -100,7 +107,7 @@ from kepler_tpu_torch.fleet.membership import (
     validate_membership_payload,
 )
 from kepler_tpu_torch.fleet.ring import (HashRing, RingError, coerce_epoch,
-                                         sanitize_peer)
+                                         ring_from_mesh, sanitize_peer)
 from kepler_tpu_torch.fleet.wire import (
     ParsedHeader,
     WireError,
@@ -115,8 +122,11 @@ from kepler_tpu_torch.fleet.wire import (
 from kepler_tpu_torch.fleet.scoreboard import STATE_NAMES, FleetScoreboard
 from kepler_tpu_torch.fleet.window import (DeviceWindowError, FusedFlush,
                                            FusedWindowEngine, HostCopy,
+                                           MultiHostWindowEngine,
                                            PackedWindowEngine, RowInput,
-                                           WindowMeta, align_zone_matrices,
+                                           ShardedWindowEngine, WindowMeta,
+                                           align_zone_matrices,
+                                           copy_plane_to_host_async,
                                            copy_to_host_async)
 from kepler_tpu_torch.monitor.history import HistoryBuffer
 from kepler_tpu_torch.telemetry import DEFAULT_DELIVERY_BUCKETS, Histogram
@@ -127,6 +137,10 @@ from kepler_tpu_torch.parallel.aggregator_core import (
 )
 from kepler_tpu_torch.parallel.fleet import (MODE_MODEL, NodeReport,
                                              assemble_fleet_batch)
+from kepler_tpu_torch.parallel.mesh import (NODE_AXIS, Mesh, Shard,
+                                            make_mesh, multihost_status,
+                                            process_index,
+                                            submesh_for_processes)
 from kepler_tpu_torch.server.http import APIServer
 from kepler_tpu_torch.service.lifecycle import CancelContext
 from kepler_tpu_torch.utils.rowstore import RowStore
@@ -160,10 +174,14 @@ RUNG_EINSUM = 2  # serial program (full assemble + dense dispatch)
 RUNG_NUMPY = 3  # pure-NumPy host fallback (no device)
 RUNG_NAMES = ("packed-pipelined", "packed-serial", "einsum-serial",
               "numpy-host")
-# rung 0's names on a sharded node mesh and on a multi-host mesh
-# (healthy, and after the "mesh minus one host" demotion). Kept for the
-# names' sake: the port runs on one device and never reports them.
+# rung 0's name when the window is sharded over a node mesh of two or
+# more shards (ShardedWindowEngine): a single shard's device failure
+# demotes to the single-device rungs above, so only rung 0 has a
+# sharded form
 RUNG_NAME_SHARDED = "packed-sharded-pipelined"
+# rung 0's names on a multi-host mesh (MultiHostWindowEngine): healthy,
+# and after the "mesh minus one host" demotion (the surviving process's
+# own single-host sharded engine — sticky for the process lifetime)
 RUNG_NAME_MULTIHOST = "packed-multihost-pipelined"
 RUNG_NAME_MESH_DEGRADED = "packed-sharded-mesh-minus-host"
 # rung 0's name when the fused device-resident window loop is active
@@ -273,8 +291,9 @@ class _Pending:
     """
 
     kind: str  # "packed" | "legacy" | "fused" | "numpy"
-    # packed/legacy: the HostCopy of the result tensor(s) queued at
-    # dispatch; fused/numpy: the window's plane, already on the host
+    # packed/legacy: the HostCopy (sharded: ShardedHostCopy) of the
+    # result tensor(s) queued at dispatch; fused/numpy: the window's
+    # plane, already on the host
     out: object
     meta: WindowMeta | None  # packed path row layout
     now: float  # publication timestamp (dispatch-time clock)
@@ -282,8 +301,9 @@ class _Pending:
     dispatch_ms: float
     h2d_rows: int
     compiled: bool
-    # packed path: per-shard H2D breakdown + shard count (one device:
-    # the whole H2D and 1; legacy/numpy paths leave (), 1)
+    # packed path: per-shard H2D breakdown + shard count ((h2d,), 1 when
+    # the dispatching engine was unsharded; legacy/numpy paths leave
+    # (), 1)
     h2d_shards: tuple = ()
     shards: int = 1
     # fused path (kind "fused"): `out` is already a HOST slice of the
@@ -456,10 +476,15 @@ class FleetResults:
 
 
 class Aggregator:
-    """Service: report store + periodic fleet attribution on one device.
+    """Service: report store + periodic fleet attribution over a device
+    mesh.
 
-    ``device`` (default ``"cuda"``) is where every device rung runs; it
-    raises without CUDA unless the caller passes ``"cpu"`` (the tests)."""
+    ``device`` (default ``"cuda"``) is the type of device the mesh is
+    built from; it raises without CUDA unless the caller passes
+    ``"cpu"`` (the tests). ``mesh`` (a ``parallel.mesh.Mesh``, built by
+    ``init()`` from ``mesh_shape``/``mesh_axes`` when absent) may name
+    virtual shards; the single-device rungs run on its first shard's
+    device."""
 
     # keplint: protocol-transition — ingest-state birth
     def __init__(
@@ -487,8 +512,10 @@ class Aggregator:
         repromote_after: int = 8,
         dispatch_timeout: float = 30.0,
         mesh_shape: Sequence[int] | None = None,
+        mesh_axes: Sequence[str] | None = None,
         multihost_enabled: bool = False,
         multihost_takeover: bool = True,
+        multihost_topology: Mapping[str, Any] | None = None,
         membership_auto_apply: bool = False,
         membership_autoscale: bool = False,
         membership_scale_up_load: float = 1.0,
@@ -514,6 +541,7 @@ class Aggregator:
         admission_jitter_seed: int | None = None,
         base_row_cache: int = 1024,
         clock: Callable[[], float] | None = None,
+        mesh: Mesh | None = None,
         journal: EventJournal | None = None,
         hlc_max_drift: float = 60.0,
         device: str | torch.device = "cuda",
@@ -554,15 +582,32 @@ class Aggregator:
             "multihost": bool(multihost_enabled),
             "hlc_max_drift": float(hlc_max_drift),
         })).hexdigest()[:16]
-        # aggregator.meshShape and aggregator.multihost: the sharded and
-        # multi-host tiers are not ported; init() refuses a mesh over
-        # more than one device and multihost_enabled instead of quietly
-        # running on one device
+        self._mesh = mesh
+        # aggregator.meshShape/meshAxes: the device mesh the packed
+        # window path actually runs on ([] = all devices, 1-D node axis
+        # — the sharded production shape)
         self._mesh_shape = list(mesh_shape or [])
+        self._mesh_axes = list(mesh_axes or [])
+        # -- multi-host tier: with multihost enabled and a mesh spanning
+        # > 1 process, rung 0 runs the MultiHostWindowEngine (this
+        # process's shards only, bucket needs agreed across processes)
+        # and ingest ownership derives from the mesh shard map
+        # (ring_from_mesh). A cross-host failure demotes STICKY to the
+        # surviving single-host engine ("mesh minus one host"), bumping
+        # the ring epoch so displaced agents follow 421s to the new
+        # owner. multihost_topology injects a virtual topology:
+        # process_index, device_process (shard index → process) and a
+        # HostLocalFabric.
         self._multihost_enabled = bool(multihost_enabled)
         # aggregator.multihost.takeover: whether a survivor of a host
         # death may issue the survivor membership (_demote_mesh)
         self._multihost_takeover = bool(multihost_takeover)
+        topo = dict(multihost_topology or {})
+        self._mh_process_index: int | None = topo.get("process_index")
+        self._mh_device_process = topo.get("device_process")
+        self._mh_fabric = topo.get("fabric")
+        self._mesh_degraded = False  # keplint: guarded-by=_results_lock
+        self._engine_mesh: Mesh | None = None  # mesh the packed engines run on
         # temporal mode: per-node feature-history ring buffers, fed on
         # report receipt so the window advances at each node's own cadence.
         # Each node's buffer carries its OWN lock: ingest for node A never
@@ -647,9 +692,10 @@ class Aggregator:
         self._ring: HashRing | None = None
         self._self_peer = str(self_peer or "")
         self._ring_vnodes = max(1, int(ring_vnodes))
-        # config-ORDER peer list (HashRing sorts; the lease's first
-        # holder is elected from it)
+        # config-ORDER peer list (HashRing sorts; the mesh ring needs
+        # process-index order: peers[p] = process p's endpoint)
         self._config_peers = list(peers or [])
+        self._ring_epoch_cfg = max(1, int(ring_epoch))
         if peers:
             if not self._self_peer:
                 raise ValueError(
@@ -690,6 +736,11 @@ class Aggregator:
         # until the issuer's membership broadcast arrives — surfaced by
         # the fleet-ring probe, /debug/ring and the awaiting gauge
         self._awaiting_membership = False  # keplint: guarded-by=_results_lock
+        # armed fabric incarnation for the next mesh-path membership (a
+        # rejoin's fresh HostLocalFabric; production analog: restart the
+        # multi-process job before re-applying the full set)
+        self._mesh_arm: Any = None
+        self._mesh_elastic: Mesh | None = None  # live (possibly sub-) mesh
         self._membership_rejected: dict[str, int] = {}  # keplint: guarded-by=_lock
         self._membership_applied: dict[str, int] = {}  # keplint: guarded-by=_lock
         self._autoscale: AutoscalePolicy | None = None
@@ -793,19 +844,25 @@ class Aggregator:
         self._bucket_shrink_after = max(1, int(bucket_shrink_after))
         self._pipeline_lock = threading.Lock()
         self._inflight: collections.deque[_Pending] = collections.deque()  # keplint: guarded-by=_pipeline_lock
-        # rung-0 engine, reused by the packed-serial rung (one device:
-        # rung 0 is never sharded, so no separate serial engine exists)
+        # rung-0 engine: ShardedWindowEngine on a 1-D node mesh of two or
+        # more shards (per-shard rings, sticky assignment),
+        # PackedWindowEngine otherwise; _engine_serial is the
+        # single-device demotion engine the ladder's packed-serial rung
+        # uses when rung 0 is sharded
         self._engine: PackedWindowEngine | None = None
+        self._engine_serial: PackedWindowEngine | None = None
+        self._shard_count = 1  # set in init() from the mesh shape
         # -- fused device-resident window loop (aggregator.fusedWindowK):
         # K > 1 replaces the rung-0 tier with the FusedWindowEngine —
         # host-only staging per interval, ONE launch + one batched
         # fetch per K windows. Published windows stay within the
         # ladder's ≤ depth−1 staleness contract with K as the depth.
+        # Single-host only: the multi-host tier has its own ring story.
         self._fused_window_k = max(1, int(fused_window_k))
         self._engine_fused: FusedWindowEngine | None = None
         # a device failure at the fused tier flips this (rung 0 stays,
-        # its engine drops to packed-pipelined); repromote_after clean
-        # windows at rung 0 clear it
+        # its engine drops to packed-pipelined — the mesh demotion's
+        # shape); repromote_after clean windows at rung 0 clear it
         self._fused_degraded = False  # keplint: guarded-by=_results_lock
         # per-un-flushed-window aggregation snapshots, oldest first,
         # parallel to the fused engine's pending ring: (stored_sorted,
@@ -855,18 +912,54 @@ class Aggregator:
     # -- lifecycle ---------------------------------------------------------
 
     def init(self) -> None:
-        n_dev = 1
-        for n in self._mesh_shape:
-            n_dev *= int(n)
-        if n_dev > 1:
-            raise ValueError(
-                f"aggregator.meshShape {self._mesh_shape} spans {n_dev} "
-                "devices: the sharded fleet window is not yet ported "
-                "(ROADMAP Queue A item 8)")
-        if self._multihost_enabled:
-            raise ValueError(
-                "aggregator.multihost is not yet ported (ROADMAP Queue A "
-                "item 8)")
+        if self._mesh is None:
+            self._mesh = make_mesh(self._mesh_shape,
+                                   self._mesh_axes or (NODE_AXIS,),
+                                   device=self._device)
+        if self._mh_device_process is not None:
+            # the virtual topology labels each shard (by index) with its
+            # process; every later query reads the shard's own label
+            self._mesh = self._mesh.with_processes(self._mh_device_process)
+        # the single-device rungs run on the mesh's first shard's device
+        self._device = self._mesh.devices[0]
+        n_dev = self._mesh.size
+        # the node axis shards over the mesh: round the bucket up so padded
+        # batches always divide evenly across shards
+        if self._node_bucket % n_dev:
+            self._node_bucket = ((self._node_bucket // n_dev) + 1) * n_dev
+        self._shard_count = self._mesh_shard_count()
+        if self._ring is not None and self._multihost_active():
+            # co-locate ingest with compute: ownership derives from the
+            # mesh shard map — each replica ingests exactly the agents
+            # whose packed rows live on its own shards.
+            # aggregator.peers is ordered by process index here.
+            shard_procs = list(self._mesh.processes)
+            n_hosts = len(set(shard_procs))
+            if len(self._config_peers) != n_hosts:
+                raise ValueError(
+                    f"aggregator.peers has {len(self._config_peers)} "
+                    f"entries but the multi-host mesh spans {n_hosts} "
+                    "processes — one peer endpoint per process, in "
+                    "process-index order")
+            me = self._self_process()
+            if (0 <= me < len(self._config_peers)
+                    and self._config_peers[me] != self._self_peer):
+                # a misordered list would silently INVERT ownership:
+                # every replica ingesting exactly the OTHER host's
+                # agents — fail loudly instead
+                raise ValueError(
+                    f"aggregator.peers[{me}] is "
+                    f"{self._config_peers[me]!r} but this replica "
+                    f"(process {me}) is aggregator.selfPeer "
+                    f"{self._self_peer!r} — the list must be ordered "
+                    "by process index")
+            self._ring = ring_from_mesh(self._config_peers, shard_procs,
+                                        epoch=self._ring_epoch_cfg)
+            log.info("ingest ring derived from the mesh shard map: "
+                     "%d shards over %d hosts, epoch %d, self owns "
+                     "%.3f of the shard space", self._ring.n_shards,
+                     n_hosts, self._ring.epoch,
+                     self._ring.ownership_ratio(self._self_peer))
         if self._backend == "pallas" and self._device.type == "cuda":
             # build every hand kernel now: a failed nvcc fails init().
             # Left to the first window, the ladder would take the build
@@ -935,38 +1028,103 @@ class Aggregator:
                 # re-pacing its agents" signal; recovers on its own
                 health.register_probe("fleet-ingest",
                                       self._admission.health)
-            # ready once init completed: endpoints registered, kernels
-            # built, params validated — an empty fleet is still a ready aggregator
+            # ready once init completed: endpoints registered, mesh
+            # built, kernels built, params validated — an empty fleet is
+            # still a ready aggregator
             health.register_readiness("fleet-aggregator",
                                       lambda: {"ok": True})
-        log.info("aggregator: device=%s backend=%s model=%s "
-                 "interval=%.1fs", self._device, self._backend,
-                 self._model_mode, self._interval)
+        log.info("aggregator: mesh=%s devices=%d (%s) backend=%s model=%s "
+                 "interval=%.1fs", self._mesh.describe(), n_dev,
+                 self._device, self._backend, self._model_mode,
+                 self._interval)
+
+    def _window_mesh(self) -> Mesh:
+        """The mesh the window engines run on: init()'s, or — for an
+        Aggregator driven without init() — one shard on ``device``."""
+        if self._mesh is not None:
+            return self._mesh
+        return Mesh((Shard(self._device),), (1,), (NODE_AXIS,))
+
+    def _mesh_shard_count(self, mesh: Mesh | None = None) -> int:
+        """Shards the packed window runs over: the node-axis size when
+        the mesh is 1-D over ``node`` (every shard independent, with its
+        own resident ring). Single-shard and 2-D (node × model) meshes
+        run the unsharded engine on the first shard's device."""
+        mesh = mesh if mesh is not None else self._mesh
+        if mesh is None:
+            return 1
+        n_dev = mesh.size
+        if n_dev > 1 and mesh.axis_size(NODE_AXIS) == n_dev:
+            return n_dev
+        return 1
+
+    # -- multi-host topology -----------------------------------------------
+    # every shard carries its process index (init() applied an injected
+    # virtual topology's labels), so the helpers read the mesh itself
+
+    def _self_process(self) -> int:
+        if self._mh_process_index is not None:
+            return int(self._mh_process_index)
+        return process_index()
+
+    def _multihost_active(self) -> bool:
+        """True when rung 0 should run the multi-host engine: multihost
+        enabled, a 1-D node mesh, and shards spanning > 1 process (real
+        ``torch.distributed`` processes, or the injected virtual
+        topology the tests drive in one process)."""
+        if not self._multihost_enabled or self._mesh is None:
+            return False
+        mesh = self._live_mesh()
+        n_dev = mesh.size
+        if n_dev < 2 or mesh.axis_size(NODE_AXIS) != n_dev:
+            return False
+        return len(set(mesh.processes)) > 1
+
+    def _live_mesh(self) -> Mesh:
+        """The mesh the multi-host tier currently runs on: the full
+        configured mesh, or the elastic submesh the last mesh-path
+        membership restored over a peer subset."""
+        return (self._mesh_elastic if self._mesh_elastic is not None
+                else self._mesh)
+
+    def _local_mesh(self) -> Mesh:
+        """The surviving single-host mesh after a mesh demotion: this
+        process's own shards, 1-D over node."""
+        return submesh_for_processes(self._mesh, [self._self_process()])
+
+    def _multihost_host_count(self) -> int:
+        if self._mesh is None:
+            return 1
+        return len(set(self._live_mesh().processes))
 
     def _demote_mesh(self, reason: str) -> None:
-        """Host-death succession, under the reference's name (there is
-        no mesh here: one device, one process per replica). The window
-        engine is dropped, so the next window rebuilds it and re-seeds
-        its resident ring, as the reference's demotion does.
+        """The "mesh minus one host" tier: a cross-host window failure
+        (dead peer, broken agreement, fabric loss) retires the
+        multi-host engine in this process — the survivors' rung 0
+        becomes their own single-host sharded engine (full ring
+        re-seed via the engine rebuild). Within the current fabric
+        incarnation the demotion is sticky; a rejoin
+        (``/v1/membership`` join + :meth:`arm_mesh`) restores the
+        multi-host tier under a NEW incarnation.
 
-        Ring healing runs by DETERMINISTIC SUCCESSION: every survivor
-        probes the peer set and computes the same entitled issuer — the
-        incumbent lease holder while it survives, else the lowest
-        surviving peer. Exactly ONE survivor therefore bumps the epoch
-        and broadcasts the survivor membership; the rest hold position
-        "degraded, awaiting membership" until the broadcast lands. The
+        Ring healing runs by DETERMINISTIC SUCCESSION at any mesh
+        size: every survivor probes the peer set and computes the same
+        entitled issuer — the incumbent lease holder while it
+        survives, else the lowest surviving peer. Exactly ONE
+        survivor therefore bumps the epoch and broadcasts the
+        survivor membership; the rest hold position "degraded,
+        awaiting membership" until the broadcast lands. The
         equal-epoch conflict check at apply stays as the backstop a
         partitioned prober could still trip. Displaced agents follow
         421s to the new owners and replay their spool tails — the
-        existing hand-off machinery, zero windows lost.
-
-        Only the kepchaos harness calls this today (its host-death tick);
-        the service gains a caller with the multi-host tier, as the
-        reference's multi-host window failure calls it."""
-        self._engine = None  # next window rebuilds and re-seeds
-        log.error("peer lost (%s): dropping the window engine (the next "
-                  "window rebuilds it); displaced agents will be "
-                  "redirected by epoch bump", reason)
+        existing hand-off machinery, zero windows lost."""
+        self._engine = None  # next window rebuilds over the local mesh
+        self._engine_serial = None  # its pinned device must be LOCAL
+        self._mesh_elastic = None  # the elastic submesh died with the peer
+        log.error("multi-host mesh degraded (%s): demoting to the "
+                  "single-host engine over this process's devices; "
+                  "displaced agents will be redirected by epoch bump",
+                  reason)
         if self._ring is None:
             return
         if not self._multihost_takeover:
@@ -1604,15 +1762,18 @@ class Aggregator:
         dropped, and all future ingest answers 421 toward the real
         owners — the scale-down path. The operator path keeps the
         strict self-in-set check (excluding yourself by hand is
-        almost certainly a typo). ``mesh=True`` (the multi-host rejoin
-        path) is accepted for wire compatibility; one device has no
-        mesh-derived ring, so the plain hash ring is built.
+        almost certainly a typo). ``mesh=True`` asks for the
+        mesh-derived ring (and multi-host engine) to be restored over
+        the new set — the rejoin path; it needs the peers to be a
+        process-ordered subset of the configured list (and, after a
+        fabric loss, a fresh incarnation via :meth:`arm_mesh`), and
+        falls back to the plain hash ring otherwise.
 
         Returns the number of nodes handed off. Raises
         :class:`MembershipError` (a ``ValueError``) on rejection."""
         try:
             return self._apply_membership_checked(
-                peers, epoch, source=source, issuer=issuer)
+                peers, epoch, source=source, issuer=issuer, mesh=mesh)
         except MembershipError as err:
             with self._lock:
                 self._membership_rejected[err.reason] = \
@@ -1623,7 +1784,7 @@ class Aggregator:
 
     def _apply_membership_checked(self, peers: Sequence[str],
                                   epoch: int, *, source: str,
-                                  issuer: str) -> int:
+                                  issuer: str, mesh: bool) -> int:
         if self._ring is None:
             raise MembershipError(
                 "ring_disabled",
@@ -1642,7 +1803,7 @@ class Aggregator:
                      current.membership_digest)
             return 0
         retired = decision.retired
-        new = self._build_ring(list(decision.peers), ep)
+        new = self._build_ring(list(decision.peers), ep, mesh=mesh)
         who = issuer or plan_succession(
             self._lease.holder if self._lease is not None else "",
             new.peers)
@@ -1679,6 +1840,12 @@ class Aggregator:
                            dropped=len(dropped), retired=retired)
         self._journal.emit("lease.adopt", holder=who, epoch=ep,
                            source=source)
+        if self._multihost_enabled:
+            # elastic rebuild, the ladder-reset invariant: sticky maps
+            # cleared, rings re-seeded — the next window does a full
+            # re-pack over the new member set
+            self._engine = None
+            self._engine_serial = None
         with self._results_lock:
             self._awaiting_membership = False
         log.warning("ingest ring membership changed: epoch %d, %d "
@@ -1689,15 +1856,64 @@ class Aggregator:
                      "everything)" if retired else ""))
         return len(dropped)
 
-    def _build_ring(self, peers: list[str], epoch: int) -> HashRing:
-        """The new ring for a membership change: the plain
-        consistent-hash ring over ``peers``."""
+    def _build_ring(self, peers: list[str], epoch: int,
+                    mesh: bool) -> HashRing:
+        """The new ring for a membership change: the mesh-derived ring
+        when a mesh restore was requested AND the topology can honor
+        it — the peers must be a >=2-process subset of the configured
+        process-ordered list (ownership co-location is only true for
+        processes the device mesh actually contains); otherwise the
+        plain consistent-hash ring."""
+        if mesh and self._multihost_enabled and self._mesh is not None:
+            want = set(peers)
+            procs = [i for i, p in enumerate(self._config_peers)
+                     if p in want]
+            if len(procs) == len(want) and len(procs) >= 2:
+                armed, self._mesh_arm = self._mesh_arm, None
+                if armed is not None:
+                    # a rejoin's fresh fabric incarnation (the old
+                    # one's barriers died with the departed peer)
+                    self._mh_fabric = armed
+                sub = submesh_for_processes(self._mesh, procs)
+                order = {p: k for k, p in enumerate(procs)}
+                shard_procs = [order[p] for p in sub.processes]
+                peers_by_proc = [self._config_peers[p] for p in procs]
+                self._mesh_elastic = sub
+                with self._results_lock:
+                    self._mesh_degraded = False
+                log.info("mesh-derived ring restored over %d process(es) "
+                         "(%d shards) at epoch %d", len(procs),
+                         len(shard_procs), epoch)
+                return ring_from_mesh(peers_by_proc, shard_procs,
+                                      epoch=epoch)
+            log.warning("mesh-path membership cannot be honored (peers "
+                        "%r are not a >=2-process subset of the "
+                        "configured process-ordered list); falling back "
+                        "to the plain hash ring", sorted(want))
+        if self._multihost_enabled:
+            # a non-mesh membership while the multi-host tier runs
+            # means the mesh no longer describes ownership: survivors
+            # serve their ring share from their own single-host
+            # engines until a mesh-path membership restores the tier
+            self._mesh_elastic = None
+            with self._results_lock:
+                if self._multihost_active():
+                    self._mesh_degraded = True
         try:
             return self._ring.with_members(peers, epoch)
         except RingError as err:
             raise MembershipError("bad_peer", str(err))
 
     # -- elastic membership plane ------------------------------------------
+
+    def arm_mesh(self, fabric: Any) -> None:
+        """Arm a fresh fabric incarnation for the NEXT mesh-path
+        membership (the rejoin/restore handshake): the virtual
+        topology passes its new :class:`HostLocalFabric`; production's
+        analog is restarting the multi-process job before re-applying
+        the full membership (a dead peer cannot rejoin a RUNNING job).
+        One-shot: consumed by the next ``apply_membership(..., mesh=True)``."""
+        self._mesh_arm = fabric
 
     def _peer_alive(self, peer: str) -> bool:
         """Liveness probe for one peer: the injected seam, or an HTTP
@@ -1812,9 +2028,9 @@ class Aggregator:
         peer to ask), follow ``not_leader`` redirects, then adopt the
         returned membership — ring at the granted epoch, INCUMBENT
         holder from the reply (a rejoining peer therefore never
-        self-elects over a live lease, even when it sorts lowest).
-        ``mesh=True`` is passed on for wire compatibility; one device
-        builds the plain ring. Returns the holder's reply."""
+        self-elects over a live lease, even when it sorts lowest), and
+        with ``mesh=True`` the mesh-derived ring + multi-host engine
+        over the restored set. Returns the holder's reply."""
         if self._ring is None:
             raise MembershipError(
                 "ring_disabled",
@@ -2278,18 +2494,26 @@ class Aggregator:
         return out
 
     def _rung_display(self, rung: int) -> str:
-        """Operator-facing rung name: rung 0 reads as the fused tier
-        while that runs (one device: rung 0 has no sharded form)."""
-        if rung == RUNG_PIPELINED and self._fused_tier_active():
-            return RUNG_NAME_FUSED
+        """Operator-facing rung name: rung 0 reads as its multi-host or
+        sharded form on a node mesh of two or more shards (only rung 0
+        has one), as the "mesh minus one host" tier after a mesh
+        demotion, and as the fused tier while that runs."""
+        if rung == RUNG_PIPELINED:
+            if self._multihost_active():
+                return (RUNG_NAME_MESH_DEGRADED if self._mesh_degraded
+                        else RUNG_NAME_MULTIHOST)
+            if self._fused_tier_active():
+                return RUNG_NAME_FUSED
+            if self._shard_count > 1:
+                return RUNG_NAME_SHARDED
         return RUNG_NAMES[rung]
 
     def _fused_tier_active(self) -> bool:
         """Whether rung 0 currently runs the fused device-resident
-        window loop (aggregator.fusedWindowK > 1, packed path, not
-        demoted within rung 0)."""
+        window loop (aggregator.fusedWindowK > 1, packed path, single
+        host, not demoted within rung 0)."""
         return (self._fused_window_k > 1 and not self._fused_degraded
-                and self._use_packed())
+                and not self._multihost_enabled and self._use_packed())
 
     def window_health(self) -> dict:
         """``fleet-window`` probe for /healthz: degraded while the device
@@ -2302,7 +2526,8 @@ class Aggregator:
                 "ok": self._rung == RUNG_PIPELINED,
                 "rung": self._rung,
                 "rung_name": self._rung_display(self._rung),
-                "shards": 1,  # one device
+                "shards": (self._shard_count
+                           if self._rung == RUNG_PIPELINED else 1),
                 "demotions_total": self._stats["window_demotions_total"],
                 "repromotions_total":
                     self._stats["window_repromotions_total"],
@@ -2336,7 +2561,39 @@ class Aggregator:
                 if self._fused_degraded:
                     # fused is rung 0's healthy tier when configured —
                     # running packed-pipelined instead IS degraded
-                    # service, mirrored on the probe
+                    # service, mirrored on the probe like _mesh_degraded
+                    out["ok"] = False
+            if self._multihost_enabled:
+                init = multihost_status()
+                # a degraded mesh is NOT ok — the probe names the tier
+                # so a half-joined or half-dead mesh is diagnosable
+                lease = self._lease
+                out["multihost"] = {
+                    "active": self._multihost_active(),
+                    "mesh_degraded": self._mesh_degraded,
+                    "init_joined": bool(init.joined),
+                    # the DISTINCT init failure reason (joined |
+                    # unconfigured | coordinator_unreachable |
+                    # init_error) — never a generic decline
+                    "init_reason": init.reason,
+                    "awaiting_membership": self._awaiting_membership,
+                    "lease_holder": (lease.holder
+                                     if lease is not None else ""),
+                    "lease_epoch": (lease.epoch
+                                    if lease is not None else 0),
+                }
+                if init.detail:
+                    out["multihost"]["init_detail"] = init.detail
+                if self._awaiting_membership:
+                    # a peer died and this replica is NOT the succession
+                    # issuer (or takeover is disabled): engines rebuilt
+                    # over a stale ring would misattribute, so the probe
+                    # flags it until the issuer's broadcast (or an
+                    # operator apply_membership) lands
+                    out["ok"] = False
+                    out["multihost"]["detail"] = \
+                        "degraded, awaiting membership"
+                if self._mesh_degraded:
                     out["ok"] = False
         return out
 
@@ -2350,7 +2607,8 @@ class Aggregator:
         (the flight recorder's demote/re-promote history). Monotonic
         time orders transitions across wall-clock steps; wall time
         anchors them for humans. ``from_name`` overrides the from-rung
-        display for the fused-tier demotion, whose from/to share rung 0."""
+        display for the mesh and fused-tier demotions, whose from/to
+        share rung 0."""
         rung_name = self._rung_display(rung)
         from_rung_name = from_name or self._rung_display(prev)
         stamp = self._journal.emit(
@@ -2391,6 +2649,8 @@ class Aggregator:
         # re-entering either rung starts from a full re-pack
         if self._engine is not None:
             self._engine.reset()
+        if self._engine_serial is not None:
+            self._engine_serial.reset()
         if self._engine_fused is not None:
             # the fused ring is poisoned like any other: reset drops its
             # device block AND the host pending ring — the orphaned
@@ -2398,18 +2658,30 @@ class Aggregator:
             # demoted tier (zero gaps)
             self._engine_fused.reset()
         self._program = None  # a failed serial program is rebuilt fresh
-        # a failure at the FUSED tier demotes WITHIN rung 0 first — the
-        # fused flag flips and rung 0's engine becomes the ordinary
-        # packed-pipelined one; the next failure walks the ladder.
-        # Checked under _results_lock below via the same rung-0 gate the
-        # dispatch path used.
-        fused_demotion = (self._rung == RUNG_PIPELINED
+        # a failure at the MULTI-HOST rung demotes to "mesh minus one
+        # host" first: rung 0 is kept, but its engine becomes the
+        # surviving single-host sharded engine — the next failure (a
+        # genuinely dead local device) walks the ordinary ladder
+        mesh_demotion = (self._multihost_active()
+                         and not self._mesh_degraded
+                         and self._rung == RUNG_PIPELINED)
+        # likewise a failure at the FUSED tier demotes WITHIN rung 0
+        # first — the fused flag flips and rung 0's engine becomes the
+        # ordinary packed-pipelined one; the next failure walks the
+        # ladder. Checked under _results_lock below via the same
+        # rung-0 gate the dispatch path used.
+        fused_demotion = (not mesh_demotion
+                          and self._rung == RUNG_PIPELINED
                           and self._fused_tier_active())
         with self._results_lock:
             prev = self._rung
             prev_name = self._rung_display(prev)  # before any flag flip
             from_name = ""
-            if fused_demotion:
+            if mesh_demotion:
+                from_name = prev_name
+                self._mesh_degraded = True
+                rung = prev  # rung 0 stays; its engine changes tier
+            elif fused_demotion:
                 from_name = RUNG_NAME_FUSED
                 self._fused_degraded = True
                 rung = prev  # rung 0 stays; its engine changes tier
@@ -2431,6 +2703,8 @@ class Aggregator:
             self._last_window_failure = f"{reason}: {err}"[:240]
             self._record_rung_transition_locked(prev, rung, reason,
                                                 from_name=from_name)
+        if mesh_demotion:
+            self._demote_mesh(reason)
         log.error("fleet window device leg failed (%s) at rung %s; "
                   "demoting to %s, %d in-flight window(s) abandoned, "
                   "resident ring re-seeded: %s", reason,
@@ -2696,11 +2970,14 @@ class Aggregator:
     # -- dispatch half ------------------------------------------------------
 
     def _fused_engine(self) -> FusedWindowEngine:
-        """Rung 0's fused-tier engine (lazy, like the packed engine), on
-        the aggregator's device."""
+        """Rung 0's fused-tier engine (lazy, like the packed engines).
+        Runs over the FULL configured mesh as one block on its first
+        shard's device, with the node bucket aligned to the mesh size as
+        the reference's sharded scan aligns it."""
         if self._engine_fused is None:
+            self._engine_mesh = self._window_mesh()
             self._engine_fused = FusedWindowEngine(
-                device=self._device, backend=self._backend,
+                device=self._engine_mesh, backend=self._backend,
                 model_mode=self._model_mode,
                 node_bucket=self._node_bucket,
                 workload_bucket=self._workload_bucket,
@@ -2837,19 +3114,53 @@ class Aggregator:
         return published
 
     def _packed_engine(self, rung: int) -> PackedWindowEngine:
-        """The packed engine for ``rung`` (lazy). One device: rung 0 is
-        never sharded, so the packed-serial rung reuses rung 0's engine,
-        as the reference does when its mesh has one shard. The resident
-        ring holds one buffer per window in flight plus one."""
+        """The packed engine for ``rung`` (lazy): the sharded engine owns
+        rung 0 on a node mesh of two or more shards; the packed-serial
+        rung then demotes to a SINGLE-device engine on the mesh's first
+        shard's device, so a demoted window launches once. On a
+        single-shard mesh both rungs share one engine. The resident ring
+        holds one buffer per window in flight plus one."""
         if self._engine is None:
-            self._engine = PackedWindowEngine(
-                device=self._device, backend=self._backend,
+            kwargs = dict(
+                backend=self._backend, model_mode=self._model_mode,
+                node_bucket=self._node_bucket,
+                workload_bucket=self._workload_bucket,
+                shrink_after=self._bucket_shrink_after,
+                staging_slots=self._pipeline_depth + 1)
+            if self._multihost_active() and not self._mesh_degraded:
+                # the multi-host tier: process-local rings over the LIVE
+                # mesh (the elastic submesh after a membership change,
+                # else the full configured mesh), owned-rows fetch
+                mh_mesh = self._live_mesh()
+                self._engine_mesh = mh_mesh
+                self._shard_count = mh_mesh.size
+                self._engine = MultiHostWindowEngine(
+                    mh_mesh, process_index=self._self_process(),
+                    fabric=self._mh_fabric, **kwargs)
+            else:
+                mesh = self._window_mesh()
+                if self._multihost_enabled and self._mesh_degraded:
+                    # "mesh minus one host": the survivors' own shards
+                    mesh = self._local_mesh()
+                self._engine_mesh = mesh
+                self._shard_count = self._mesh_shard_count(mesh)
+                if self._shard_count > 1:
+                    self._engine = ShardedWindowEngine(mesh, **kwargs)
+                else:
+                    self._engine = PackedWindowEngine(device=mesh,
+                                                      **kwargs)
+        if rung == RUNG_PIPELINED or self._shard_count == 1:
+            return self._engine
+        if self._engine_serial is None:
+            base = self._engine_mesh or self._window_mesh()
+            self._engine_serial = PackedWindowEngine(
+                device=base.devices[0], backend=self._backend,
                 model_mode=self._model_mode,
                 node_bucket=self._node_bucket,
                 workload_bucket=self._workload_bucket,
                 shrink_after=self._bucket_shrink_after,
                 staging_slots=self._pipeline_depth + 1)
-        return self._engine
+        return self._engine_serial
 
     def _dispatch_packed(self, stored_sorted: list, zone_names: list[str],
                          now: float, t_win: float,
@@ -2877,7 +3188,8 @@ class Aggregator:
         # half-written — the state the ladder's reset() re-seed exists
         # for); the first launch of a key runs in a window.compile span
         out = engine.dispatch_window(plan)
-        copy = copy_to_host_async(out)  # D2H queues behind the launch
+        # D2H queues behind the launch (one copy per shard when sharded)
+        copy = copy_plane_to_host_async(out)
         t_dispatched = _time.perf_counter()
         return _Pending(
             kind="packed", out=copy, meta=plan.meta, now=now,
@@ -3013,6 +3325,7 @@ class Aggregator:
             # the plane's D2H copy was queued at dispatch; the fetch
             # waits on its event (explicitly — it runs on the fetch
             # worker's thread, whose current stream is not the engine's)
+            # a HostCopy, or a ShardedHostCopy on a sharded engine
             copy: HostCopy = p.out  # type: ignore[assignment]
 
             def _materialize() -> np.ndarray:
@@ -3070,7 +3383,8 @@ class Aggregator:
             if p.sync_per_window_ms >= 0.0:
                 self._stats["last_sync_per_window_ms"] = (
                     p.sync_per_window_ms)
-            engines_all = (self._engine, self._engine_fused)
+            engines_all = (self._engine, self._engine_serial,
+                           self._engine_fused)
             if any(e is not None for e in engines_all):
                 self._stats["window_compiles_total"] = sum(
                     e.compile_count for e in engines_all
@@ -3081,6 +3395,7 @@ class Aggregator:
             # touching live engine internals
             engines: dict[str, dict] = {}
             for label, eng in (("pipelined", self._engine),
+                               ("serial", self._engine_serial),
                                ("fused", self._engine_fused)):
                 if eng is not None:
                     engines[label] = eng.introspect()
@@ -3391,7 +3706,8 @@ class Aggregator:
             payload: dict = {
                 "rung": self._rung,
                 "rung_name": self._rung_display(self._rung),
-                "shards": 1,  # one device
+                "shards": (self._shard_count
+                           if self._rung == RUNG_PIPELINED else 1),
                 "windows_at_rung": self._windows_at_rung,
                 "windows_since_last_failure": self._windows_since_failure,
                 "fallback_enabled": self._fallback_enabled,

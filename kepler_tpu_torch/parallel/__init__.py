@@ -1,5 +1,6 @@
-"""Fleet batch assembly, the fleet programs and the packed window programs
-(one device), under the JAX package's import names."""
+"""Fleet batch assembly, the fleet programs, the packed window programs
+and the device mesh (with the multi-process join), under the JAX
+package's import names."""
 
 from kepler_tpu_torch.parallel.aggregator_core import (
     FleetProgram,
@@ -8,6 +9,7 @@ from kepler_tpu_torch.parallel.aggregator_core import (
     make_fleet_program,
     make_temporal_fleet_program,
     run_fleet_attribution,
+    shard_by_node,
     temporal_fleet_program,
 )
 from kepler_tpu_torch.parallel.fleet import (
@@ -17,6 +19,17 @@ from kepler_tpu_torch.parallel.fleet import (
     NodeReport,
     assemble_fleet_batch,
 )
+from kepler_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    NODE_AXIS,
+    Mesh,
+    MultihostInit,
+    Shard,
+    initialize_multihost,
+    make_mesh,
+    multihost_status,
+    submesh_for_processes,
+)
 
 __all__ = [
     "FleetBatch",
@@ -24,11 +37,21 @@ __all__ = [
     "FleetResult",
     "MODE_MODEL",
     "MODE_RATIO",
+    "MODEL_AXIS",
+    "Mesh",
+    "MultihostInit",
+    "NODE_AXIS",
     "NodeReport",
+    "Shard",
     "assemble_fleet_batch",
     "fleet_attribution_program",
     "make_fleet_program",
+    "initialize_multihost",
+    "make_mesh",
     "make_temporal_fleet_program",
+    "multihost_status",
     "run_fleet_attribution",
+    "shard_by_node",
+    "submesh_for_processes",
     "temporal_fleet_program",
 ]

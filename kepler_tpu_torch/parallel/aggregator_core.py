@@ -15,15 +15,16 @@ serves the temporal estimator's single-query fast path.
 Programs are plain callables over tensors on one device
 (:class:`FleetProgram`); :func:`run_fleet_attribution` moves a host
 batch there and runs one step. The ``make_*`` functions take ``device``
-(default ``"cuda"``) and raise when it is missing. Single device: the
-JAX package's node-axis sharding (``shard_by_node``, the mesh
-constructors) comes with the port's multi-GPU slice.
+(default ``"cuda"``) and raise when it is missing. Over a node mesh,
+:func:`shard_by_node` runs a single-shard body once per shard, on that
+shard's block and device (the packed window programs use it).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from kepler_tpu_torch.models.features import build_features
 from kepler_tpu_torch.models.temporal import predict_temporal
 from kepler_tpu_torch.ops.attribution import AttributionResult, attribute_fleet
 from kepler_tpu_torch.parallel.fleet import MODE_MODEL, FleetBatch
+from kepler_tpu_torch.parallel.mesh import Mesh
 
 
 class FleetResult(NamedTuple):
@@ -168,6 +170,39 @@ def resolve_attribute_fn(backend: str) -> Callable:
         return attribute_fleet
     raise ValueError(f"unknown attribution backend {backend!r}; "
                      "valid: einsum, pallas")
+
+
+def on_device(device: torch.device) -> contextlib.AbstractContextManager:
+    """Make ``device`` current for the launches inside (a no-op off
+    CUDA): a hand kernel launches on the current device's stream."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def shard_by_node(fn: Callable, mesh: Mesh) -> Callable:
+    """Run ``fn`` once per shard of ``mesh``'s node axis.
+
+    ``sharded(*args)`` takes each argument as a sequence with one entry
+    per shard (that shard's block, on its device) and returns a tuple of
+    ``fn``'s outputs in shard order. A shard whose arguments are all None
+    is not run here (another process owns it) and its output is None.
+    The fleet forward has no cross-node math, so running it per shard
+    changes layout, not semantics, and needs no collective.
+    """
+    devices = mesh.devices
+
+    def sharded(*args: Sequence[Any]) -> tuple:
+        out = []
+        for k, dev in enumerate(devices):
+            if all(a[k] is None for a in args):
+                out.append(None)
+                continue
+            with on_device(dev):
+                out.append(fn(*(a[k] for a in args)))
+        return tuple(out)
+
+    return sharded
 
 
 def accuracy_mode_predictor(predict_fn: Callable,

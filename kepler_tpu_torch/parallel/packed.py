@@ -14,7 +14,9 @@ device their inputs lie on. With ``backend="pallas"`` they launch the
 hand-written CUDA kernels of ``ops.cuda_attribution`` (B1 in the
 per-window program, B2 once per flush of the fused window loop);
 ``backend="einsum"`` composes plain tensor ops. The builders take an
-explicit ``device`` (default ``"cuda"``) and raise when it is missing.
+explicit ``device`` (default ``"cuda"``) and raise when it is missing;
+the per-window program also runs over a node mesh, once per shard
+(B1 once per shard per window with ``backend="pallas"``).
 
 Sparse model evaluation (``model_bucket``, einsum backend only): the
 estimator runs only on the gathered MODE_MODEL rows named by a bucketed
@@ -45,8 +47,10 @@ from kepler_tpu_torch.parallel.aggregator_core import (
     fleet_attribution_program,
     mix_model_watts,
     resolve_attribute_fn,
+    shard_by_node,
 )
 from kepler_tpu_torch.parallel.fleet import MODE_MODEL, FleetBatch, NodeReport
+from kepler_tpu_torch.parallel.mesh import Mesh
 
 # packed output layout: the two synthetic rows appended after the W
 # workload rows (kept as named offsets so unpackers and the window
@@ -267,7 +271,9 @@ def make_packed_fleet_program(n_workloads: int, n_zones: int,
                               model_mode: str | None = None,
                               backend: str = "einsum",
                               model_bucket: int | None = None,
-                              device: str | torch.device = "cuda"
+                              device: str | torch.device = "cuda",
+                              mesh: Mesh | None = None,
+                              local_model_rows: bool = False
                               ) -> Callable:
     """→ ``program(params, packed [N, W+2Z+4][, model_rows]) →
     packed_watts f16 [N, W+2, Z]`` on ``device``.
@@ -275,11 +281,30 @@ def make_packed_fleet_program(n_workloads: int, n_zones: int,
     ``model_bucket``: when given (and ``model_mode`` is set), the program
     takes a third ``model_rows`` int32 [model_bucket] argument and
     evaluates the estimator ONLY on those rows; entries ≥ N are padding.
+
+    ``mesh``: the SHARDED program over the mesh's node axis
+    (:func:`~kepler_tpu_torch.parallel.aggregator_core.shard_by_node`).
+    Every argument is then a sequence with one entry per shard — the
+    shard's params, its ``[sb, W+2Z+4]`` block and, sparse, its
+    ``model_rows`` segment — and the result is the tuple of the shards'
+    ``[sb, W+2, Z]`` planes, in shard order. Every case runs per shard:
+    the dense body (with ``backend="pallas"``, kernel B1 once per
+    shard), and the sparse body, which needs ``local_model_rows``: each
+    shard's ``model_bucket`` segment holds SHARD-LOCAL row indices (pad
+    = the shard's row count, gather-clamped and scatter-dropped per
+    shard), so the gather, the estimator and the scatter-back stay on
+    the shard.
     """
-    resolve_device(device)
     dense, sparse = _window_step_fns(n_workloads, n_zones, model_mode,
                                      backend, model_bucket)
-    return sparse if sparse is not None else dense
+    if mesh is None:
+        resolve_device(device)
+        return sparse if sparse is not None else dense
+    if sparse is not None and not local_model_rows:
+        raise ValueError(
+            "sparse model evaluation over a mesh needs shard-local "
+            "model rows (local_model_rows=True)")
+    return shard_by_node(sparse if sparse is not None else dense, mesh)
 
 
 def make_fused_window_program(n_workloads: int, n_zones: int,

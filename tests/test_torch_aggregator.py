@@ -68,6 +68,7 @@ from kepler_tpu_torch.fleet.journal import EventJournal as PJournal
 from kepler_tpu_torch.ops import cuda_attribution as ca
 from kepler_tpu_torch.parallel.fleet import MODE_MODEL, MODE_RATIO
 from kepler_tpu_torch.parallel.fleet import NodeReport
+from kepler_tpu_torch.parallel.mesh import Mesh, Shard
 from kepler_tpu_torch.server.http import APIServer as PServer
 from kepler_tpu_torch.service.lifecycle import CancelContext as PCancel
 from tests.test_torch_temporal import jax_params as temporal_params
@@ -415,7 +416,9 @@ def test_init_fails_when_a_kernel_does_not_build(monkeypatch):
     for backend, fails in (("pallas", True), ("einsum", False)):
         agg = PAggregator(PServer(), device="cpu", backend=backend,
                           model_mode=None)
-        agg._device = torch.device("cuda")  # as it is on the card
+        # as it is on the card: one shard on cuda (built by hand, since
+        # make_mesh refuses CUDA here)
+        agg._mesh = Mesh((Shard(torch.device("cuda")),), (1,), ("node",))
         if fails:
             with pytest.raises(RuntimeError, match="nvcc failed"):
                 agg.init()
@@ -423,14 +426,71 @@ def test_init_fails_when_a_kernel_does_not_build(monkeypatch):
             agg.init()
 
 
-def test_mesh_and_multihost_are_refused_at_init():
-    for kw in (dict(mesh_shape=[2]), dict(multihost_enabled=True)):
-        agg = PAggregator(PServer(), device="cpu", model_mode=None, **kw)
-        with pytest.raises(ValueError, match="not yet ported"):
-            agg.init()
+def test_mesh_shape_over_more_devices_than_visible_is_refused():
+    """``init()`` builds the mesh with ``make_mesh``: two shards over the
+    one visible ``cpu`` device fail with its error, as the reference's do
+    over too few devices; one shard builds."""
+    agg = PAggregator(PServer(), device="cpu", model_mode=None,
+                      mesh_shape=[2])
+    with pytest.raises(ValueError, match=r"needs 2 devices, have 1"):
+        agg.init()
     agg = PAggregator(PServer(), device="cpu", model_mode=None,
                       mesh_shape=[1])
     agg.init()
+    assert agg._shard_count == 1 and agg._mesh.size == 1
+
+
+@pytest.mark.parametrize("mode", [None, "mlp"])
+def test_explicit_8_shard_mesh_serves_windows_equal_to_one_shard(mode):
+    """An explicit mesh of 8 virtual ``cpu`` shards runs rung 0 on the
+    sharded engine (B1's plain version once per shard) and publishes
+    every window of the churn schedule equal to ``mesh_shape=[1]``: the
+    f16 plane, node power, energy and cumulative joules bit-equal."""
+    from kepler_tpu_torch.fleet.window import ShardedWindowEngine
+    from kepler_tpu_torch.parallel.mesh import make_mesh as pmesh
+
+    published = []
+    for kw in (dict(mesh=pmesh([8], devices=["cpu"] * 8)),
+               dict(mesh_shape=[1])):
+        ticks = [1e9]
+        agg = PAggregator(PServer(), device="cpu", model_mode=mode,
+                          backend="pallas" if mode is None else "einsum",
+                          node_bucket=8, workload_bucket=8,
+                          stale_after=1e9, clock=lambda: ticks[0], **kw)
+        agg.init()
+        if mode:
+            agg._params = mlp_params(len(ZONES))
+            agg._fallback_params[len(ZONES_WIDE)] = mlp_params(
+                len(ZONES_WIDE))
+        out = []
+        for sched in churn_schedule(8):
+            ticks[0] += 5.0
+            for name, (seed, zones, m, seq, run) in sched.items():
+                agg._reports[name] = PStored(
+                    report=port_report(make_report(name, seed, zones=zones,
+                                                   mode=m)),
+                    zone_names=tuple(zones), received=ticks[0], seq=seq,
+                    run=run)
+            for name in [n for n in agg._reports if n not in sched]:
+                del agg._reports[name]
+            out.append(agg.aggregate_once())
+        sharded = isinstance(agg._engine, ShardedWindowEngine)
+        assert sharded == ("mesh" in kw)
+        assert agg._rung_display(0) == ("packed-sharded-pipelined"
+                                        if sharded else "packed-pipelined")
+        assert agg.window_health()["shards"] == (8 if sharded else 1)
+        agg.shutdown()
+        published.append(out)
+    for a, b in zip(*published):
+        assert sorted(a.names) == sorted(b.names)
+        for name in a.names:
+            i, j = a.rows[name], b.rows[name]
+            for field in ("node_power_uw", "node_energy_uj",
+                          "node_joules_total"):
+                np.testing.assert_array_equal(
+                    getattr(a, field)[i], getattr(b, field)[j],
+                    err_msg=f"{name} {field}")
+            assert a.render_node(name) == b.render_node(name)
 
 
 # -- HTTP ----------------------------------------------------------------------------

@@ -14,10 +14,10 @@ Parity with the reference is held bit for bit: a schedule run through
 trace (every published row's digest, rung transition, membership view,
 counter and fault fire). The reference's own runs (``CHAOS_r01.json``,
 and this process, whose conftest gives JAX eight CPU devices) shard
-rung 0 over an 8-device mesh and so name it ``packed-sharded-pipelined``;
-the port runs one device and names it ``packed-pipelined``. A schedule
-with a rung transition therefore differs from the file in that name
-alone, and equals the reference pinned to one device exactly.
+rung 0 over an 8-device mesh; the port's harness shards it over 8
+virtual shards of its device (``ChaosConfig.shards``), so every trace
+hash equals the file's. At ``shards=1`` the port equals the reference
+pinned to one device.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 CHAOS_R01 = json.loads((REPO / "CHAOS_r01.json").read_text())
 MEMBERS = [f"10.99.0.{i + 1}:28283" for i in range(3)]
 STANDBYS = ["10.99.0.4:28283"]
-SHARDED, PIPELINED = '"packed-sharded-pipelined"', '"packed-pipelined"'
 
 
 def chaos_of(pkg: str) -> types.SimpleNamespace:
@@ -623,16 +622,14 @@ def jax_one_device(monkeypatch):
 @pytest.mark.chaos
 @pytest.mark.parametrize("index", [0, 1, 2, 24])
 def test_trace_equals_the_reference(index):
-    """The same key through both packages: the same canonical trace, up
-    to the name of the reference's sharded rung 0; the port's hash is
-    the file's wherever the schedule has no rung transition."""
+    """The same key through both packages, both sharded 8 ways: the same
+    canonical trace, byte for byte (rung 0 named
+    ``packed-sharded-pipelined`` on both sides), and the file's hash."""
     ref, port = run_both(index)
     assert ref.trace_hash == CHAOS_R01["trace_hashes"][str(index)]
     assert port.ok and ref.ok
-    canon = ref.trace.canonical()
-    assert port.trace.canonical() == canon.replace(SHARDED, PIPELINED)
-    assert (port.trace_hash == CHAOS_R01["trace_hashes"][str(index)]) \
-        == (SHARDED not in canon)
+    assert port.trace.canonical() == ref.trace.canonical()
+    assert port.trace_hash == CHAOS_R01["trace_hashes"][str(index)]
     assert port.fault_fires == ref.fault_fires
     assert port.windows_published == ref.windows_published
 
@@ -640,9 +637,13 @@ def test_trace_equals_the_reference(index):
 @pytest.mark.chaos
 @pytest.mark.parametrize("index", [0, 1, 2, 24])
 def test_trace_equals_the_reference_on_one_device(index, jax_one_device):
-    """Pinned to one device, the reference's trace is the port's, byte
-    for byte, rung names included."""
-    ref, port = run_both(index)
+    """Pinned to one device, the reference's trace is the port's at one
+    shard (``shards=1``), byte for byte, rung names included."""
+    from kepler_tpu.chaos.conductor import run_schedule as jax_run
+    from kepler_tpu_torch.chaos.conductor import run_schedule as port_run
+
+    ref = jax_run(gen(chaos_of("kepler_tpu"), index))
+    port = port_run(port_gen(index), port_cfg(shards=1))
     assert port.trace.canonical() == ref.trace.canonical()
     assert port.trace_hash == ref.trace_hash
 
@@ -650,9 +651,9 @@ def test_trace_equals_the_reference_on_one_device(index, jax_one_device):
 @pytest.mark.chaos
 def test_full_sweep_matches_the_artifact():
     """The reference's 25-schedule sweep at seed 1 (the CLI's default
-    config): every count of ``CHAOS_r01.json``; the trace hashes equal
-    the file's exactly for the schedules without a rung transition (the
-    other 13 differ in the sharded rung's name alone, above)."""
+    config, 8 shards): every count of ``CHAOS_r01.json`` and all 25
+    trace hashes — the 13 schedules with rung transitions included,
+    whose rung 0 reads ``packed-sharded-pipelined`` on both sides."""
     from kepler_tpu_torch.chaos.conductor import run_many
 
     report = run_many(1, 25, port_cfg(), do_shrink=False)
@@ -662,10 +663,8 @@ def test_full_sweep_matches_the_artifact():
         assert art[key] == CHAOS_R01[key], key
     laddered = {str(r.schedule.index) for r in report.results
                 if any(r.record.timelines.values())}
-    differ = {i for i, h in art["trace_hashes"].items()
-              if h != CHAOS_R01["trace_hashes"][i]}
-    assert differ == laddered
-    assert len(differ) == 13
+    assert len(laddered) == 13
+    assert art["trace_hashes"] == CHAOS_R01["trace_hashes"]
 
 
 # -- host-death succession against the reference ------------------------------

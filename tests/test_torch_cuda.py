@@ -554,3 +554,68 @@ def test_train_steps_on_the_card_match_the_cpu(cuda_device, family):
     _, ref = step(states["cuda"], *[a.to(cuda_device)
                                     for a in (*args, targets, lv)])
     np.testing.assert_allclose(float(loss), float(ref), rtol=1e-4)
+
+
+def sharded_rows(n: int, win: int, w: int = 40):
+    """``n`` nodes' RowInputs for window ``win`` (mixed modes; the ids
+    move every window, so every row restages)."""
+    from kepler_tpu_torch.fleet.window import RowInput
+    from kepler_tpu_torch.parallel.fleet import NodeReport
+
+    zones = ("package", "core", "dram", "uncore")
+    rng = np.random.default_rng(win)
+    rows = []
+    for i in range(n):
+        cpu = rng.uniform(0.1, 5.0, w).astype(np.float32)
+        rows.append(RowInput(
+            name=f"n{i:03d}", zone_names=zones, ident=("r1", win),
+            report=NodeReport(
+                node_name=f"n{i:03d}", zone_valid=np.ones(4, bool),
+                zone_deltas_uj=rng.uniform(1e7, 5e8, 4).astype(np.float32),
+                usage_ratio=float(rng.uniform(0.2, 0.9)), cpu_deltas=cpu,
+                workload_ids=[f"n{i}-w{k}" for k in range(w)],
+                node_cpu_delta=float(cpu.sum()), dt_s=5.0, mode=i % 2,
+                workload_kinds=np.ones(w, np.int8))))
+    return rows, zones
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_mode", [None, "mlp"])
+def test_sharded_engine_on_8_virtual_shards_equals_the_cpu(cuda_device,
+                                                           model_mode):
+    """``ShardedWindowEngine`` over 8 virtual shards of the card with
+    ``backend="pallas"``: B1 once per shard per window, every plane's
+    ratio rows bit-equal to the same engine on ``device="cpu"``, model
+    rows within rtol 1e-3, and the same sticky map."""
+    from kepler_tpu_torch.fleet.window import (ShardedWindowEngine,
+                                               fetch_plane)
+    from kepler_tpu_torch.models.mlp import init_mlp
+    from kepler_tpu_torch.parallel.mesh import make_mesh
+
+    params = None
+    if model_mode:
+        gen = torch.Generator().manual_seed(3)
+        params = init_mlp(4, generator=gen)
+        params["w2"] = torch.randn(params["w2"].shape, generator=gen) * 0.05
+    engines = {dev: ShardedWindowEngine(
+        make_mesh([8], devices=[dev] * 8), backend="pallas",
+        model_mode=model_mode, node_bucket=64, workload_bucket=64)
+        for dev in ("cpu", cuda_device)}
+    assert engines[cuda_device]._devices == [cuda_device] * 8
+    for win, n in enumerate((50, 50, 47, 70)):  # drop, then overflow
+        rows, zones = sharded_rows(n, win)
+        planes = {}
+        for dev, eng in engines.items():
+            before = ca.LAUNCHES["outer_product_attribution"]
+            plan = eng.plan_window(rows, zones, params)
+            planes[dev] = (fetch_plane(eng.dispatch_window(plan)), plan)
+            launched = ca.LAUNCHES["outer_product_attribution"] - before
+            assert launched == (8 if dev == cuda_device else 0)
+        (got, plan), (ref, ref_plan) = planes[cuda_device], planes["cpu"]
+        assert plan.h2d_shards == ref_plan.h2d_shards
+        assert engines[cuda_device]._shard_of == engines["cpu"]._shard_of
+        ratio = plan.meta.mode != 1
+        assert np.array_equal(got[ratio], ref[ratio])
+        np.testing.assert_allclose(got[~ratio].astype(np.float32),
+                                   ref[~ratio].astype(np.float32),
+                                   rtol=1e-3, atol=1e-3)

@@ -5,9 +5,10 @@ is checked in a fresh interpreter: importing every module of
 ``kepler_tpu_torch`` must leave ``jax`` and every ``kepler_tpu.*`` module
 out of ``sys.modules`` (and optax and orbax, the JAX package's training
 libraries), and the entry points built with their default device must
-raise when CUDA is absent instead of running on the CPU — the
-aggregator, node, training and chaos binaries' ``main`` return 1 and
-name CUDA.
+raise when CUDA is absent instead of running on the CPU — meshes
+(all visible devices, or virtual shards of ``cuda``) included, so no
+shard is ever placed on the CPU unasked — and the aggregator, node,
+training and chaos binaries' ``main`` return 1 and name CUDA.
 """
 
 from __future__ import annotations
@@ -53,7 +54,11 @@ if not torch.cuda.is_available():
         make_fleet_program, make_temporal_fleet_program)
     from kepler_tpu_torch.parallel.packed import (
         make_fused_window_program, make_packed_fleet_program)
+    from kepler_tpu_torch.parallel.mesh import make_mesh
     for label, build in [
+            ("make_mesh", lambda: make_mesh()),
+            ("make_mesh_virtual",
+             lambda: make_mesh([8], devices=["cuda"] * 8)),
             ("PackedWindowEngine", lambda: PackedWindowEngine()),
             ("FusedWindowEngine", lambda: FusedWindowEngine()),
             ("make_packed_fleet_program",
@@ -119,11 +124,11 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
     assert expected <= set(out["modules"])
     # the slice-7 packages are among them, their entry points included
     for mod in ("chaos.conductor", "chaos.harness", "chaos.__main__",
-                "blackbox", "blackbox.__main__"):
+                "blackbox", "blackbox.__main__", "parallel.mesh"):
         assert f"kepler_tpu_torch.{mod}" in out["modules"], mod
     assert out["leaked"] == []
     if not out["cuda"]:
-        assert len(out["raised"]) == 11
+        assert len(out["raised"]) == 13
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
         for binary in ("cmd_main", "node_main", "train_main", "chaos_main"):
