@@ -83,7 +83,19 @@ zones, buckets N = 1024, W = 256):
    once with ``backend="pallas"`` — B1 once per shard in every rung-0
    window — then the binaries ``python -m kepler_tpu_torch.chaos --schedule 0`` (the file's
    trace hash) and ``python -m kepler_tpu_torch.blackbox`` over one run's
-   journals (the timeline SHA of the same run on ``device="cpu"``).
+   journals (the timeline SHA of the same run on ``device="cpu"``);
+14. the parallel families on virtual shards of the card
+   (``main_parallel``): ``make_ring_attention(mesh[8], backend="pallas")``
+   over 4096 sequences of T = 1024 (4 heads of 32, bf16) — kernel B3
+   once per shard per KV rotation, 64 launches a call, all on tensor
+   cores — against the einsum ring and dense attention on 64 sequences;
+   the sequence-parallel program (8 shards) at the same size and Ulysses
+   (4 shards, 512 sequences) against the single-query dense path; 6
+   sequence-parallel train steps with remat (512 sequences) against the
+   one-shard step; the GPipe deep estimator (4 stages) and expert
+   parallelism (8 experts on 8 shards, explicit and learned routing)
+   over 262,144 rows against the single-device models; the DP×TP
+   trainer on a 4 × 2 ``node × model`` mesh against one shard.
 
 Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
@@ -1589,15 +1601,15 @@ def temporal_schedule() -> list[list]:
     return windows
 
 
-def temporal_params(scale: float = 1.0) -> dict:
-    """init_temporal at its default widths (d_model 128, 4 heads, t_max
-    128) from the seed, with a non-zero head (init zeroes it); ``scale``
-    multiplies the head, the skip path and the bias (40 makes the
-    predictions tens of watts)."""
+def temporal_params(scale: float = 1.0, t_max: int = 128) -> dict:
+    """init_temporal at its default widths (d_model 128, 4 heads; t_max
+    128 unless given) from the seed, with a non-zero head (init zeroes
+    it); ``scale`` multiplies the head, the skip path and the bias (40
+    makes the predictions tens of watts)."""
     from kepler_tpu_torch.models.temporal import init_temporal
 
     gen = torch.Generator().manual_seed(SEED)
-    params = init_temporal(len(ZONES), generator=gen)
+    params = init_temporal(len(ZONES), t_max=t_max, generator=gen)
     params["w_head"] = torch.randn(params["w_head"].shape,
                                    generator=gen) * 0.05 * scale
     params["w_skip"] = torch.randn(params["w_skip"].shape,
@@ -3358,6 +3370,392 @@ def main_chaos(dev: torch.device) -> dict:
     return row
 
 
+# -- the parallel families (path 14) ---------------------------------------------
+
+# The ring at the estimators' full width: 4096 sequences of T = 1024
+# ticks over 8 virtual shards (one 128-tick block a shard: B3 on tensor
+# cores at Tq = Tk = 128), 4 heads of 32; the dense references run on
+# PARALLEL_DENSE_SEQS of them (the whole [T, T] scores would be 64 GB).
+PARALLEL_B, PARALLEL_T, PARALLEL_SHARDS = 4096, 1024, 8
+PARALLEL_DENSE_SEQS = 64
+# cut: Ulysses holds dense [T, T] scores per shard, and training keeps
+# the ring's block activations for the backward
+PARALLEL_ULYSSES_B = 512
+PARALLEL_TRAIN_B = 512
+PARALLEL_TRAIN_STEPS = 6
+# 262,144 rows (1024 nodes × 256 workloads) for the pipeline, the
+# experts and the trainer
+PARALLEL_ROWS = N_NODES * 256
+TRAIN_F32_RTOL = 1e-4  # f32 train steps, as tests/test_torch_train.py
+
+
+def parallel_mesh(dev: torch.device, n: int, axes=("seq",), shape=None):
+    from kepler_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(list(shape or [n]), list(axes), devices=[dev] * n)
+
+
+def ragged_lengths(gen: torch.Generator, dev: torch.device, b: int,
+                   t: int) -> torch.Tensor:
+    """Right-padded history lengths 0..T with every 16th sequence fully
+    masked (length 0)."""
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lengths[::16] = 0
+    return torch.arange(t, device=dev)[None, :] < lengths[:, None]
+
+
+def timed_call(fn) -> tuple[object, float]:
+    """(result, host ms of one call ended by a synchronize)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def parallel_ring(dev: torch.device) -> dict:
+    """The ring with ``backend="pallas"``: 64 B3 launches per call, all
+    on tensor cores, against the einsum ring (B3's bound, 1e-2 · max|v|)
+    and dense ``full_attention`` on PARALLEL_DENSE_SEQS sequences; B3
+    timed at the per-launch shape beside its bound, its plain version
+    and SDPA."""
+    from kepler_tpu_torch.ops import cuda_attention as cat
+    from kepler_tpu_torch.ops.attention import full_attention
+    from kepler_tpu_torch.parallel.ring import make_ring_attention
+
+    b, t, n = PARALLEL_B, PARALLEL_T, PARALLEL_SHARDS
+    t_loc = t // n
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    shape = (b, t, N_HEADS, D_MODEL // N_HEADS)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    valid = ragged_lengths(gen, dev, b, t)
+    mesh = parallel_mesh(dev, n)
+    ring = make_ring_attention(mesh, backend="pallas")
+    einsum = make_ring_attention(mesh)
+
+    reset_launches()
+    out, first_ms = timed_call(lambda: ring(q, k, v, valid))
+    launches = read_launches()
+    check(launches["flash_block"] == n * n
+          and launches["flash_block_tc"] == n * n,
+          f"the ring launched B3 {launches['flash_block']} times "
+          f"({launches['flash_block_tc']} on tensor cores), not {n * n}")
+    check(launches["outer_product_attribution"] == 0
+          and launches["fused_window_step"] == 0, "the ring ran B1 or B2")
+    check(bool(torch.isfinite(out).all()), "the ring's output is not finite")
+    empty = valid.sum(dim=1) == 0
+    check(bool(torch.all(out[empty] == 0)),
+          "fully masked sequences are not exactly zero")
+    bound_v = 1e-2 * float(v.abs().max())
+    ref = einsum(q, k, v, valid)
+    err_einsum = float((out - ref).abs().max())
+    check(err_einsum <= bound_v,
+          f"pallas ring off the einsum ring by {err_einsum} (> {bound_v})")
+    del ref
+    sl = slice(0, PARALLEL_DENSE_SEQS)
+    dense = full_attention(q[sl], k[sl], v[sl], t_valid=valid[sl])
+    err_dense = float((out[sl] - dense).abs().max())
+    check(err_dense <= bound_v, f"pallas ring off dense attention on "
+          f"{PARALLEL_DENSE_SEQS} sequences by {err_dense} (> {bound_v})")
+    del dense, out
+
+    ring_ms = time_ms(lambda: ring(q, k, v, valid), reps=3, batch=1)
+    einsum_ms = time_ms(lambda: einsum(q, k, v, valid), reps=3, batch=1)
+    prof = profile_top(lambda: ring(q, k, v, valid), match="flash_block")
+    ring_bound = 0.0
+    for i in range(n):
+        qi = q[:, i * t_loc:(i + 1) * t_loc]
+        for src in range(n):
+            kv = slice(src * t_loc, (src + 1) * t_loc)
+            ring_bound += cat.flash_block_bound_ms(
+                qi, k[:, kv], valid[:, kv], i * t_loc, src * t_loc)[0]
+    # one launch at the per-launch shape: shard 3's diagonal block
+    blk = slice(3 * t_loc, 4 * t_loc)
+    qb, kb, vb = (x[:, blk].contiguous() for x in (q, k, v))
+    vab = valid[:, blk].contiguous()
+    start = 3 * t_loc
+    kern = lambda: cat.flash_block_pallas(  # noqa: E731
+        qb, kb, vb, vab, start, start)
+    plain = lambda: cat.flash_block_ref(qb, kb, vb, vab, start, start)  # noqa: E731
+    got = kern()
+    err_blk = b3_check(got, plain(), vb, torch.bfloat16,
+                       f"B3 at the ring's block shape B={b}, T={t_loc}")
+    del got
+    bound, by = cat.flash_block_bound_ms(qb, kb, vab, start, start)
+    lib_ms, lib_device_ms, lib_err = sdpa_ms(qb, kb, vb, vab)
+    launch = {"B": b, "Tq": t_loc, "Tk": t_loc, "H": N_HEADS,
+              "D": D_MODEL // N_HEADS, "q_start": start, "kv_start": start,
+              "plan": cat.flash_block_plan(b, t_loc, t_loc, N_HEADS,
+                                           D_MODEL // N_HEADS)._asdict(),
+              "ms": time_ms(kern, reps=5, batch=4),
+              "device_ms": device_ms(kern, calls=5),
+              "plain_ms": time_ms(plain, reps=3, batch=2),
+              "plain_device_ms": device_ms(plain, calls=2),
+              "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+              "bound_ms": bound, "bound_by": by, "max_abs_err": err_blk}
+    if lib_err is not None:
+        launch["library_error"] = lib_err
+    del q, k, v, valid, qb, kb, vb, vab
+    torch.cuda.empty_cache()
+    return {"shape": {"B": b, "T": t, "H": N_HEADS,
+                      "D": D_MODEL // N_HEADS, "shards": n,
+                      "compute": "bf16", "causal": True},
+            "launches": launches, "first_call_ms": first_ms,
+            "call_ms": ring_ms, "einsum_call_ms": einsum_ms,
+            "profile": prof, "b3_ms_per_call": prof["flash_block_ms"],
+            "b3_device_ms_per_launch": prof["flash_block_ms"] / (n * n),
+            "b3_bound_ms_per_call": ring_bound,
+            "max_abs_err_vs_einsum": err_einsum,
+            "max_abs_err_vs_dense": err_dense, "err_bound": bound_v,
+            "per_launch": launch}
+
+
+def temporal_inputs(dev: torch.device, b: int, t: int, seed: int):
+    """Feature history [B, T, 7] with right-padded ragged windows, the
+    workloads' validity and targets of tens of watts."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hist = torch.rand((b, t, 7), generator=gen, device=dev)
+    tv = ragged_lengths(gen, dev, b, t)
+    hist = torch.where(tv[..., None], hist, 0.0)
+    wv = torch.rand((b,), generator=gen, device=dev) > 0.05
+    targets = torch.rand((b, len(ZONES)), generator=gen, device=dev) * 40
+    return hist, wv, tv, targets
+
+
+def parallel_temporal(dev: torch.device) -> dict:
+    """The sequence-parallel program (einsum ring, 8 shards) at B = 4096,
+    T = 1024 and the Ulysses program (4 shards) at B = 512 against the
+    single-query dense path; then the sequence-parallel train step with
+    remat against the single-device train step."""
+    from kepler_tpu_torch.models import train
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.models.temporal import predict_temporal
+    from kepler_tpu_torch.parallel import (make_sequence_parallel_train_step,
+                                           make_temporal_program,
+                                           make_ulysses_temporal_program)
+
+    t = PARALLEL_T
+    params = params_to(temporal_params(ACC_SCALE, t_max=t), dev)
+    out = {}
+    for label, b, build in (
+            ("sequence", PARALLEL_B, lambda: make_temporal_program(
+                parallel_mesh(dev, PARALLEL_SHARDS))),
+            ("ulysses", PARALLEL_ULYSSES_B, lambda: make_ulysses_temporal_program(
+                parallel_mesh(dev, 4)))):
+        hist, wv, tv, _ = temporal_inputs(dev, b, t, SEED + b)
+        program = build()
+        reset_launches()
+        got, ms = timed_call(lambda: program(params, hist, wv, tv))
+        launches = read_launches()
+        check(not any(launches.values()), f"{label}: a kernel launched "
+              f"({launches}); JAX's program runs none")
+        want, dense_ms = timed_call(
+            lambda: predict_temporal(params, hist, wv, tv))
+        a, r = got.cpu().numpy(), want.cpu().numpy()
+        check(np.isfinite(a).all(), f"{label}: non-finite watts")
+        check(bf16_close(a, r), f"{label} program off the dense path by "
+              f"{float(np.abs(a - r).max())} W")
+        out[label] = {"B": b, "T": t, "call_ms": ms, "dense_ms": dense_ms,
+                      "max_abs_err_w": float(np.abs(a - r).max()),
+                      "max_w": float(np.abs(r).max()), "launches": launches}
+        del hist, wv, tv, got, want, program
+        torch.cuda.empty_cache()
+
+    b = PARALLEL_TRAIN_B
+    hist, wv, tv, targets = temporal_inputs(dev, b, t, SEED + 3)
+    runs = {}
+    for label, step in (
+            ("sp_remat", make_sequence_parallel_train_step(
+                parallel_mesh(dev, PARALLEL_SHARDS), remat=True)),
+            ("one_shard", train.make_temporal_train_step(
+                compute_dtype=torch.float32))):
+        state = train.create_train_state(params, train.make_optimizer(1e-3))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, ms = [], []
+        for _ in range(PARALLEL_TRAIN_STEPS):
+            (state, loss), step_ms = timed_call(
+                lambda: step(state, hist, wv, tv, targets))
+            losses.append(float(loss))
+            ms.append(step_ms)
+        check(not any(read_launches().values()),
+              f"{label}: a kernel launched in training")
+        runs[label] = {"losses": losses, "ms_per_step": statistics.median(ms),
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "params": train.detached(state.params)}
+        del state
+        torch.cuda.empty_cache()
+    sp, one = runs["sp_remat"], runs["one_shard"]
+    check(all(np.isfinite(sp["losses"])), "SP training: non-finite loss")
+    check(sp["losses"][-1] < sp["losses"][0], "SP training: no fall")
+    rel = float(np.max(np.abs(np.asarray(sp["losses"])
+                              / np.asarray(one["losses"]) - 1)))
+    check(rel <= TRAIN_F32_RTOL, f"SP losses off the one-shard step by {rel}")
+    param_err = max(float((sp["params"][key] - one["params"][key])
+                          .abs().max()) for key in sp["params"])
+    out["sequence_training"] = {
+        "B": b, "T": t, "steps": PARALLEL_TRAIN_STEPS, "remat": True,
+        "compute": "f32", "losses": sp["losses"],
+        "one_shard_losses": one["losses"], "max_loss_rel": rel,
+        "max_param_abs_diff": param_err,
+        "ms_per_step": sp["ms_per_step"],
+        "one_shard_ms_per_step": one["ms_per_step"],
+        "peak_gb": sp["peak_gb"], "one_shard_peak_gb": one["peak_gb"]}
+    del hist, wv, tv, targets, runs, sp, one, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rows(dev: torch.device) -> dict:
+    """The GPipe deep estimator (4 stages, 4 microbatches) and expert
+    parallelism (8 experts on 8 shards; explicit ids and learned top-1)
+    over 262,144 rows against the single-device models."""
+    from kepler_tpu_torch.models.deep import predict_deep
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.models.moe import expert_forward, predict_moe
+    from kepler_tpu_torch.parallel import (make_expert_parallel_moe,
+                                           make_pipelined_deep, top1_route)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    rows = PARALLEL_ROWS
+    feats = torch.rand((rows, 7), generator=gen, device=dev)
+    valid = torch.rand((rows,), generator=gen, device=dev) > 0.1
+    out = {}
+
+    deep = params_to(single_tick_params("deep", SEED + 16), dev)
+    pipe = make_pipelined_deep(parallel_mesh(dev, 4, ("stage",)),
+                               n_microbatches=4)
+    reset_launches()
+    got, ms = timed_call(lambda: pipe(deep, feats, valid))
+    check(not any(read_launches().values()), "pipeline: a kernel launched")
+    want, dense_ms = timed_call(lambda: predict_deep(deep, feats, valid))
+    a, r = got.cpu().numpy(), want.cpu().numpy()
+    check(np.isfinite(a).all() and bf16_close(a, r), "pipelined deep off "
+          f"predict_deep by {float(np.abs(a - r).max())} W")
+    out["pipeline"] = {"rows": rows, "stages": 4, "blocks": 4,
+                       "microbatches": 4, "call_ms": ms,
+                       "dense_ms": dense_ms,
+                       "max_abs_err_w": float(np.abs(a - r).max()),
+                       "max_w": float(np.abs(r).max())}
+    del deep, got, want
+
+    moe = params_to(single_tick_params("moe", SEED + 17), dev)
+    ep = make_expert_parallel_moe(parallel_mesh(dev, PARALLEL_SHARDS,
+                                                ("expert",)))
+    eid = torch.randint(0, 8, (rows,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ones = torch.ones(rows, device=dev)
+    learned = top1_route(moe, feats)
+    per = expert_forward(moe, feats.expand(8, rows, 7))  # [E, rows, Z]
+    picked = per[learned[0].long(), torch.arange(rows, device=dev)]
+    for label, (ids, gate), ref in (
+            ("explicit", (eid, ones), lambda: predict_moe(
+                moe, feats[:, None], torch.ones((rows, 1), dtype=torch.bool,
+                                                device=dev),
+                clamp=False, expert_id=eid)[:, 0]),
+            ("top1", learned, lambda: picked * learned[1][:, None])):
+        reset_launches()
+        got, ms = timed_call(lambda: ep(moe, feats, ids, gate))
+        check(not any(read_launches().values()), "EP: a kernel launched")
+        a, r = got.cpu().numpy(), ref().cpu().numpy()
+        check(np.isfinite(a).all() and bf16_close(a, r), f"EP ({label}) off "
+              f"the dense MoE by {float(np.abs(a - r).max())} W")
+        out[f"expert_{label}"] = {"rows": rows, "experts": 8, "shards": 8,
+                                  "call_ms": ms,
+                                  "max_abs_err_w": float(np.abs(a - r).max()),
+                                  "max_w": float(np.abs(r).max())}
+    del moe, per, picked, feats, valid
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_trainer(dev: torch.device) -> dict:
+    """DP×TP on a 4 × 2 ``node × model`` mesh: ``init_mlp`` at its
+    defaults, features [1024, 256, 7], 6 steps, at the default bf16 and
+    at f32 against ``make_train_step(predict_mlp)`` on one shard, then
+    the gathered params served."""
+    import functools
+
+    from kepler_tpu_torch.models import train
+    from kepler_tpu_torch.models.mlp import init_mlp, predict_mlp
+    from kepler_tpu_torch.parallel import (gather_params,
+                                           make_distributed_train_step,
+                                           shard_train_state)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    feats = torch.rand((N_NODES, 256, 7), generator=gen, device=dev) * 3
+    valid = torch.rand((N_NODES, 256), generator=gen, device=dev) > 0.2
+    targets = feats[..., :1] * torch.tensor([4.0, 2.0, 1.0, 0.5],
+                                            device=dev) * 10
+    params = init_mlp(len(ZONES), generator=torch.Generator().manual_seed(
+        SEED + 19), device=dev)
+    lr = float(TRAIN_LR)
+    mesh = parallel_mesh(dev, 8, ("node", "model"), (4, 2))
+    out = {}
+    for cd, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        runs = {}
+        for label in ("dp_tp", "one_shard"):
+            state = train.create_train_state(params,
+                                             train.make_optimizer(lr))
+            if label == "dp_tp":
+                state = shard_train_state(state, mesh)
+                step = make_distributed_train_step(mesh, compute_dtype=cd)
+            else:
+                step = train.make_train_step(functools.partial(
+                    predict_mlp, compute_dtype=cd))
+            reset_launches()
+            losses, ms = [], []
+            for _ in range(TRAIN_CPU_STEPS):
+                (state, loss), step_ms = timed_call(
+                    lambda: step(state, feats, valid, targets))
+                losses.append(float(loss))
+                ms.append(step_ms)
+            check(not any(read_launches().values()),
+                  "trainer: a kernel launched")
+            whole = (gather_params(state) if label == "dp_tp"
+                     else train.detached(state.params))
+            runs[label] = (losses, whole, statistics.median(ms))
+        (dl, dp, dms), (ol, op, oms) = runs["dp_tp"], runs["one_shard"]
+        rel = float(np.max(np.abs(np.asarray(dl) / np.asarray(ol) - 1)))
+        diff = max(float((dp[k] - op[k]).abs().max()) for k in dp)
+        # bf16: the train loss tolerance, and Adam's near-sign steps flip
+        # for a gradient near zero (2 · lr a step); f32: summation order
+        rtol, atol = ((TRAIN_LOSS_RTOL, 2 * lr * TRAIN_CPU_STEPS)
+                      if name == "bf16" else (TRAIN_F32_RTOL, 1e-5))
+        check(dl[-1] < dl[0], f"DP×TP ({name}): the loss does not fall")
+        check(rel <= rtol, f"DP×TP ({name}) losses off one shard by {rel}")
+        check(diff <= atol, f"DP×TP ({name}) params off one shard by {diff}")
+        served = predict_mlp(dp, feats, valid)
+        ref = predict_mlp(op, feats, valid)
+        a, r = served.cpu().numpy(), ref.cpu().numpy()
+        check(bf16_close(a, r), f"DP×TP ({name}) params serve off one "
+              f"shard's by {float(np.abs(a - r).max())} W")
+        out[name] = {"losses": dl, "one_shard_losses": ol,
+                     "max_loss_rel": rel, "max_param_abs_diff": diff,
+                     "ms_per_step": dms, "one_shard_ms_per_step": oms,
+                     "served_max_abs_err_w": float(np.abs(a - r).max())}
+    del feats, valid, targets
+    torch.cuda.empty_cache()
+    return {"mesh": {"node": 4, "model": 2}, "batch": [N_NODES, 256, 7],
+            "steps": TRAIN_CPU_STEPS, "lr": lr, **out}
+
+
+def main_parallel(dev: torch.device) -> dict:
+    """Path 14: the parallel families on virtual shards of the card, each
+    against its single-device form: the ring (B3 once per shard per KV
+    rotation), sequence parallelism (serving and training), Ulysses,
+    the GPipe pipeline, expert parallelism and the DP×TP trainer."""
+    t_phase = time.perf_counter()
+    row = {"phase": "main_parallel", "ring": parallel_ring(dev)}
+    row.update(parallel_temporal(dev))
+    row.update(parallel_rows(dev))
+    row["trainer"] = parallel_trainer(dev)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3404,6 +3802,7 @@ def main() -> int:
     multihost = main_multihost_virtual(dev, phases, sharded_planes)
     del phases, sharded_planes
     chaos = main_chaos(dev)
+    parallel = main_parallel(dev)
 
     b1["launches_by_path"] = {
         "main_mixed": mixed["launches"]["outer_product_attribution"],
@@ -3436,15 +3835,28 @@ def main() -> int:
         k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
         for r in (b2_rows[main_db], b2_flush)}
     b3 = dict(b3_rows[0])
-    b3["launches"] = trunk["launches"]["flash_block"]
+    ring = parallel["ring"]
+    b3["launches_by_path"] = {
+        "main_temporal_trunk": trunk["launches"]["flash_block"],
+        "main_parallel_ring": ring["launches"]["flash_block"]}
+    b3["launches"] = sum(b3["launches_by_path"].values())
     b3["launches_by_variant"] = {
-        v: trunk["launches"][f"flash_block_{v}"] for v in ("tc", "simt")}
+        v: trunk["launches"][f"flash_block_{v}"]
+        + ring["launches"][f"flash_block_{v}"] for v in ("tc", "simt")}
     b3["by_shape"] = {f"B{r['shape']['B']}_T{r['shape']['Tq']}": {
         k: r[k] for k in ("ms", "device_ms", "simt_bf16_device_ms",
                           "f32_device_ms", "plain_ms", "bound_ms",
                           "bound_by", "library_ms", "library_device_ms",
                           "max_abs_err")}
         for r in b3_rows}
+    b3["by_shape"]["B{B}_T{Tq}_ring_block".format(
+        **ring["per_launch"])] = {
+        **{k: ring["per_launch"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "max_abs_err")},
+        "ring_call_b3_device_ms": ring["b3_ms_per_call"],
+        "ring_b3_device_ms_per_launch": ring["b3_device_ms_per_launch"],
+        "ring_call_b3_bound_ms": ring["b3_bound_ms_per_call"]}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "device_ms",

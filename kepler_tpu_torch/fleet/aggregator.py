@@ -321,6 +321,10 @@ class _Pending:
     t_valid: object = None
 
 
+#: how long ``shutdown()`` waits for an idle fetch worker to end
+_WORKER_JOIN_S = 5.0
+
+
 class _FetchWorker:
     """One persistent daemon thread running window fetches, so the
     dispatch-timeout watchdog can bound them without spawning a thread
@@ -354,6 +358,9 @@ class _FetchWorker:
 
     def stop(self) -> None:
         self._requests.put((None, None))
+
+    def join(self, timeout: float) -> None:
+        self._thread.join(timeout)
 
     def run(self, fn: "Callable[[], object]",
             timeout: float) -> "tuple[str, object] | None":
@@ -1186,6 +1193,10 @@ class Aggregator:
         worker, self._fetch_worker = self._fetch_worker, None
         if worker is not None:
             worker.stop()
+            # the daemon thread has used CUDA: let it end before the
+            # caller's process may exit, or its thread teardown can race
+            # the interpreter's (an abort at exit)
+            worker.join(_WORKER_JOIN_S)
         self._journal.close()
 
     # -- ingest ------------------------------------------------------------

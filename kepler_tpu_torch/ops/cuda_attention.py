@@ -300,7 +300,18 @@ def flash_block_pallas(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused (q-block × kv-block) partial → (pv [B,Tq,H,D],
-    m [B,H,Tq], l [B,H,Tq]) — the ``block_attn`` contract, as kernel B3."""
+    m [B,H,Tq], l [B,H,Tq]) — the ``block_attn`` contract, as kernel B3.
+
+    B3 has no backward, as the TPU kernel has none (``jax.grad`` through
+    it fails): under autograd, with q, k or v requiring grad, the call
+    raises ValueError on every device, so the plain version never stands
+    in for a gradient the card cannot give."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "flash_block_pallas (kernel B3) has no backward, like the TPU "
+            "kernel it replaces: differentiate through the einsum backend "
+            "(ops.attention.block_attn, ring backend='einsum') or call it "
+            "under torch.no_grad() / torch.inference_mode()")
     if q.device.type == "cpu":
         return flash_block_ref(q, k, v, kv_valid, q_start, kv_start,
                                causal=causal, compute_dtype=compute_dtype)

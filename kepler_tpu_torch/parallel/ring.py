@@ -1,0 +1,139 @@
+"""Ring attention: context parallelism over the history time axis.
+
+As ``kepler_tpu.parallel.ring``: a temporal estimator's fleet window is
+``[B, T, F]`` with T up to hours of ticks, so the sequence axis shards
+over the ``seq`` mesh axis and attention runs as a ring. Each shard keeps
+its query block and rotates the K/V blocks around the axis one hop a
+step (``collectives.ppermute``), folding flash-attention partials with
+the online-softmax merge (``ops.attention``). No shard forms the
+``[T, T]`` scores or holds the whole K/V sequence, and after n steps the
+merge equals exact softmax attention.
+
+The JAX ring is one ``shard_map`` program; here one process drives each
+shard of the mesh in turn (virtual shards may share a device). Inputs
+are whole ``[B, T, H, D]`` tensors: T is cut into one contiguous block
+per shard on its device, and the output blocks are joined back in shard
+order on the first shard's device. ``backend="pallas"`` computes every
+block partial with kernel B3 (``ops.cuda_attention.flash_block_pallas``,
+scalar block starts, the causal mask rebuilt inside the kernel): n²
+launches a call on CUDA tensors. B3 has no backward, so gradients take
+the default ``"einsum"`` backend, as the JAX sequence-parallel trainer
+does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+from kepler_tpu_torch.ops import cuda_attention
+from kepler_tpu_torch.ops.attention import (_NEG_INF, block_attn,
+                                            full_attention, merge_blocks,
+                                            stats_to_out)
+from kepler_tpu_torch.parallel.collectives import axis_devices, ppermute
+from kepler_tpu_torch.parallel.mesh import Mesh
+
+SEQ_AXIS = "seq"
+
+__all__ = ["SEQ_AXIS", "full_attention", "make_ring_attention",
+           "ring_attention_shardmap"]
+
+Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor], torch.Tensor]
+
+
+def split_blocks(x: torch.Tensor, devices: list[torch.device]
+                 ) -> list[torch.Tensor]:
+    """``x [B, T, ...]`` → n contiguous blocks of T/n, block ``i`` on
+    ``devices[i]``. Raises ValueError when T does not divide by n."""
+    n = len(devices)
+    if x.shape[1] % n:
+        raise ValueError(f"T = {x.shape[1]} does not divide by the "
+                         f"{n} shards of the axis")
+    return [b.to(d).contiguous() for b, d in zip(torch.chunk(x, n, dim=1),
+                                                 devices)]
+
+
+def _ring(q, k, v, t_valid, *, devices, causal, compute_dtype, backend):
+    """The n shards' ring over whole tensors → the whole output."""
+    n = len(devices)
+    qs, ks, vs, vals = (split_blocks(x, devices) for x in (q, k, v, t_valid))
+    b, t_loc, h, d = qs[0].shape
+    scale = 1.0 / math.sqrt(d)
+
+    def partials(i, src):
+        """Shard ``i``'s query block against the KV block of shard
+        ``src`` that it holds now."""
+        if backend == "pallas":
+            return cuda_attention.flash_block_pallas(
+                qs[i], ks[i], vs[i], vals[i], i * t_loc, src * t_loc,
+                causal=causal, compute_dtype=compute_dtype)
+        dev = devices[i]
+        mask = vals[i][:, None, None, :]
+        if causal:
+            q_pos = i * t_loc + torch.arange(t_loc, device=dev)
+            kv_pos = src * t_loc + torch.arange(t_loc, device=dev)
+            mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+        return block_attn(qs[i], ks[i], vs[i], mask, scale, compute_dtype)
+
+    f32 = torch.float32
+    o = [torch.zeros((b, t_loc, h, d), dtype=f32, device=dv)
+         for dv in devices]
+    m = [torch.full((b, h, t_loc), _NEG_INF, dtype=f32, device=dv)
+         for dv in devices]
+    l = [torch.zeros((b, h, t_loc), dtype=f32, device=dv)  # noqa: E741
+         for dv in devices]
+    for s in range(n):
+        for i in range(n):
+            pv, m_blk, l_blk = partials(i, (i - s) % n)
+            o[i], m[i], l[i] = merge_blocks(o[i], m[i], l[i], pv, m_blk,
+                                            l_blk)
+        if s < n - 1:  # JAX's last hop only brings each block home
+            ks, vs, vals = (ppermute(x, devices) for x in (ks, vs, vals))
+    out = [(oi / stats_to_out(torch.clamp(li, min=1e-30))).to(q.dtype)
+           for oi, li in zip(o, l)]
+    return torch.cat([x.to(devices[0]) for x in out], dim=1)
+
+
+def ring_attention_shardmap(
+    mesh: Mesh,
+    *,
+    axis_name: str = SEQ_AXIS,
+    causal: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    backend: str = "einsum",
+) -> Attention:
+    """→ ``(q, k, v, t_valid) → out`` over the ``axis_name`` shards of
+    ``mesh``: the composable form, an ``attention_fn`` for the temporal
+    trunk's seam (the sequence-parallel programs pass it)."""
+    if backend not in ("einsum", "pallas"):
+        raise ValueError(f"unknown ring backend {backend!r}")
+    devices = axis_devices(mesh, axis_name)
+
+    def ring(q, k, v, t_valid):
+        return _ring(q, k, v, t_valid, devices=devices, causal=causal,
+                     compute_dtype=compute_dtype, backend=backend)
+
+    return ring
+
+
+def make_ring_attention(
+    mesh: Mesh,
+    *,
+    axis_name: str = SEQ_AXIS,
+    causal: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    backend: str = "einsum",
+) -> Attention:
+    """→ ``(q, k, v, t_valid) → out`` with T sharded over the mesh.
+
+    Inputs are ``[B, T, H, D]`` (+ ``t_valid`` bool ``[B, T]``); T must
+    divide by the ``axis_name`` mesh size. The output is whole, on the
+    first shard's device. ``backend="pallas"`` computes each block
+    partial with kernel B3; "einsum" with ``ops.attention.block_attn``.
+    """
+    return ring_attention_shardmap(mesh, axis_name=axis_name, causal=causal,
+                                   compute_dtype=compute_dtype,
+                                   backend=backend)

@@ -1,0 +1,208 @@
+"""Distributed estimator training: data parallel × tensor parallel.
+
+As ``kepler_tpu.parallel.trainer``: the MLP's whole train step (forward,
+masked-MSE loss, backward, AdamW) over a 2-D ``node × model`` mesh.
+
+- **DP** (``node``): each node row of shards holds its own replica and
+  its rows of the batch. The masked-MSE numerator and denominator are
+  summed over ``node`` before the division (the mean of per-shard losses
+  is not the loss), and gradients are all-reduced over ``node``.
+- **TP** (``model``, Megatron): ``w0``/``b0`` split by columns and ``w1``
+  by rows, so the forward's one collective is a ``psum`` of layer 1's
+  partial products over ``model``; ``b1``, ``w2``, ``b2`` and ``w_skip``
+  are replicated, and every model shard computes the replicated rest.
+
+JAX derives both collectives from sharding annotations (GSPMD); here one
+process drives the shards and writes them out. Every model shard
+computes the same loss, and the backward runs on their mean, so a
+replicated parameter's copies take 1/m of its gradient each and the
+all-reduce over ``node`` and ``model`` sums them back; a split parameter
+takes its own slice's gradient and is all-reduced over ``node`` only.
+Each shard's AdamW holds the moments of the slice it updates, so
+optimizer memory splits over ``model`` too. :func:`gather_params` joins
+the slices into whole params for serving (the train → serve hand-off).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from kepler_tpu_torch.models.nn import acc_matmul
+from kepler_tpu_torch.models.train import Optimizer, TrainState
+from kepler_tpu_torch.parallel.collectives import grid_devices, psum
+from kepler_tpu_torch.parallel.mesh import MODEL_AXIS, NODE_AXIS, Mesh
+
+AXES = (NODE_AXIS, MODEL_AXIS)
+
+Spec = tuple  # per dimension: an axis name it splits over, or None
+
+
+class ShardedTrainState(NamedTuple):
+    """Each shard's params (leaves that require grad) and AdamW, as
+    ``[node][model]`` grids, the step, and the mesh."""
+
+    params: list[list[dict[str, torch.Tensor]]]
+    opt_state: list[list[torch.optim.Optimizer]]
+    step: int
+    mesh: Mesh
+
+
+def mlp_param_shardings(mesh: Mesh | None = None) -> dict[str, Spec]:
+    """Megatron TP layout of the MLP params: per dimension, the mesh axis
+    it is split over (None: whole). ``mesh`` is the JAX signature's."""
+    del mesh
+    return {
+        "w0": (None, MODEL_AXIS),  # column-parallel
+        "b0": (MODEL_AXIS,),
+        "w1": (MODEL_AXIS, None),  # row-parallel (psum after)
+        "b1": (None,),
+        "w2": (None, None),
+        "b2": (None,),
+        "w_skip": (None, None),  # wide path: [F, Z] is tiny, replicated
+    }
+
+
+def _split_dim(spec: Spec) -> int | None:
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def _slice(x: torch.Tensor, spec: Spec, j: int, m: int) -> torch.Tensor:
+    dim = _split_dim(spec)
+    return x if dim is None else torch.chunk(x, m, dim=dim)[j]
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> ShardedTrainState:
+    """Place a (single-device) MLP train state on the mesh: each shard
+    gets its own f32 copy of its slice of every param, and an optimizer
+    of the state's kind over them holding its slice of the moments."""
+    grid = grid_devices(mesh, AXES)
+    m = len(grid[0])
+    layout = mlp_param_shardings(mesh)
+    opt = state.opt_state
+    params, opts = [], []
+    for row in grid:
+        p_row, o_row = [], []
+        for j, dev in enumerate(row):
+            own = {k: _slice(v.detach(), layout[k], j, m).to(
+                dev, dtype=torch.float32, copy=True).requires_grad_(True)
+                for k, v in state.params.items()}
+            shard_opt = type(opt)([own[k] for k in sorted(own)])
+            shard_opt.param_groups[0].update(
+                {k: v for k, v in opt.param_groups[0].items()
+                 if k != "params"})
+            for k, full in state.params.items():
+                for name, val in opt.state.get(full, {}).items():
+                    if torch.is_tensor(val) and val.shape == full.shape:
+                        val = _slice(val, layout[k], j, m).to(dev,
+                                                              copy=True)
+                    elif torch.is_tensor(val):
+                        val = val.clone()
+                    shard_opt.state[own[k]][name] = val
+            p_row.append(own)
+            o_row.append(shard_opt)
+        params.append(p_row)
+        opts.append(o_row)
+    return ShardedTrainState(params, opts, state.step, mesh)
+
+
+def gather_params(state: ShardedTrainState,
+                  device: str | torch.device | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """Whole params (detached) from the first node row of shards, on
+    ``device`` (default: the first shard's): what serving takes."""
+    row = state.params[0]
+    dev = torch.device(device) if device is not None else \
+        state.mesh.devices[0]
+    layout = mlp_param_shardings(state.mesh)
+    out = {}
+    for k in row[0]:
+        dim = _split_dim(layout[k])
+        parts = [p[k].detach().to(dev) for p in row]
+        out[k] = parts[0].clone() if dim is None else torch.cat(parts, dim)
+    return out
+
+
+def make_distributed_train_step(
+    mesh: Mesh,
+    optimizer: Optimizer | None = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Callable:
+    """→ ``(state, features [B, W, F], valid [B, W], targets [B, W, Z])
+    → (state, loss)`` over a :class:`ShardedTrainState` of ``mesh``.
+
+    The leading batch axis splits over ``node`` (B must divide by its
+    size). The MLP trunk computes in ``compute_dtype`` (bf16, as JAX's
+    ``predict_mlp`` default) on the unclamped output. The state carries
+    its optimizers; ``optimizer`` is the JAX signature's. The state's
+    tensors are updated in place, as the port's other train steps do.
+    """
+    del optimizer
+    grid = grid_devices(mesh, AXES)
+    n, m = len(grid), len(grid[0])
+    layout = mlp_param_shardings(mesh)
+    cd = compute_dtype
+
+    def step(state: ShardedTrainState, features: torch.Tensor,
+             workload_valid: torch.Tensor, targets: torch.Tensor
+             ) -> tuple[ShardedTrainState, torch.Tensor]:
+        b = features.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} does not divide over the "
+                             f"{n} '{NODE_AXIS}' shards")
+        rows = [slice(i * (b // n), (i + 1) * (b // n)) for i in range(n)]
+        for o_row in state.opt_state:
+            for opt in o_row:
+                opt.zero_grad(set_to_none=True)
+        nums, dens = [], []
+        for i, (row, p_row) in enumerate(zip(grid, state.params)):
+            x = [features[rows[i]].to(d) for d in row]
+            valid = [workload_valid[rows[i]].to(d) for d in row]
+            tgt = [targets[rows[i]].to(d) for d in row]
+            partial = []
+            for xj, p in zip(x, p_row):
+                h = F.gelu(acc_matmul(xj, p["w0"], cd) + p["b0"],
+                           approximate="tanh")
+                partial.append(acc_matmul(h, p["w1"], cd))
+            summed = psum(partial, row)  # layer 1, over ``model``
+            num_row, den_row = [], []
+            for xj, vj, tj, sj, p in zip(x, valid, tgt, summed, p_row):
+                h = F.gelu(sj + p["b1"], approximate="tanh")
+                watts = acc_matmul(h, p["w2"], cd)
+                watts = watts + xj.to(torch.float32) @ p["w_skip"]
+                watts = watts + p["b2"]
+                watts = torch.where(vj[..., None], watts, 0.0)
+                mask = vj[..., None].to(torch.float32)
+                num_row.append(torch.sum((watts - tj) ** 2 * mask))
+                den_row.append(torch.sum(mask))
+            nums.append(num_row)
+            dens.append(den_row)
+        # numerator and denominator summed over ``node``, then divided
+        col0 = [row[0] for row in grid]
+        total = psum([r[0] for r in nums], col0)[0]
+        count = torch.clamp(psum([r[0] for r in dens], col0)[0], min=1.0)
+        loss = (total / count).detach()
+        # the mean over the model shards' identical losses
+        objective = [nums[i][j] / (m * count.detach().to(grid[i][j]))
+                     for i in range(n) for j in range(m)]
+        torch.autograd.backward(objective)
+        # gradient all-reduce: split leaves over ``node``, replicated ones
+        # over ``node`` and ``model``
+        for k, spec in layout.items():
+            groups = ([[(i, j) for i in range(n)] for j in range(m)]
+                      if _split_dim(spec) is not None else
+                      [[(i, j) for i in range(n) for j in range(m)]])
+            for group in groups:
+                leaves = [state.params[i][j][k] for i, j in group]
+                reduced = psum([p.grad for p in leaves],
+                               [grid[i][j] for i, j in group])
+                for p, g in zip(leaves, reduced):
+                    p.grad = g
+        for o_row in state.opt_state:
+            for opt in o_row:
+                opt.step()
+        return state._replace(step=state.step + 1), loss
+
+    return step

@@ -658,3 +658,18 @@ fault:
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.tpu.fleet_backend == "pallas"
     assert got.aggregator.fused_window_k == 4
+
+
+def test_shutdown_waits_for_the_fetch_worker_to_end():
+    """``shutdown()`` stops the window fetch worker and waits for its
+    thread to end: a daemon thread that has used CUDA and is still
+    ending while the process exits aborts the process (the chaos
+    binary on the card did, "terminate called without an active
+    exception")."""
+    agg = PAggregator(PServer(), device="cpu", model_mode=None)
+    agg.init()
+    assert agg._fetch_device(lambda: 7) == 7  # through the worker
+    worker = agg._fetch_worker
+    assert worker is not None and worker.alive()
+    agg.shutdown()
+    assert not worker.alive() and agg._fetch_worker is None

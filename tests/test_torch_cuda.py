@@ -619,3 +619,134 @@ def test_sharded_engine_on_8_virtual_shards_equals_the_cpu(cuda_device,
         np.testing.assert_allclose(got[~ratio].astype(np.float32),
                                    ref[~ratio].astype(np.float32),
                                    rtol=1e-3, atol=1e-3)
+
+
+# -- the parallel families on virtual shards of the card -------------------------
+
+def card_mesh(dev, n: int, axes=("seq",), shape=None):
+    from kepler_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(list(shape or [n]), list(axes), devices=[dev] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 8])
+def test_pallas_ring_launches_b3_tc_n_squared_times(cuda_device, n):
+    """The ring at Tq = Tk = 128 a block, bf16: n² launches, all on
+    tensor cores, against the einsum ring within B3's bound (1e-2 ·
+    max|v|), and fully masked sequences exactly zero."""
+    from kepler_tpu_torch.parallel.ring import make_ring_attention
+
+    q, k, v, valid = attention_inputs(n, 6, 128 * n, 128 * n, 4, 32,
+                                      cuda_device)
+    before = dict(cat.LAUNCHES)
+    got = make_ring_attention(card_mesh(cuda_device, n), backend="pallas")(
+        q, k, v, valid)
+    torch.cuda.synchronize()
+    assert cat.LAUNCHES["flash_block_tc"] - before["flash_block_tc"] == n * n
+    assert cat.LAUNCHES["flash_block"] - before["flash_block"] == n * n
+    assert cat.LAUNCHES["flash_block_simt"] == before["flash_block_simt"]
+    want = make_ring_attention(card_mesh(cuda_device, n))(q, k, v, valid)
+    atol = 1e-2 * float(v.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert torch.all(got[0] == 0)  # attention_inputs masks sequence 0
+
+
+@pytest.mark.cuda
+def test_flash_block_refuses_autograd_on_the_card(cuda_device):
+    q, k, v, valid = attention_inputs(3, 2, 16, 16, 4, 32, cuda_device)
+    before = dict(cat.LAUNCHES)
+    with pytest.raises(ValueError, match="no backward"):
+        cat.flash_block_pallas(q.requires_grad_(True), k, v, valid, 0, 0)
+    assert cat.LAUNCHES == before
+    with torch.no_grad():
+        cat.flash_block_pallas(q, k, v, valid, 0, 0)
+    assert cat.LAUNCHES["flash_block"] == before["flash_block"] + 1
+
+
+@pytest.mark.cuda
+def test_parallel_families_on_the_card_match_the_cpu(cuda_device):
+    """Each family on virtual shards of the card against the same family
+    on ``cpu`` shards, at f32 compute: rtol 1e-4, atol 1e-5 · max|out|
+    (summation order only); the trainer's five losses rtol 1e-4."""
+    from kepler_tpu_torch.models import train
+    from kepler_tpu_torch.models.deep import init_deep
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.models.mlp import init_mlp
+    from kepler_tpu_torch.models.moe import init_moe
+    from kepler_tpu_torch.models.temporal import init_temporal
+    from kepler_tpu_torch.parallel import (gather_params,
+                                           make_distributed_train_step,
+                                           make_expert_parallel_moe,
+                                           make_pipelined_deep,
+                                           make_sequence_parallel_train_step,
+                                           make_temporal_program,
+                                           make_ulysses_temporal_program,
+                                           shard_train_state, top1_route)
+
+    f32 = torch.float32
+    gen = torch.Generator().manual_seed(9)
+    tp = init_temporal(4, d_model=32, t_max=64, generator=gen)
+    tp["w_head"] = torch.randn((32, 4), generator=gen) * 0.2
+    hist = torch.rand((6, 64, 7), generator=gen)
+    wv = torch.tensor([True] * 5 + [False])
+    tv = torch.arange(64)[None, :] < torch.tensor([64, 9, 33, 1, 0, 64])[:, None]
+    targets = torch.rand((6, 4), generator=gen) * 30
+    mp = init_moe(4, n_experts=8, hidden=32, generator=gen)
+    mp["w1"] = torch.randn(mp["w1"].shape, generator=gen) * 0.3
+    rows = torch.rand((64, 7), generator=gen)
+    dp = init_deep(4, n_stages=4, d_model=32, generator=gen)
+    dp["w_head"] = torch.randn(dp["w_head"].shape, generator=gen) * 0.2
+    lp = init_mlp(4, hidden=32, generator=gen)
+    lp["w2"] = torch.randn(lp["w2"].shape, generator=gen) * 0.3
+    feats = torch.rand((16, 8, 7), generator=gen)
+    fvalid = torch.rand((16, 8), generator=gen) > 0.3
+    ftargets = torch.rand((16, 8, 4), generator=gen) * 10
+
+    def run(dev):
+        put = lambda *xs: [x.to(dev) for x in xs]  # noqa: E731
+        out = {}
+        out["sequence"] = make_temporal_program(
+            card_mesh(dev, 8), compute_dtype=f32)(
+            params_to(tp, dev), *put(hist, wv, tv))
+        out["ulysses"] = make_ulysses_temporal_program(
+            card_mesh(dev, 4), compute_dtype=f32)(
+            params_to(tp, dev), *put(hist, wv, tv))
+        state = train.create_train_state(params_to(tp, dev),
+                                         train.make_optimizer(1e-3))
+        step = make_sequence_parallel_train_step(card_mesh(dev, 8),
+                                                 remat=True)
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, *put(hist, wv, tv, targets))
+            losses.append(float(loss))
+        out["sp_losses"] = torch.tensor(losses)
+        ep = make_expert_parallel_moe(card_mesh(dev, 8, ("expert",)),
+                                      compute_dtype=f32)
+        eid, prob = top1_route(params_to(mp, dev), rows.to(dev))
+        out["expert"] = ep(params_to(mp, dev), rows.to(dev), eid, prob)
+        out["pipeline"] = make_pipelined_deep(
+            card_mesh(dev, 4, ("stage",)), compute_dtype=f32)(
+            params_to(dp, dev), *put(rows[:, None].expand(64, 2, 7)
+                                     .reshape(128, 7), torch.ones(128,
+                                                                  dtype=torch.bool)))
+        mesh = card_mesh(dev, 8, ("node", "model"), (4, 2))
+        sstate = shard_train_state(train.create_train_state(
+            params_to(lp, dev), train.make_optimizer(1e-2)), mesh)
+        tstep = make_distributed_train_step(mesh, compute_dtype=f32)
+        losses = []
+        for _ in range(5):
+            sstate, loss = tstep(sstate, *put(feats, fvalid, ftargets))
+            losses.append(float(loss))
+        out["trainer_losses"] = torch.tensor(losses)
+        out["trainer_w1"] = gather_params(sstate)["w1"]
+        return {k: v.detach().cpu() for k, v in out.items()}
+
+    got, want = run(cuda_device), run("cpu")
+    for key, ref in want.items():
+        rtol = 1e-4
+        atol = 1e-5 * float(ref.abs().max())
+        if key == "trainer_w1":
+            atol = max(atol, 1e-6)
+        torch.testing.assert_close(got[key], ref, rtol=rtol, atol=atol,
+                                   msg=key)

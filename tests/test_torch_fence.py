@@ -55,6 +55,7 @@ if not torch.cuda.is_available():
     from kepler_tpu_torch.parallel.packed import (
         make_fused_window_program, make_packed_fleet_program)
     from kepler_tpu_torch.parallel.mesh import make_mesh
+    from kepler_tpu_torch.parallel.sequence import make_temporal_program
     for label, build in [
             ("make_mesh", lambda: make_mesh()),
             ("make_mesh_virtual",
@@ -66,6 +67,8 @@ if not torch.cuda.is_available():
             ("make_fused_window_program",
              lambda: make_fused_window_program(8, 2, backend="pallas")),
             ("make_fleet_program", lambda: make_fleet_program()),
+            ("make_temporal_program",
+             lambda: make_temporal_program(make_mesh([8], ["seq"]))),
             ("make_temporal_fleet_program",
              lambda: make_temporal_fleet_program(backend="pallas")),
             ("Aggregator", lambda: Aggregator(APIServer()).init()),
@@ -122,13 +125,17 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
                          .with_suffix("").parts)
                 for p in PKG.rglob("*.py") if p.name != "__init__.py"}
     assert expected <= set(out["modules"])
-    # the slice-7 packages are among them, their entry points included
+    # the slice-7 packages are among them, their entry points included,
+    # and the parallel families
     for mod in ("chaos.conductor", "chaos.harness", "chaos.__main__",
-                "blackbox", "blackbox.__main__", "parallel.mesh"):
+                "blackbox", "blackbox.__main__", "parallel.mesh",
+                "parallel.collectives", "parallel.ring", "parallel.sequence",
+                "parallel.ulysses", "parallel.pipeline", "parallel.expert",
+                "parallel.trainer"):
         assert f"kepler_tpu_torch.{mod}" in out["modules"], mod
     assert out["leaked"] == []
     if not out["cuda"]:
-        assert len(out["raised"]) == 13
+        assert len(out["raised"]) == 14
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
         for binary in ("cmd_main", "node_main", "train_main", "chaos_main"):
