@@ -95,7 +95,15 @@ zones, buckets N = 1024, W = 256):
    one-shard step; the GPipe deep estimator (4 stages) and expert
    parallelism (8 experts on 8 shards, explicit and learned routing)
    over 262,144 rows against the single-device models; the DP×TP
-   trainer on a 4 × 2 ``node × model`` mesh against one shard.
+   trainer on a 4 × 2 ``node × model`` mesh against one shard;
+15. the port's static analysis (``main_analysis``): ``python -m
+   kepler_tpu_torch.analysis``'s AST tiers over the port and this
+   script, its protocol tier's five models over the port's fleet
+   functions, and its device tier's programs run on the card — B1 in
+   ``ops.pallas_attribution`` and ``packed.pallas_dense`` (once per
+   shard), B2 in ``window.fused_pallas`` — each case's fingerprint
+   against the same case run on the CPU, the kernel cases' outputs
+   bit-equal to their plain versions.
 
 Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
@@ -509,7 +517,7 @@ class Ingest:
         from kepler_tpu_torch.fleet import wire
 
         parsed = wire.parse_header(frame)
-        name = parsed.header["node_name"]
+        name = wire.sanitize_node_name(parsed.header["node_name"])
         if parsed.is_delta:
             base, base_seq = self.bases[name]
             report, header, changed = wire.decode_delta(
@@ -3756,6 +3764,132 @@ def main_parallel(dev: torch.device) -> dict:
     return row
 
 
+# the port's protocol models at the registry scopes, as the reference
+# package's explorations reach them: (states, transitions) per case
+# (tests/test_torch_protocol.py holds these against JAX's kepmc)
+PROTOCOL_COUNTS = {
+    "lease.succession/n2_e4": (77, 102),
+    "lease.succession/n3_e5": (4493, 9092),
+    "lease.partitioned/n3_e4_suspects": (16135, 36223),
+    "seq.delivery/k6_w2_e4": (36885, 207605),
+    "spool.cursor/r5_s2": (90, 203),
+    "keyframe.delta/k4_every2": (421, 1745),
+}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal tensors (NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(view[x.element_size()]) for x in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def main_analysis(dev: torch.device) -> dict:
+    """Path 15: the port's static analysis. keplint over its default
+    trees (the port and this script) with the port's empty baseline; the
+    protocol tier's models over the port's fleet functions; the device
+    tier's registered programs run on the card — KTL120-122 clean, each
+    case's fingerprint equal to the same case run on the CPU in this
+    process, its kernels and collectives equal to the committed snapshot
+    (a histogram drift, a torch-version effect, is printed), and the
+    kernel entries' outputs (B1, B2) bit-equal to their plain versions
+    on the same inputs."""
+    import contextlib
+    import io
+
+    from kepler_tpu_torch.analysis import __main__ as keplint
+    from kepler_tpu_torch.analysis.device import (DEVICE_PROGRAMS,
+                                                  analyze_device_programs,
+                                                  load_snapshots, trace_all)
+    from kepler_tpu_torch.analysis.device.trace import fingerprint
+    from kepler_tpu_torch.analysis.protocol import (PROTOCOL_SPECS,
+                                                    analyze_protocol_specs,
+                                                    explore_case)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    row: dict = {"phase": "main_analysis"}
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = keplint.main([os.path.join(here, tree)
+                           for tree in keplint.DEFAULT_TREES])
+    check(rc == 0 and out.getvalue().strip() == "keplint: clean",
+          f"keplint over the port: rc {rc}, {out.getvalue()[-400:]}")
+    row["keplint_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    diags = analyze_protocol_specs(here)
+    check(not diags, "protocol tier: " + "; ".join(
+        d.render()[:200] for d in diags[:3]))
+    counts = {}
+    for spec in PROTOCOL_SPECS:
+        for case in spec.cases:
+            res = explore_case(spec, case).result
+            counts[f"{spec.name}/{case.name}"] = (res.states,
+                                                  res.transitions)
+    check(counts == PROTOCOL_COUNTS, f"protocol counts {counts}")
+    row["protocol_s"] = time.perf_counter() - t
+    row["protocol_counts"] = counts
+
+    t = time.perf_counter()
+    reset_launches()
+    diags = analyze_device_programs(
+        here, only={"KTL120", "KTL121", "KTL122"}, device="cuda")
+    torch.cuda.synchronize()
+    row["launches"] = read_launches()
+    row["device_tier_cuda_s"] = time.perf_counter() - t
+    check(not diags, "device tier on the card: " + "; ".join(
+        d.render()[:240] for d in diags[:4]))
+    cuda_reports, errors = trace_all(DEVICE_PROGRAMS, "cuda")
+    check(not errors, f"device tier errors {errors[:2]}")
+    t = time.perf_counter()
+    cpu_reports, errors = trace_all(DEVICE_PROGRAMS, "cpu")
+    row["device_tier_cpu_s"] = time.perf_counter() - t
+    check(not errors, f"device tier errors on the CPU {errors[:2]}")
+    snapshots = load_snapshots(here) or {}
+    drift, kernel_cases = {}, {}
+
+    def pinned(f: dict) -> tuple:
+        """What no torch version may move: kernels and collectives."""
+        return ({k: v for k, v in f["ops"].items()
+                 if k.startswith("kernel:")}, f["collectives"])
+
+    for got, ref in zip(cuda_reports, cpu_reports):
+        fp, fp_cpu = fingerprint(got), fingerprint(ref)
+        check(fp == fp_cpu, f"{got.key}: the card's fingerprint differs "
+              f"from the CPU's: " + json.dumps(
+                  {k: (fp[k], fp_cpu[k]) for k in fp
+                   if fp[k] != fp_cpu[k]})[:600])
+        snap = snapshots.get(got.key)
+        check(snap is not None, f"{got.key}: no committed snapshot")
+        check(pinned(fp) == pinned(snap), f"{got.key}: kernels or "
+              f"collectives {pinned(fp)} != snapshot {pinned(snap)}")
+        moved = sorted(k for k in fp if fp[k] != snap.get(k))
+        if moved:
+            drift[got.key] = {k: {"snapshot": snap.get(k), "run": fp[k]}
+                              for k in moved}
+        if got.spec.kernels:
+            check(len(got.outputs) == len(ref.outputs) and all(
+                same_bits(a, b) for a, b in zip(got.outputs, ref.outputs)),
+                f"{got.key}: {got.spec.kernels} on the card differ from "
+                f"their plain versions")
+            kernel_cases[got.key] = list(got.spec.kernels)
+    check(row["launches"]["outer_product_attribution"] >= 1
+          and row["launches"]["fused_window_step"] >= 1,
+          f"device tier launched {row['launches']}")
+    row["cases"] = len(cuda_reports)
+    row["kernel_cases_bit_equal"] = kernel_cases
+    row["snapshot_drift_cases"] = sorted(drift)
+    if drift:
+        emit({"phase": "main_analysis_snapshot_drift",
+              "torch": torch.__version__, "drift": drift})
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3803,6 +3937,7 @@ def main() -> int:
     del phases, sharded_planes
     chaos = main_chaos(dev)
     parallel = main_parallel(dev)
+    analysis = main_analysis(dev)
 
     b1["launches_by_path"] = {
         "main_mixed": mixed["launches"]["outer_product_attribution"],
@@ -3819,13 +3954,15 @@ def main() -> int:
         "main_multihost_virtual": multihost["b1_two_hosts_window"]
         + sum(multihost["b1_per_window_after_demotion"]),
         "main_chaos_pallas":
-            chaos["launches"]["outer_product_attribution"]}
+            chaos["launches"]["outer_product_attribution"],
+        "main_analysis": analysis["launches"]["outer_product_attribution"]}
     b1["launches"] = sum(b1["launches_by_path"].values())
     b2 = dict(b2_flush)  # the main path's call: one launch per flush
     b2["launches_by_path"] = {
         "main_ratio_fused": ratio["launches"]["fused_window_step"],
         "main_aggregator_fused": agg_fused["launches"]["fused_window_step"],
-        "main_node_fleet": node_fleet["launches"]["fused_window_step"]}
+        "main_node_fleet": node_fleet["launches"]["fused_window_step"],
+        "main_analysis": analysis["launches"]["fused_window_step"]}
     b2["launches"] = sum(b2["launches_by_path"].values())
     b2["by_db"] = {str(db): {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "device_ms": r["device_ms"],

@@ -372,6 +372,10 @@ def _cost_stats(label: str, arg_bytes: int, out_bytes: int,
     return stats
 
 
+# keplint: forbid-role=http-handler — live engine state (device buffers,
+# program cache, cost ledgers) is mutated by the pipelined window thread;
+# HTTP handlers read the PUBLISHED introspection snapshot the aggregator
+# caches under _results_lock at _publish time (KTL113)
 class PackedWindowEngine:
     """Resident packed batch + program/update cache for the packed-f16
     fleet path. Single-threaded by contract: only the aggregation loop
@@ -691,10 +695,10 @@ class PackedWindowEngine:
         injected at ``device.dispatch_error`` or raised by a launch —
         abandons the resident ring (:meth:`reset`) and raises
         :class:`DeviceWindowError`; the next plan re-packs in full."""
-        return self._run_device(plan.program, plan.args, plan.cold,
-                                "packed window program")
+        return self._run_device(lambda: plan.program(*plan.args),
+                                plan.cold, "packed window program")
 
-    def _run_device(self, program: Callable, args: tuple, cold: bool,
+    def _run_device(self, launch: Callable[[], Any], cold: bool,
                     what: str, inject_faults: bool = True) -> Any:
         if inject_faults and fault.fire("device.dispatch_error") is not None:
             self.reset()
@@ -704,8 +708,8 @@ class PackedWindowEngine:
             if cold:
                 # first launch of this key: builds its kernels on first use
                 with telemetry.span("window.compile"):
-                    return program(*args)
-            return program(*args)
+                    return launch()
+            return launch()
         except RuntimeError as err:
             self.reset()
             raise DeviceWindowError(
@@ -878,7 +882,7 @@ class PackedWindowEngine:
         idx[:] = nb
         self._fill_stage(stage, idx, changed, cleared, zones_t)
         entry = self._update_for(nb, width, db)
-        update = entry[0]
+        update = entry[0]  # keplint: donates=0
         update_cold, entry[1] = entry[1], False
         resident = self._buffers[self._buf_i]
         rows_dev, idx_dev = slot.upload()
@@ -887,9 +891,9 @@ class PackedWindowEngine:
                                                   + db),
                                    4 * nb * width, None)
             with telemetry.span("window.compile"):
-                update(resident, rows_dev, idx_dev)
+                resident = update(resident, rows_dev, idx_dev)
         else:
-            update(resident, rows_dev, idx_dev)
+            resident = update(resident, rows_dev, idx_dev)
         return n_stage
 
 
@@ -1071,12 +1075,16 @@ class FusedWindowEngine(PackedWindowEngine):
         ``inject_faults=False`` skips the ``device.dispatch_error`` site:
         the aggregator consults it once per interval itself, flush or
         not, as the reference aggregator does."""
-        resident, outs = self._run_device(flush.program, flush.args,
-                                          flush.cold, "fused window loop",
-                                          inject_faults)
+        fused = flush.program  # keplint: donates=1
+        params, resident = flush.args[0], flush.args[1]
+        rest = flush.args[2:]
+        pair = self._run_device(lambda: fused(params, resident, *rest),
+                                flush.cold, "fused window loop",
+                                inject_faults)
+        resident = pair[0]
         if flush.rebind:
             self._buffers[0] = resident
-        return outs
+        return pair[1]
 
     def _fused_program_for(self, nb: int, wb: int, z: int,
                            mb: int | None, k: int, db: int) -> list:
@@ -1590,7 +1598,7 @@ class ShardedWindowEngine(PackedWindowEngine):
                     stage[len(changed) + j] = self._empty_row
                     idx[len(changed) + j] = local
                 entry = self._update_for(sb, width, db)
-                update = entry[0]
+                update = entry[0]  # keplint: donates=0
                 update_cold, entry[1] = entry[1], False
                 resident = self._buffers[self._buf_i][k]
                 rows_dev, idx_dev = slot.upload()
@@ -1599,9 +1607,9 @@ class ShardedWindowEngine(PackedWindowEngine):
                         entry[3], 4 * (sb * width + db * width + db),
                         4 * sb * width, None)
                     with telemetry.span("window.compile"):
-                        update(resident, rows_dev, idx_dev)
+                        resident = update(resident, rows_dev, idx_dev)
                 else:
-                    update(resident, rows_dev, idx_dev)
+                    resident = update(resident, rows_dev, idx_dev)
         return h2d_shards
 
 

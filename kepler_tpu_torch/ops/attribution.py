@@ -148,7 +148,8 @@ def scatter_rows_(resident: torch.Tensor, rows: torch.Tensor,
 
     No host sync and no nondeterminism: a row → delta-row map is built
     with a deterministic ``amax`` scatter (pads land in a spare slot N that
-    is never read), then every row takes its delta row or keeps its own.
+    is never read), then every row takes its delta row or keeps its own,
+    written in place (``out=resident``: no whole-batch temporary).
     """
     n = resident.shape[0]
     if idx.numel() == 0:
@@ -160,8 +161,8 @@ def scatter_rows_(resident: torch.Tensor, rows: torch.Tensor,
                                               device=resident.device),
                         reduce="amax")
     src = src[:n]
-    hit = (src >= 0)[:, None]
-    resident.copy_(torch.where(hit, rows[src.clamp(min=0)], resident))
+    torch.where((src >= 0)[:, None], rows[src.clamp(min=0)], resident,
+                out=resident)
     return resident
 
 

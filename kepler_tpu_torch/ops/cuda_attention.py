@@ -37,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from kepler_tpu_torch.ops import build
+from kepler_tpu_torch.ops import build, recorder
 from kepler_tpu_torch.ops.attention import block_attn, stats_to_out
 from kepler_tpu_torch.ops.cuda_attribution import (F32_OPS_PER_S, _raise_on,
                                                    bound_ms)
@@ -288,6 +288,7 @@ def _check_qkv(name: str, t: torch.Tensor, shape: tuple[int, ...],
         raise ValueError(f"{name} must have a unit stride on D")
 
 
+@recorder.records_kernel("flash_block")
 def flash_block_pallas(
     q: torch.Tensor,  # f32 [B, Tq, H, D]
     k: torch.Tensor,  # f32 [B, Tk, H, D]

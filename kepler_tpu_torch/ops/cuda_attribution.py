@@ -31,7 +31,7 @@ from typing import Any
 
 import torch
 
-from kepler_tpu_torch.ops import build
+from kepler_tpu_torch.ops import build, recorder
 from kepler_tpu_torch.ops.attribution import (
     AttributionResult,
     WorkloadAttribution,
@@ -143,6 +143,7 @@ def outer_product_attribution_ref(
             ratio[:, :, None] * active_power_uw[:, None, :])
 
 
+@recorder.records_kernel("outer_product_attribution")
 def outer_product_attribution(
         ratio: torch.Tensor,  # f32 [N, W]
         active_uj: torch.Tensor,  # f32 [N, Z]
@@ -214,6 +215,7 @@ def fused_window_steps_ref(resident: torch.Tensor, delta_rows: torch.Tensor,
     return resident, out
 
 
+@recorder.records_kernel("fused_window_step")
 def fused_window_steps(
         resident: torch.Tensor,  # f32 [N, width], updated IN PLACE
         delta_rows: torch.Tensor,  # f32 [K, DB, width]
@@ -255,10 +257,13 @@ def fused_window_steps(
             resident.data_ptr(), delta_rows.data_ptr(), delta_idx.data_ptr(),
             out.data_ptr(), n, k, db, w, z, stream)
     _raise_on(rc, "fused_window_steps")
+    # the kernel wrote through raw pointers: mark the in-place update
+    torch.autograd.graph.increment_version(resident)
     LAUNCHES["fused_window_step"] += 1
     return resident, out
 
 
+@recorder.records_kernel("fused_window_step")
 def fused_window_step(
         resident: torch.Tensor,  # f32 [N, width], updated IN PLACE
         delta_rows: torch.Tensor,  # f32 [DB, width]

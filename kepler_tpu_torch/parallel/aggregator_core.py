@@ -34,6 +34,7 @@ from kepler_tpu_torch.models.estimator import (LINEAR, TEMPORAL, params_to,
                                                predictor)
 from kepler_tpu_torch.models.features import build_features
 from kepler_tpu_torch.models.temporal import predict_temporal
+from kepler_tpu_torch.ops import recorder
 from kepler_tpu_torch.ops.attribution import AttributionResult, attribute_fleet
 from kepler_tpu_torch.parallel.fleet import MODE_MODEL, FleetBatch
 from kepler_tpu_torch.parallel.mesh import Mesh
@@ -198,6 +199,7 @@ def shard_by_node(fn: Callable, mesh: Mesh) -> Callable:
             if all(a[k] is None for a in args):
                 out.append(None)
                 continue
+            recorder.shard(k)
             with on_device(dev):
                 out.append(fn(*(a[k] for a in args)))
         return tuple(out)

@@ -6,7 +6,9 @@ families call inside ``shard_map`` (``ppermute``, ``all_to_all``,
 programs over one process's devices; so are these. A family holds one
 tensor per shard of an axis, in axis order, and each collective takes
 that list and the shards' devices and returns the list each shard
-receives, every result on its destination shard's device.
+receives, every result on its destination shard's device. Each reports
+its name to an active program recorder (``ops.recorder``), as a ``lax``
+collective shows in a jaxpr.
 
 Every result is a copy, also between two virtual shards of one device:
 a receiving shard never aliases a tensor its sender holds. The
@@ -25,6 +27,7 @@ from typing import Sequence
 
 import torch
 
+from kepler_tpu_torch.ops import recorder
 from kepler_tpu_torch.parallel.mesh import Mesh, process_index
 
 Tensors = Sequence[torch.Tensor]
@@ -74,6 +77,7 @@ def ppermute(xs: Sequence[torch.Tensor | None], devices: Devices,
     what each shard receives. A shard with nothing to send holds None
     (its receiver gets None)."""
     n = len(xs)
+    recorder.collective("ppermute", n)
     return [None if xs[(j - shift) % n] is None
             else _put(xs[(j - shift) % n], devices[j]) for j in range(n)]
 
@@ -87,6 +91,7 @@ def all_to_all(xs: Tensors, devices: Devices, split_axis: int,
     whose size must be n (``tiled=False``): ``lax.all_to_all``'s two
     forms."""
     n = len(xs)
+    recorder.collective("all_to_all", n)
     if tiled:
         parts = [torch.chunk(x, n, dim=split_axis) for x in xs]
         return [torch.cat([_put(parts[i][j], devices[j]) for i in range(n)],
@@ -99,12 +104,14 @@ def all_gather(xs: Tensors, devices: Devices, axis: int = 0
                ) -> list[torch.Tensor]:
     """Every shard receives all shards' tensors joined along ``axis`` in
     shard order (``lax.all_gather(..., tiled=True)``)."""
+    recorder.collective("all_gather", len(xs))
     return [torch.cat([_put(x, d) for x in xs], dim=axis) for d in devices]
 
 
 def psum(xs: Tensors, devices: Devices) -> list[torch.Tensor]:
     """Every shard receives the sum of all shards' tensors, added in
     shard order."""
+    recorder.collective("psum", len(xs))
     out = []
     for d in devices:
         total = _put(xs[0], d)

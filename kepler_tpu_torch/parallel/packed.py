@@ -59,6 +59,7 @@ ROW_NODE_ACTIVE = -2
 ROW_NODE_TOTAL = -1
 
 
+# keplint: layout-definition
 @dataclass(frozen=True)
 class PackedLayout:
     """THE packed input-row layout — the single source of truth.

@@ -8,7 +8,9 @@ libraries), and the entry points built with their default device must
 raise when CUDA is absent instead of running on the CPU — meshes
 (all visible devices, or virtual shards of ``cuda``) included, so no
 shard is ever placed on the CPU unasked — and the aggregator, node,
-training and chaos binaries' ``main`` return 1 and name CUDA.
+training, chaos and analysis binaries' ``main`` return 1 and name CUDA
+(the analysis binary for its device tier, which runs on the CPU only
+with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "optax", "orbax",
                                        "kepler_tpu"))
 raised = {}
-cmd_main = node_main = train_main = None
+cmd_main = node_main = train_main = chaos_main = analysis_main = None
 import torch
 if not torch.cuda.is_available():
     import contextlib, io
@@ -56,6 +58,8 @@ if not torch.cuda.is_available():
         make_fused_window_program, make_packed_fleet_program)
     from kepler_tpu_torch.parallel.mesh import make_mesh
     from kepler_tpu_torch.parallel.sequence import make_temporal_program
+    from kepler_tpu_torch.analysis.device import DEVICE_PROGRAMS
+    from kepler_tpu_torch.analysis.device.trace import trace_case
     for label, build in [
             ("make_mesh", lambda: make_mesh()),
             ("make_mesh_virtual",
@@ -76,7 +80,9 @@ if not torch.cuda.is_available():
             ("PowerMonitor",
              lambda: PowerMonitor(FakeCPUMeter(), ResourceInformer())),
             ("TerminatedTracker", lambda: TerminatedTracker(4, 0)),
-            ("top_k_by_energy", lambda: top_k_by_energy([1.0, 2.0], 1))]:
+            ("top_k_by_energy", lambda: top_k_by_energy([1.0, 2.0], 1)),
+            ("trace_case", lambda: trace_case(
+                DEVICE_PROGRAMS[0], DEVICE_PROGRAMS[0].cases[0]))]:
         try:
             build()
             raised[label] = None
@@ -101,9 +107,16 @@ if not torch.cuda.is_available():
     with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
         rc = chaos_cmd(["--schedule", "0"])
     chaos_main = {"rc": rc, "log": log.getvalue()}
+    from kepler_tpu_torch.analysis.__main__ import main as lint_cmd
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = lint_cmd(["--device-tier", "kepler_tpu_torch/ops/deltas.py"])
+        rc_snap = lint_cmd(["--update-snapshots"])
+    analysis_main = {"rc": max(rc, rc_snap), "log": log.getvalue()}
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
                   "cmd_main": cmd_main, "node_main": node_main,
                   "train_main": train_main, "chaos_main": chaos_main,
+                  "analysis_main": analysis_main,
                   "cuda": torch.cuda.is_available()}))
 """
 
@@ -131,14 +144,18 @@ def test_port_imports_no_jax_and_defaults_raise_without_cuda():
                 "blackbox", "blackbox.__main__", "parallel.mesh",
                 "parallel.collectives", "parallel.ring", "parallel.sequence",
                 "parallel.ulysses", "parallel.pipeline", "parallel.expert",
-                "parallel.trainer"):
+                "parallel.trainer", "analysis.__main__", "analysis.engine",
+                "analysis.project", "analysis.rules.donate",
+                "analysis.protocol.models", "analysis.device.registry",
+                "analysis.device.trace", "ops.recorder"):
         assert f"kepler_tpu_torch.{mod}" in out["modules"], mod
     assert out["leaked"] == []
     if not out["cuda"]:
-        assert len(out["raised"]) == 14
+        assert len(out["raised"]) == 15
         for label, msg in out["raised"].items():
             assert msg is not None and "CUDA is not available" in msg, label
-        for binary in ("cmd_main", "node_main", "train_main", "chaos_main"):
+        for binary in ("cmd_main", "node_main", "train_main", "chaos_main",
+                       "analysis_main"):
             assert out[binary]["rc"] == 1, binary
             assert "CUDA is not available" in out[binary]["log"], binary
 
