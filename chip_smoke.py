@@ -89,10 +89,13 @@ zones, buckets N = 1024, W = 256):
    over 4096 sequences of T = 1024 (4 heads of 32, bf16) — kernel B3
    once per shard per KV rotation, 64 launches a call, all on tensor
    cores — against the einsum ring and dense attention on 64 sequences;
-   the sequence-parallel program (8 shards) at the same size and Ulysses
-   (4 shards, 512 sequences) against the single-query dense path; 6
+   the sequence-parallel program (8 shards) once under the op recorder
+   at 512 sequences (no op returns an axis of the whole sequence: the
+   trunk runs on each shard's 128-tick block), then at the ring's size,
+   and Ulysses (4 shards, 512 sequences), each against the single-query
+   dense path with its call time and peak device memory; 6
    sequence-parallel train steps with remat (512 sequences) against the
-   one-shard step; the GPipe deep estimator (4 stages) and expert
+   one-shard step, with the peak; the GPipe deep estimator (4 stages) and expert
    parallelism (8 experts on 8 shards, explicit and learned routing)
    over 262,144 rows against the single-device models; the DP×TP
    trainer on a 4 × 2 ``node × model`` mesh against one shard;
@@ -101,7 +104,8 @@ zones, buckets N = 1024, W = 256):
    script, its protocol tier's five models over the port's fleet
    functions, and its device tier's programs run on the card — B1 in
    ``ops.pallas_attribution`` and ``packed.pallas_dense`` (once per
-   shard), B2 in ``window.fused_pallas`` — each case's fingerprint
+   shard), B2 in ``window.fused_pallas``, the row scatter in the
+   ``window.update`` entries — each case's fingerprint
    against the same case run on the CPU, the kernel cases' outputs
    bit-equal to their plain versions.
 
@@ -109,7 +113,20 @@ Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
 and B2 and B3 are timed in each of their forms: B2 per window (K = 1)
 and per flush (K = 4, one launch), B3's tensor-core variant against its
-SIMT variant at bf16 and f32.
+SIMT variant at bf16 and f32. The delta update's row scatter
+(``kt_scatter_rows``, a repair kernel: the reference's update is XLA's
+scatter, not a Pallas kernel) is held bit-equal to its plain version at
+N = 16,384 and DB = 8, 512 and 1,024, pads and a duplicate index
+included, and timed beside ``index_put_``; every packed window's update
+on paths 2, 3, 9, 11 and 13 launches it.
+
+``--phases a,b`` runs only the named phases (of ``PHASES``: ``kernels``,
+``ratio``, ``mixed``, ``serial_mlp``, ``aggregator``, ``temporal``,
+``train``, ``node``, ``sharded``, ``chaos``, ``parallel``,
+``analysis``), e.g. ``python3 chip_smoke.py --phases parallel``; with no
+argument every phase runs. The ``kernels`` line then carries the
+launches of the phases that ran, and each kernel's timings only when the
+``kernels`` phase ran.
 
 Every published plane and watts tensor is checked against the same
 schedule through the port on ``device="cpu"`` (a 32-node subset for the
@@ -443,6 +460,81 @@ def kernel_b2_flush(dev: torch.device, k: int, db: int) -> dict:
         "bytes": nbytes, "parity": "resident exact, 0 f16 mismatches",
     }
     emit({"phase": "kernel_flush", **row})
+    return row
+
+
+SCATTER_N, SCATTER_DBS = 16_384, (8, 512, 1024)
+
+
+def scatter_inputs(dev: torch.device, n: int, width: int, db: int):
+    """A resident batch, DB delta rows (a NaN slot among them) and their
+    target rows: distinct rows, a quarter of them pads (N), one beyond
+    the pad value, and two entries naming one row (the later wins)."""
+    gen = torch.Generator().manual_seed(SEED + db)
+    resident = torch.randn((n, width), generator=gen)
+    rows = torch.randn((db, width), generator=gen)
+    rows[0, 0] = float("nan")
+    idx = torch.randperm(n, generator=gen)[:db].to(torch.int32)
+    idx[torch.rand(db, generator=gen) < 0.25] = n
+    idx[-1] = n + 7
+    if db >= 3:
+        idx[2] = idx[1] = 5
+    return resident.to(dev), rows.to(dev), idx.to(dev)
+
+
+def kernel_scatter_rows(dev: torch.device, db: int) -> dict:
+    """The delta update's row scatter (a repair kernel) at N = 16,384 and
+    the fleet's packed width: resident' bit-equal to the plain version,
+    timed beside its byte bound, its plain version and ``index_put_`` of
+    the rows that land."""
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops.attribution import scatter_rows_
+    from kepler_tpu_torch.parallel.packed import packed_width
+
+    n, width = SCATTER_N, packed_width(256, len(ZONES))
+    resident, rows, idx = scatter_inputs(dev, n, width, db)
+    r_kernel, r_plain = resident.clone(), resident.clone()
+    before = ca.LAUNCHES["scatter_rows"]
+    ca.scatter_rows(r_kernel, rows, idx)
+    scatter_rows_(r_plain, rows, idx)
+    torch.cuda.synchronize()
+    check(ca.LAUNCHES["scatter_rows"] == before + 1,
+          "the row scatter did not launch once")
+    check(same_bits(r_kernel, r_plain),
+          f"the row scatter differs from its plain version at DB={db}")
+    err = float((torch.nan_to_num(r_kernel) - torch.nan_to_num(r_plain))
+                .abs().max())
+    # the rows that land: valid targets, each at its last entry
+    host = idx.cpu().numpy()
+    last = {int(t): j for j, t in enumerate(host) if 0 <= t < n}
+    keep = torch.tensor(sorted(last.values()), dtype=torch.int64,
+                        device=dev)
+    lands = int(keep.numel())
+    nbytes, ops = ca.scatter_rows_cost(db, width, lands)
+    bound, by = ca.bound_ms(nbytes, ops)
+    target, landing = idx[keep].long(), rows[keep]
+    kern = lambda: ca.scatter_rows(resident, rows, idx)  # noqa: E731
+    plain = lambda: scatter_rows_(resident, rows, idx)  # noqa: E731
+    lib = lambda: resident.index_put_((target,), landing)  # noqa: E731
+    r_lib = resident.clone()
+    r_lib.index_put_((target,), landing)
+    check(same_bits(r_lib, r_plain), "index_put_ of the landing rows "
+          "differs from the plain version")
+    row = {
+        "name": "scatter_rows", "route": "cuda", "kind": "repair kernel",
+        "source": "kepler_tpu_torch/ops/csrc/attribution.cu",
+        "replaces": "kepler_tpu/fleet/window.py:370 (XLA's scatter "
+                    "resident.at[idx].set(rows, mode='drop'); no TPU kernel)",
+        "shape": {"N": n, "width": width, "DB": db, "lands": lands},
+        "max_abs_err": err, "parity": "bit-equal, pads and a duplicate",
+        "ms": time_ms(kern), "device_ms": device_ms(kern),
+        "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain),
+        "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
+        "library": "index_put_ of the landing rows (chosen off the clock)",
+        "bound_ms": bound, "bound_by": by, "bound_us": bound * 1e3,
+        "bytes": nbytes,
+    }
+    emit({"phase": "kernel_scatter_rows", **row})
     return row
 
 
@@ -1678,6 +1770,7 @@ def profile_top(fn, k: int = 8, match: str | None = None) -> dict:
         sync()
     rows = kernel_times_us(prof)
     out = {"device_ms": sum(r[0] for r in rows) / 1e3,
+           "kernel_launches": sum(r[2] for r in rows),
            "top": [{"kernel": key[:80], "ms": us / 1e3, "count": c}
                    for us, key, c in rows[:k]]}
     if match is not None:
@@ -3531,17 +3624,85 @@ def temporal_inputs(dev: torch.device, b: int, t: int, seed: int):
     return hist, wv, tv, targets
 
 
+# the figures PERF.md §5-§6 records for these programs when their trunk
+# ran on the whole tensor (NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's
+RECORDED_SEQUENCE_CALL_MS = 885.0
+RECORDED_TRAIN_STEP_MS, RECORDED_TRAIN_PEAK_GB = 350.0, 44.6
+PER_SHARD_B = 512
+
+
+def parallel_per_shard(dev: torch.device) -> dict:
+    """The sequence program's structure on the card: one call at B = 512,
+    T = 1024 over 8 shards under the port's op recorder. No op may return
+    a float tensor with an axis as long as the sequence (T, or B · T
+    flattened): after the split every trunk op sees one shard's T/n
+    ticks. The largest recorded shape is printed."""
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.ops.recorder import OutputShapes
+    from kepler_tpu_torch.parallel import make_temporal_program
+
+    b, t, n = PER_SHARD_B, PARALLEL_T, PARALLEL_SHARDS
+    params = params_to(temporal_params(ACC_SCALE, t_max=t), dev)
+    hist, wv, tv, _ = temporal_inputs(dev, b, t, SEED + 20)
+    program = make_temporal_program(parallel_mesh(dev, n))
+    with OutputShapes() as rec:
+        watts = program(params, hist, wv, tv)
+    sync()
+    long_axes = [(name, s) for name, s in rec.shapes if t in s or b * t in s]
+    check(not long_axes, f"per-shard program: {len(long_axes)} ops return "
+          f"an axis of the whole sequence, e.g. {long_axes[:3]}")
+    check(bool(torch.isfinite(watts).all()), "per-shard program: non-finite")
+    name, largest = max(rec.shapes, key=lambda x: (int(np.prod(x[1])), x[0]))
+    del hist, wv, tv, params, watts
+    torch.cuda.empty_cache()
+    return {"B": b, "T": t, "shards": n, "block_T": t // n,
+            "float_ops_recorded": len(rec.shapes),
+            "ops_with_a_whole_sequence_axis": len(long_axes),
+            "largest_float_output": {"op": name, "shape": list(largest)}}
+
+
+def whole_trunk_serving(dev: torch.device, params, hist, wv, tv,
+                        per_shard: torch.Tensor) -> dict:
+    """The sequence program's whole-tensor form on the same inputs: the
+    trunk on the whole tensor around the whole-tensor ring (the port's
+    ``predict_temporal(..., attention_fn=ring)``), its call time and
+    peak device memory beside the per-shard program's, and its watts
+    against them (bf16, 1e-2 · max|watts|)."""
+    from kepler_tpu_torch.models.temporal import predict_temporal
+    from kepler_tpu_torch.parallel import ring_attention_shardmap
+
+    ring = ring_attention_shardmap(parallel_mesh(dev, PARALLEL_SHARDS))
+    call = lambda: predict_temporal(params, hist, wv, tv,  # noqa: E731
+                                    attention_fn=ring)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    got, ms = timed_call(call)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, warm_ms = timed_call(call)
+    a, r = per_shard.cpu().numpy(), got.cpu().numpy()
+    check(bf16_close(a, r), f"per-shard program off the whole-tensor "
+          f"trunk by {float(np.abs(a - r).max())} W")
+    del got
+    torch.cuda.empty_cache()
+    return {"call_ms": ms, "warm_call_ms": warm_ms, "peak_gb": peak_gb,
+            "max_abs_err_w_vs_per_shard": float(np.abs(a - r).max())}
+
+
 def parallel_temporal(dev: torch.device) -> dict:
     """The sequence-parallel program (einsum ring, 8 shards) at B = 4096,
     T = 1024 and the Ulysses program (4 shards) at B = 512 against the
-    single-query dense path; then the sequence-parallel train step with
-    remat against the single-device train step."""
+    single-query dense path, each with its call time and peak device
+    memory, the sequence program beside the whole-tensor trunk; then
+    the sequence-parallel train step with remat against the whole-tensor
+    trunk's step and the single-device train step."""
     from kepler_tpu_torch.models import train
     from kepler_tpu_torch.models.estimator import params_to
     from kepler_tpu_torch.models.temporal import predict_temporal
     from kepler_tpu_torch.parallel import (make_sequence_parallel_train_step,
                                            make_temporal_program,
-                                           make_ulysses_temporal_program)
+                                           make_ulysses_temporal_program,
+                                           ring_attention_shardmap)
 
     t = PARALLEL_T
     params = params_to(temporal_params(ACC_SCALE, t_max=t), dev)
@@ -3554,19 +3715,31 @@ def parallel_temporal(dev: torch.device) -> dict:
         hist, wv, tv, _ = temporal_inputs(dev, b, t, SEED + b)
         program = build()
         reset_launches()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
         got, ms = timed_call(lambda: program(params, hist, wv, tv))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = read_launches()
         check(not any(launches.values()), f"{label}: a kernel launched "
               f"({launches}); JAX's program runs none")
+        _, warm_ms = timed_call(lambda: program(params, hist, wv, tv))
         want, dense_ms = timed_call(
             lambda: predict_temporal(params, hist, wv, tv))
         a, r = got.cpu().numpy(), want.cpu().numpy()
         check(np.isfinite(a).all(), f"{label}: non-finite watts")
         check(bf16_close(a, r), f"{label} program off the dense path by "
               f"{float(np.abs(a - r).max())} W")
-        out[label] = {"B": b, "T": t, "call_ms": ms, "dense_ms": dense_ms,
+        out[label] = {"B": b, "T": t, "call_ms": ms, "warm_call_ms": warm_ms,
+                      "peak_gb": peak_gb, "inputs_and_params_gb": base_gb,
+                      "dense_ms": dense_ms,
                       "max_abs_err_w": float(np.abs(a - r).max()),
                       "max_w": float(np.abs(r).max()), "launches": launches}
+        if label == "sequence":
+            out[label]["recorded_whole_trunk_call_ms"] = \
+                RECORDED_SEQUENCE_CALL_MS
+            out[label]["whole_trunk"] = whole_trunk_serving(
+                dev, params, hist, wv, tv, got)
         del hist, wv, tv, got, want, program
         torch.cuda.empty_cache()
 
@@ -3576,6 +3749,12 @@ def parallel_temporal(dev: torch.device) -> dict:
     for label, step in (
             ("sp_remat", make_sequence_parallel_train_step(
                 parallel_mesh(dev, PARALLEL_SHARDS), remat=True)),
+            # the whole-tensor trunk around the ring
+            ("whole_trunk_remat", train.temporal_step_fn(
+                None, torch.float32, remat=True,
+                attention_fn=ring_attention_shardmap(
+                    parallel_mesh(dev, PARALLEL_SHARDS),
+                    compute_dtype=torch.float32))),
             ("one_shard", train.make_temporal_train_step(
                 compute_dtype=torch.float32))):
         state = train.create_train_state(params, train.make_optimizer(1e-3))
@@ -3591,10 +3770,19 @@ def parallel_temporal(dev: torch.device) -> dict:
               f"{label}: a kernel launched in training")
         runs[label] = {"losses": losses, "ms_per_step": statistics.median(ms),
                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                       "params": train.detached(state.params)}
+                       "params": {k: v.detach().clone()
+                                  for k, v in state.params.items()}}
+        if label != "one_shard":  # one more step: its device time
+            runs[label]["profile"] = profile_top(
+                lambda: step(state, hist, wv, tv, targets), k=4)
         del state
         torch.cuda.empty_cache()
     sp, one = runs["sp_remat"], runs["one_shard"]
+    whole = runs["whole_trunk_remat"]
+    whole_rel = float(np.max(np.abs(np.asarray(whole["losses"])
+                                    / np.asarray(sp["losses"]) - 1)))
+    check(whole_rel <= TRAIN_F32_RTOL, f"SP losses off the whole-tensor "
+          f"trunk's by {whole_rel}")
     check(all(np.isfinite(sp["losses"])), "SP training: non-finite loss")
     check(sp["losses"][-1] < sp["losses"][0], "SP training: no fall")
     rel = float(np.max(np.abs(np.asarray(sp["losses"])
@@ -3608,9 +3796,16 @@ def parallel_temporal(dev: torch.device) -> dict:
         "one_shard_losses": one["losses"], "max_loss_rel": rel,
         "max_param_abs_diff": param_err,
         "ms_per_step": sp["ms_per_step"],
+        "step_profile": sp["profile"],
         "one_shard_ms_per_step": one["ms_per_step"],
-        "peak_gb": sp["peak_gb"], "one_shard_peak_gb": one["peak_gb"]}
-    del hist, wv, tv, targets, runs, sp, one, params
+        "peak_gb": sp["peak_gb"], "one_shard_peak_gb": one["peak_gb"],
+        "recorded_whole_trunk_ms_per_step": RECORDED_TRAIN_STEP_MS,
+        "recorded_whole_trunk_peak_gb": RECORDED_TRAIN_PEAK_GB,
+        "whole_trunk": {"ms_per_step": whole["ms_per_step"],
+                        "step_profile": whole["profile"],
+                        "peak_gb": whole["peak_gb"],
+                        "max_loss_rel_vs_per_shard": whole_rel}}
+    del hist, wv, tv, targets, runs, sp, one, whole, params
     torch.cuda.empty_cache()
     return out
 
@@ -3756,6 +3951,7 @@ def main_parallel(dev: torch.device) -> dict:
     the GPipe pipeline, expert parallelism and the DP×TP trainer."""
     t_phase = time.perf_counter()
     row = {"phase": "main_parallel", "ring": parallel_ring(dev)}
+    row["per_shard"] = parallel_per_shard(dev)
     row.update(parallel_temporal(dev))
     row.update(parallel_rows(dev))
     row["trainer"] = parallel_trainer(dev)
@@ -3795,8 +3991,8 @@ def main_analysis(dev: torch.device) -> dict:
     case's fingerprint equal to the same case run on the CPU in this
     process, its kernels and collectives equal to the committed snapshot
     (a histogram drift, a torch-version effect, is printed), and the
-    kernel entries' outputs (B1, B2) bit-equal to their plain versions
-    on the same inputs."""
+    kernel entries' outputs (B1, B2, the row scatter) bit-equal to their
+    plain versions on the same inputs."""
     import contextlib
     import io
 
@@ -3878,7 +4074,8 @@ def main_analysis(dev: torch.device) -> dict:
                 f"their plain versions")
             kernel_cases[got.key] = list(got.spec.kernels)
     check(row["launches"]["outer_product_attribution"] >= 1
-          and row["launches"]["fused_window_step"] >= 1,
+          and row["launches"]["fused_window_step"] >= 1
+          and row["launches"]["scatter_rows"] >= 1,
           f"device tier launched {row['launches']}")
     row["cases"] = len(cuda_reports)
     row["kernel_cases_bit_equal"] = kernel_cases
@@ -3890,7 +4087,52 @@ def main_analysis(dev: torch.device) -> dict:
     return row
 
 
-def main() -> int:
+PHASES = ("kernels", "ratio", "mixed", "serial_mlp", "aggregator",
+          "temporal", "train", "node", "sharded", "chaos", "parallel",
+          "analysis")
+
+
+def parse_phases(argv: list[str]) -> list[str]:
+    """``--phases a,b`` → the phases to run, in the script's order; no
+    argument: all of them (what the chip check runs)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Chip smoke test of the "
+                                     "PyTorch/CUDA port.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma list of phases to run, of: "
+                        + ", ".join(PHASES) + " (default: all)")
+    asked = [p for p in parser.parse_args(argv).phases.split(",") if p]
+    unknown = sorted(set(asked) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
+    return [p for p in PHASES if p in asked]
+
+
+def launches_of(rows: dict, name: str) -> dict:
+    """``name``'s launches by path, from the rows of the phases that ran
+    (each row's ``launches``, counted from 0 over its main path)."""
+    return {path: row["launches"][name] for path, row in rows.items()
+            if row.get("launches", {}).get(name)}
+
+
+def kernel_line(row: dict | None, name: str, by_path: dict,
+                **extra) -> dict:
+    """One kernel's entry of the ``kernels`` line: its measured row (the
+    ``kernels`` phase) with its launches on the paths that ran."""
+    keys = ("name", "route", "kind", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "device_ms",
+            "plain_device_ms", "shape", "by_db", "by_k", "by_shape",
+            "launches_by_path", "launches_by_variant")
+    out = dict(row or {"name": name}, **extra)
+    out["launches_by_path"] = by_path
+    out["launches"] = sum(by_path.values())
+    return {k: out[k] for k in keys if k in out}
+
+
+def main(argv: list[str] | None = None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -3904,105 +4146,132 @@ def main() -> int:
     dev = resolve_device("cuda")
     t_script = time.perf_counter()
     smi = provenance()
+    emit({"phase": "phases", "run": phases})
     t0 = time.perf_counter()
     libs = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.basename(str(v)) for k, v in libs.items()},
           "flags": list(build.NVCC_FLAGS)})
 
-    b1 = kernel_b1(dev)
-    b2_rows = {db: kernel_b2(dev, db) for db in (8, N_NODES)}
-    b3_rows = [kernel_b3(dev, b, t) for b, t in B3_SHAPES]
-    ratio = main_ratio(dev)
-    main_db = ratio["flushes"][-1]["db"]
-    if main_db not in b2_rows:
-        b2_rows[main_db] = kernel_b2(dev, main_db)
-    b2_flush = kernel_b2_flush(dev, FUSED_K, main_db)
-    mixed = main_mixed(dev)
-    main_serial_mlp(dev)
-    agg_fused = main_aggregator_fused(dev)
-    agg_mixed = main_aggregator_mixed(dev)
-    main_aggregator_cmd()
-    agg_models = main_aggregator_models(dev)
-    fleet, saved, params, outs = main_temporal_fleet(dev)
-    trunk = main_temporal_trunk(dev, saved, params, outs)
-    del saved, outs
-    train = main_train(dev)
-    main_node_agent(dev)
-    node_fleet = main_node_fleet(dev)
-    main_node_cmd()
-    phases = sharded_phases()
-    sharded, sharded_planes = main_sharded(dev, phases)
-    multihost = main_multihost_virtual(dev, phases, sharded_planes)
-    del phases, sharded_planes
-    chaos = main_chaos(dev)
-    parallel = main_parallel(dev)
-    analysis = main_analysis(dev)
+    on = set(phases)
+    r: dict = {}  # the rows of the phases that ran, by path
+    b1 = b2_flush = None
+    b2_rows: dict = {}
+    b3_rows: list = []
+    scatter_rows: dict = {}
+    if "kernels" in on:
+        b1 = kernel_b1(dev)
+        b2_rows = {db: kernel_b2(dev, db) for db in (8, N_NODES)}
+        b3_rows = [kernel_b3(dev, b, t) for b, t in B3_SHAPES]
+        scatter_rows = {db: kernel_scatter_rows(dev, db)
+                        for db in SCATTER_DBS}
+    main_db = 512  # the ratio schedule's flush DB, when it does not run
+    if "ratio" in on:
+        r["main_ratio_fused"] = main_ratio(dev)
+        main_db = r["main_ratio_fused"]["flushes"][-1]["db"]
+    if "kernels" in on:
+        if main_db not in b2_rows:
+            b2_rows[main_db] = kernel_b2(dev, main_db)
+        b2_flush = kernel_b2_flush(dev, FUSED_K, main_db)
+    if "mixed" in on:
+        r["main_mixed"] = main_mixed(dev)
+    if "serial_mlp" in on:
+        main_serial_mlp(dev)
+    if "aggregator" in on:
+        r["main_aggregator_fused"] = main_aggregator_fused(dev)
+        r["main_aggregator_mixed"] = main_aggregator_mixed(dev)
+        main_aggregator_cmd()
+        models = main_aggregator_models(dev)
+        r["main_aggregator_models_moe"] = models["moe"]
+        r["main_aggregator_models_deep"] = models["deep"]
+    if "temporal" in on:
+        fleet, saved, params, outs = main_temporal_fleet(dev)
+        r["main_temporal_fleet"] = fleet
+        r["main_temporal_trunk"] = main_temporal_trunk(dev, saved, params,
+                                                       outs)
+        del saved, outs
+    if "train" in on:
+        r["main_train"] = main_train(dev)
+    if "node" in on:
+        main_node_agent(dev)
+        r["main_node_fleet"] = main_node_fleet(dev)
+        main_node_cmd()
+    multihost = None
+    if "sharded" in on:
+        sh_phases = sharded_phases()
+        r["main_sharded"], sharded_planes = main_sharded(dev, sh_phases)
+        multihost = main_multihost_virtual(dev, sh_phases, sharded_planes)
+        del sh_phases, sharded_planes
+    if "chaos" in on:
+        r["main_chaos_pallas"] = main_chaos(dev)
+    ring = None
+    if "parallel" in on:
+        ring = main_parallel(dev)["ring"]
+        r["main_parallel_ring"] = ring
+    if "analysis" in on:
+        r["main_analysis"] = main_analysis(dev)
 
-    b1["launches_by_path"] = {
-        "main_mixed": mixed["launches"]["outer_product_attribution"],
-        "main_aggregator_mixed":
-            agg_mixed["launches"]["outer_product_attribution"],
-        "main_aggregator_models_moe":
-            agg_models["moe"]["launches"]["outer_product_attribution"],
-        "main_aggregator_models_deep":
-            agg_models["deep"]["launches"]["outer_product_attribution"],
-        "main_temporal_fleet":
-            fleet["launches"]["outer_product_attribution"],
-        "main_train": train["launches"]["outer_product_attribution"],
-        "main_sharded": sharded["launches"]["outer_product_attribution"],
-        "main_multihost_virtual": multihost["b1_two_hosts_window"]
-        + sum(multihost["b1_per_window_after_demotion"]),
-        "main_chaos_pallas":
-            chaos["launches"]["outer_product_attribution"],
-        "main_analysis": analysis["launches"]["outer_product_attribution"]}
-    b1["launches"] = sum(b1["launches_by_path"].values())
-    b2 = dict(b2_flush)  # the main path's call: one launch per flush
-    b2["launches_by_path"] = {
-        "main_ratio_fused": ratio["launches"]["fused_window_step"],
-        "main_aggregator_fused": agg_fused["launches"]["fused_window_step"],
-        "main_node_fleet": node_fleet["launches"]["fused_window_step"],
-        "main_analysis": analysis["launches"]["fused_window_step"]}
-    b2["launches"] = sum(b2["launches_by_path"].values())
-    b2["by_db"] = {str(db): {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                             "device_ms": r["device_ms"],
-                             "bound_ms": r["bound_ms"]}
-                   for db, r in sorted(b2_rows.items())}
-    b2["by_k"] = {str(r["shape"].get("K", 1)): {
-        k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
-        for r in (b2_rows[main_db], b2_flush)}
-    b3 = dict(b3_rows[0])
-    ring = parallel["ring"]
-    b3["launches_by_path"] = {
-        "main_temporal_trunk": trunk["launches"]["flash_block"],
-        "main_parallel_ring": ring["launches"]["flash_block"]}
-    b3["launches"] = sum(b3["launches_by_path"].values())
-    b3["launches_by_variant"] = {
-        v: trunk["launches"][f"flash_block_{v}"]
-        + ring["launches"][f"flash_block_{v}"] for v in ("tc", "simt")}
-    b3["by_shape"] = {f"B{r['shape']['B']}_T{r['shape']['Tq']}": {
-        k: r[k] for k in ("ms", "device_ms", "simt_bf16_device_ms",
-                          "f32_device_ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms", "library_device_ms",
-                          "max_abs_err")}
-        for r in b3_rows}
-    b3["by_shape"]["B{B}_T{Tq}_ring_block".format(
-        **ring["per_launch"])] = {
-        **{k: ring["per_launch"][k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_device_ms", "max_abs_err")},
-        "ring_call_b3_device_ms": ring["b3_ms_per_call"],
-        "ring_b3_device_ms_per_launch": ring["b3_device_ms_per_launch"],
-        "ring_call_b3_bound_ms": ring["b3_bound_ms_per_call"]}
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_device_ms", "device_ms",
-            "plain_device_ms", "shape", "by_db",
-            "by_k", "by_shape", "launches_by_path", "launches_by_variant")
-    emit({"phase": "total", "seconds": time.perf_counter() - t_script})
+    b1_paths = launches_of(r, "outer_product_attribution")
+    if multihost is not None:
+        b1_paths["main_multihost_virtual"] = multihost[
+            "b1_two_hosts_window"] + sum(
+            multihost["b1_per_window_after_demotion"])
+    b2_extra: dict = {}
+    if b2_flush is not None:
+        b2_extra["by_db"] = {
+            str(db): {"ms": x["ms"], "plain_ms": x["plain_ms"],
+                      "device_ms": x["device_ms"],
+                      "bound_ms": x["bound_ms"]}
+            for db, x in sorted(b2_rows.items())}
+        b2_extra["by_k"] = {str(x["shape"].get("K", 1)): {
+            k: x[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+            for x in (b2_rows[main_db], b2_flush)}
+    b3_paths = launches_of({k: v for k, v in r.items() if k in (
+        "main_temporal_trunk", "main_parallel_ring")}, "flash_block")
+    b3_extra: dict = {"launches_by_variant": {
+        v: sum(r[p]["launches"][f"flash_block_{v}"] for p in b3_paths)
+        for v in ("tc", "simt")}}
+    if b3_rows:
+        b3_extra["by_shape"] = {f"B{x['shape']['B']}_T{x['shape']['Tq']}": {
+            k: x[k] for k in ("ms", "device_ms", "simt_bf16_device_ms",
+                              "f32_device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "library_device_ms",
+                              "max_abs_err")}
+            for x in b3_rows}
+    if ring is not None:
+        b3_extra.setdefault("by_shape", {})[
+            "B{B}_T{Tq}_ring_block".format(**ring["per_launch"])] = {
+            **{k: ring["per_launch"][k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "max_abs_err")},
+            "ring_call_b3_device_ms": ring["b3_ms_per_call"],
+            "ring_b3_device_ms_per_launch": ring["b3_device_ms_per_launch"],
+            "ring_call_b3_bound_ms": ring["b3_bound_ms_per_call"]}
+    scatter_paths = launches_of(r, "scatter_rows")
+    ran_scatter_paths = {"mixed", "aggregator", "sharded", "chaos"} & on
+    check(not ran_scatter_paths or sum(scatter_paths.values()) > 0,
+          f"the row scatter launched no time on the main paths "
+          f"{sorted(ran_scatter_paths)}: {scatter_paths}")
+    scatter_extra: dict = {}
+    if scatter_rows:
+        scatter_extra["by_db"] = {
+            str(db): {k: x[k] for k in (
+                "ms", "device_ms", "plain_ms", "plain_device_ms",
+                "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                "max_abs_err")} | {"lands": x["shape"]["lands"]}
+            for db, x in sorted(scatter_rows.items())}
+    lines = [
+        kernel_line(b1, "outer_product_attribution", b1_paths),
+        kernel_line(b2_flush, "fused_window_step",
+                    launches_of(r, "fused_window_step"), **b2_extra),
+        kernel_line(b3_rows[0] if b3_rows else None, "flash_block",
+                    b3_paths, **b3_extra),
+        kernel_line(scatter_rows.get(512), "scatter_rows", scatter_paths,
+                    **scatter_extra)]
+    emit({"phase": "total", "phases": phases,
+          "seconds": time.perf_counter() - t_script})
     print(smi, flush=True)
-    emit({"kernels": [{k: row[k] for k in keys if k in row}
-                      for row in (b1, b2, b3)]})
+    emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -559,6 +559,7 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
                         dims={"n": 16, "w": 8, "z": 2, "db": 1}),
         ),
         donates=(0,),
+        kernels=("scatter_rows",),
     ),
     ProgramSpec(
         name="window.update_sharded",
@@ -572,6 +573,7 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
                               "sharded": 1}),
         ),
         donates=(0,),
+        kernels=("scatter_rows",),
     ),
     ProgramSpec(
         name="window.update_multihost",
@@ -586,6 +588,7 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
                               "multihost": 1}),
         ),
         donates=(0,),
+        kernels=("scatter_rows",),
     ),
     ProgramSpec(
         name="fleet.dense_mlp",
@@ -679,13 +682,14 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
     ProgramSpec(
         name="sequence.temporal",
         source="kepler_tpu_torch/parallel/sequence.py",
-        description="sequence-parallel temporal estimator (ring attention "
-                    "inside the trunk)",
+        description="sequence-parallel temporal estimator (the trunk per "
+                    "shard block, the ring between its halves, the "
+                    "last-valid pooling a psum)",
         build=_build_sequence,
         cases=(
             ProgramCase("w4_t16_z2", dims={"w": 4, "t": 16, "z": 2}),
         ),
-        allowed_collectives=frozenset({"ppermute"}),
+        allowed_collectives=frozenset({"ppermute", "psum"}),
         allowed_half_casts=_BF16_OPS,
         require_shard_map=True,
     ),
@@ -693,7 +697,8 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
         name="sequence.train_step",
         source="kepler_tpu_torch/parallel/sequence.py",
         description="sequence-parallel temporal TRAIN step (state "
-                    "updated in place, ring reversed in the backward)",
+                    "updated in place, ring reversed in the backward, "
+                    "the gradient all-reduce an explicit psum)",
         build=_build_sequence,
         cases=(
             ProgramCase("w4_t16_z2",

@@ -508,9 +508,9 @@ class PackedWindowEngine:
                 raise DeviceWindowError(
                     "compile_error",
                     f"injected compile failure for update key {key}")
-            from kepler_tpu_torch.ops.attribution import scatter_rows_
+            from kepler_tpu_torch.ops.cuda_attribution import scatter_rows
 
-            entry = [scatter_rows_, True, None, self._update_label(key)]
+            entry = [scatter_rows, True, None, self._update_label(key)]
             self._updates[key] = entry
             self.compile_count += 1
             while len(self._updates) > self._CACHE_CAP:

@@ -80,11 +80,13 @@ def _take_last(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(params: dict[str, torch.Tensor], feat_hist: torch.Tensor,
-           t_valid: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-    """In-projection plus positions, zeroed at invalid ticks → [B, T, D]."""
+           t_valid: torch.Tensor, cd: torch.dtype, t0: int = 0
+           ) -> torch.Tensor:
+    """In-projection plus positions ``t0 … t0 + T - 1``, zeroed at
+    invalid ticks → [B, T, D]."""
     t = feat_hist.shape[1]
     x = acc_matmul(feat_hist, params["in_proj"], cd)
-    x = x + params["pos_emb"][:t]
+    x = x + params["pos_emb"][t0:t0 + t]
     return torch.where(t_valid[..., None], x, 0.0)
 
 
@@ -97,6 +99,46 @@ def _mlp_block(params: dict[str, torch.Tensor], x: torch.Tensor,
     return x + acc_matmul(y, params["w_mlp1"], cd) + params["b_mlp1"]
 
 
+def trunk_qkv(
+    params: dict[str, torch.Tensor],
+    feat_hist: torch.Tensor,  # f32 [B, T, F]
+    t_valid: torch.Tensor,  # bool [B, T]
+    compute_dtype: torch.dtype = torch.bfloat16,
+    t0: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The trunk before attention → (residual x f32 [B, T, D], q, k, v
+    f32 [B, T, H, D/H]): in-projection, positions, LN1 and the q/k/v
+    projections. Every op is per timestep, so a block of ticks
+    ``t0 … t0 + T - 1`` of a longer window runs alone."""
+    b, t, _ = feat_hist.shape
+    d = params["in_proj"].shape[1]
+    h = N_HEADS
+    cd = compute_dtype
+
+    x = _embed(params, feat_hist, t_valid, cd, t0)
+    y = layer_norm(x, params["ln1_scale"], params["ln1_bias"])
+    q = acc_matmul(y, params["wq"], cd).reshape(b, t, h, d // h)
+    k = acc_matmul(y, params["wk"], cd).reshape(b, t, h, d // h)
+    v = acc_matmul(y, params["wv"], cd).reshape(b, t, h, d // h)
+    return x, q, k, v
+
+
+def trunk_out(
+    params: dict[str, torch.Tensor],
+    x: torch.Tensor,  # f32 [B, T, D], the residual of trunk_qkv
+    attn: torch.Tensor,  # [B, T, H, D/H], attention's output
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The trunk after attention → hidden states f32 [B, T, D]: the
+    out-projection and its residual, the MLP block and LN_f, all per
+    timestep."""
+    b, t, d = x.shape
+    cd = compute_dtype
+    x = x + acc_matmul(attn.reshape(b, t, d), params["wo"], cd)
+    x = _mlp_block(params, x, cd)
+    return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+
+
 def temporal_trunk(
     params: dict[str, torch.Tensor],
     feat_hist: torch.Tensor,  # f32 [B, T, F]
@@ -104,31 +146,21 @@ def temporal_trunk(
     attention_fn: Callable | None = None,  # (q, k, v, t_valid) → out
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Shared trunk → hidden states f32 [B, T, D].
+    """Shared trunk → hidden states f32 [B, T, D]: :func:`trunk_qkv`,
+    attention, :func:`trunk_out` over the whole window.
 
-    ``attention_fn`` is the seam where kernel B3 (and later ring
-    attention) plugs in; without it the trunk runs dense causal attention
-    in plain PyTorch.
+    ``attention_fn`` is the seam where kernel B3 (and the whole-tensor
+    ring) plugs in; without it the trunk runs dense causal attention in
+    plain PyTorch. The sequence-parallel programs call the two halves
+    per shard instead (``parallel.sequence``).
     """
-    b, t, _ = feat_hist.shape
-    d = params["in_proj"].shape[1]
-    h = N_HEADS
-    cd = compute_dtype
-
-    x = _embed(params, feat_hist, t_valid, cd)
-    y = layer_norm(x, params["ln1_scale"], params["ln1_bias"])
-    q = acc_matmul(y, params["wq"], cd).reshape(b, t, h, d // h)
-    k = acc_matmul(y, params["wk"], cd).reshape(b, t, h, d // h)
-    v = acc_matmul(y, params["wv"], cd).reshape(b, t, h, d // h)
+    x, q, k, v = trunk_qkv(params, feat_hist, t_valid, compute_dtype)
     if attention_fn is None:
         attn = full_attention(q, k, v, causal=True, t_valid=t_valid,
-                              compute_dtype=cd)
+                              compute_dtype=compute_dtype)
     else:
         attn = attention_fn(q, k, v, t_valid)
-    attn = attn.reshape(b, t, d)
-    x = x + acc_matmul(attn, params["wo"], cd)
-    x = _mlp_block(params, x, cd)
-    return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    return trunk_out(params, x, attn, compute_dtype)
 
 
 def _last_query_trunk(

@@ -143,13 +143,18 @@ def attribute_fleet(
 def scatter_rows_(resident: torch.Tensor, rows: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:
     """``resident[idx[j]] = rows[j]`` in place; entries of ``idx`` outside
-    ``[0, N)`` are dropped (the pad value is N). Valid indices must be
-    unique. → ``resident``.
+    ``[0, N)`` are dropped (the pad value is N), and where two entries
+    name one row the later delta row wins. → ``resident``.
 
-    No host sync and no nondeterminism: a row → delta-row map is built
-    with a deterministic ``amax`` scatter (pads land in a spare slot N that
-    is never read), then every row takes its delta row or keeps its own,
-    written in place (``out=resident``: no whole-batch temporary).
+    The plain version of the row-scatter kernel
+    (``ops.cuda_attribution.scatter_rows``, which CUDA tensors take). No
+    host sync and no nondeterminism: a row → delta-row map over all N
+    rows is built with a deterministic ``amax`` scatter (pads land in a
+    spare slot N that is never read), a delta row for every row (delta
+    row 0 where none names it) is gathered into an ``[N, width]``
+    temporary, and each row takes its gathered delta row or keeps its
+    own, written back in place (``out=resident``). That moves
+    O(N · width) bytes where the kernel moves O(DB · width).
     """
     n = resident.shape[0]
     if idx.numel() == 0:

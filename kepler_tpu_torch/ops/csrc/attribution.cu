@@ -53,6 +53,22 @@
 //   invalid-slot encoding) as NaN, so the 0 * NaN hazard of the TPU
 //   kernel's matmul gather does not arise.
 //
+// kt_scatter_rows (a repair kernel, not the port of a TPU kernel)
+//   The packed window's delta update: resident[idx[j]] = rows[j] in
+//   place, for DB delta rows of resident [N, width] f32; entries of idx
+//   outside [0, N) are dropped (the pad value is N), and where two
+//   entries name one row the later delta row wins. It is B2's scatter
+//   stage without the attribution, and the counterpart of the
+//   reference's XLA scatter resident.at[idx].set(rows, mode="drop")
+//   (kepler_tpu/fleet/window.py), which no Pallas kernel computes.
+//   Bound: bytes, DB * width * 4 read and as many written (~1.1 MB at
+//   DB = 512, width = 268: ~0.33 us), below a launch's latency at every
+//   fleet size. Design: one block per delta row; the block first scans
+//   the entries after its own for the same row (a later hit means its
+//   copy would be overwritten, so it skips), then copies the row with
+//   coalesced loads and stores. Rows no delta names are never read or
+//   written, and each row hit is written by exactly one block.
+//
 // Numerics: every multiply and divide is an explicit IEEE round-to-nearest
 // intrinsic (__fmul_rn, __fdiv_rn), never contracted into an FMA, in the
 // f32 operation order of kepler_tpu/ops/attribution.py, and the f16 cast
@@ -66,6 +82,7 @@
 namespace {
 
 constexpr int kOuterThreads = 256;
+constexpr int kScatterThreads = 128;
 // threads of a B2 block: one per (row, slot) pair of its planes at the
 // fleet's W = 256 (2 x 258 pairs), and registers capped so four blocks
 // (every block of a 1024-node flush) are resident on each SM at once
@@ -100,6 +117,24 @@ __global__ void outer_product_kernel(const float* __restrict__ ratio,
         power_out[cell * z + zi] = __fmul_rn(r, p[zi]);
       }
     }
+  }
+}
+
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_rows_kernel(float* __restrict__ resident,
+                    const float* __restrict__ rows,
+                    const int* __restrict__ idx, int n, int db, int width) {
+  for (int j = blockIdx.x; j < db; j += gridDim.x) {
+    const int t = idx[j];
+    if (t < 0 || t >= n) continue;  // a pad: dropped (uniform per block)
+    int later = 0;
+    for (int jj = j + 1 + threadIdx.x; jj < db; jj += blockDim.x) {
+      later |= idx[jj] == t;
+    }
+    if (__syncthreads_or(later)) continue;  // a later delta row wins
+    const float* from = rows + (size_t)j * width;
+    float* to = resident + (size_t)t * width;
+    for (int c = threadIdx.x; c < width; c += blockDim.x) to[c] = from[c];
   }
 }
 
@@ -307,6 +342,18 @@ int kt_fused_window_steps(float* resident, const float* delta_rows,
                                          watts, n, k, db, w, z, s)
                 : launch_window_steps<0>(resident, delta_rows, delta_idx,
                                          watts, n, k, db, w, z, s);
+}
+
+// → cudaGetLastError() after the launch (0 = launched). rows [db,
+// width] and idx [db], contiguous; resident [n, width] is updated in
+// place.
+int kt_scatter_rows(float* resident, const float* rows, const int* idx,
+                    int n, int db, int width, void* stream) {
+  if (n <= 0 || db <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
+  scatter_rows_kernel<<<db, kScatterThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      resident, rows, idx, n, db, width);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

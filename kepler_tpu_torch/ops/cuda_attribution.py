@@ -1,5 +1,5 @@
-"""The fleet window's CUDA kernels B1 and B2, their plain versions, and
-``attribute_fleet_pallas``.
+"""The fleet window's CUDA kernels B1 and B2, the delta update's row
+scatter, their plain versions, and ``attribute_fleet_pallas``.
 
 The counterpart of ``kepler_tpu/ops/pallas_attribution.py``. The kernels
 are written by hand in ``csrc/attribution.cu`` for Hopper (``sm_90a``) and
@@ -13,6 +13,10 @@ library at first launch):
   resident block in one launch: per step, scatter the interval's delta
   rows in place, unpack, ratio-attribute, emit the f16 watts plane
   ``[N, W+2, Z]``. :func:`fused_window_step` is its K = 1 call.
+- :func:`scatter_rows` — the packed window's delta update in one launch:
+  B2's scatter stage without the attribution (a repair kernel: the
+  reference's update is XLA's scatter, no Pallas kernel). Its plain
+  version is ``ops.attribution.scatter_rows_``.
 
 Each wrapper takes its plain PyTorch version (``*_ref``) only for tensors
 that lie on the CPU. For a CUDA tensor it launches the kernel or raises;
@@ -42,7 +46,7 @@ from kepler_tpu_torch.ops.attribution import (
 
 # kernel launches since import (or since the caller last zeroed them)
 LAUNCHES: dict[str, int] = {"outer_product_attribution": 0,
-                            "fused_window_step": 0}
+                            "fused_window_step": 0, "scatter_rows": 0}
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the f32 rate outside the
 # tensor cores — the peaks a kernel's bound is taken against
@@ -65,6 +69,10 @@ def _lib() -> ctypes.CDLL:
             _c_void_p, _c_void_p, _c_void_p, _c_void_p,
             _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
         lib.kt_fused_window_steps.restype = _c_int
+        lib.kt_scatter_rows.argtypes = [
+            _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
+            _c_void_p]
+        lib.kt_scatter_rows.restype = _c_int
         lib._kt_bound = True
     return lib
 
@@ -173,6 +181,56 @@ def outer_product_attribution(
     _raise_on(rc, "outer_product_attribution")
     LAUNCHES["outer_product_attribution"] += 1
     return energy, power
+
+
+# -- the delta update: a drop-mode row scatter -----------------------------
+
+def scatter_rows_cost(db: int, width: int,
+                      lands: int | None = None) -> tuple[int, int]:
+    """The row scatter → (bytes, operations): the ``db`` indices read
+    once; each of the ``lands`` delta rows that land (default: all
+    ``db``; a pad or an overwritten duplicate lands nowhere) read once
+    and written once; no arithmetic."""
+    lands = db if lands is None else lands
+    return 4 * (db + 2 * lands * width), 0
+
+
+@recorder.records_kernel("scatter_rows")
+def scatter_rows(
+        resident: torch.Tensor,  # f32 [N, width], updated IN PLACE
+        rows: torch.Tensor,  # f32 [DB, width]
+        idx: torch.Tensor,  # i32 [DB] target rows (pad = N → dropped)
+) -> torch.Tensor:
+    """``resident[idx[j]] = rows[j]`` in place in one launch → ``resident``.
+
+    Entries of ``idx`` outside ``[0, N)`` are dropped; where two entries
+    name one row the later delta row wins, as in the plain version
+    (``ops.attribution.scatter_rows_``, which CPU tensors take). Only the
+    named rows are read and written: O(DB · width) bytes, as the
+    reference's ``resident.at[idx].set(rows, mode="drop")``.
+    """
+    if resident.device.type == "cpu":
+        return scatter_rows_(resident, rows, idx)
+    if resident.device.type != "cuda":
+        raise ValueError(f"unsupported device {resident.device}")
+    n, width = resident.shape
+    db = idx.shape[0]
+    dev = resident.device
+    _check(resident, "resident", torch.float32, (n, width), dev)
+    _check(rows, "rows", torch.float32, (db, width), dev)
+    _check(idx, "idx", torch.int32, (db,), dev)
+    if db == 0:
+        return resident
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.kt_scatter_rows(resident.data_ptr(), rows.data_ptr(),
+                                 idx.data_ptr(), n, db, width, stream)
+    _raise_on(rc, "scatter_rows")
+    # the kernel wrote through raw pointers: mark the in-place update
+    torch.autograd.graph.increment_version(resident)
+    LAUNCHES["scatter_rows"] += 1
+    return resident
 
 
 # -- B2: fused window step -------------------------------------------------

@@ -18,6 +18,11 @@ them here:
 
 The recorder is per thread. With none active each hook is one
 thread-local read.
+
+:class:`OutputShapes` is a recorder of another kind, for structural
+checks of a run: the shape of every floating-point tensor each aten op
+returns, views left out (the sequence-parallel programs are held to
+``T/n`` ticks an op with it).
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import contextlib
 import functools
 import threading
 from typing import Any, Callable, Iterator, TypeVar
+
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 F = TypeVar("F", bound=Callable[..., Any])
 
@@ -77,3 +85,28 @@ def shard(index: int) -> None:
     rec = active()
     if rec is not None:
         rec.shard(index)
+
+
+class OutputShapes(TorchDispatchMode):
+    """``with OutputShapes() as rec:`` → ``rec.shapes``, one ``(op name,
+    shape)`` per floating-point tensor an aten op returned in the block,
+    in dispatch order. Ops that return a view of an input move no data
+    and are left out. Inside a hand kernel's wrapper it sees what runs
+    there: the plain version's ops on the CPU, the output's allocation
+    on the card."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.shapes: list[tuple[str, tuple[int, ...]]] = []
+
+    def __torch_dispatch__(self, func: Any, types: Any, args: tuple = (),
+                           kwargs: dict | None = None) -> Any:
+        out = func(*args, **(kwargs or {}))
+        if any(r.alias_info is not None and not r.alias_info.is_write
+               for r in func._schema.returns):
+            return out
+        name = func.overloadpacket.__name__
+        for t in tree_flatten(out)[0]:
+            if getattr(t, "is_floating_point", None) and t.is_floating_point():
+                self.shapes.append((name, tuple(t.shape)))
+        return out

@@ -41,7 +41,7 @@ import torch
 from kepler_tpu_torch.device import resolve_device
 from kepler_tpu_torch.models.estimator import predictor
 from kepler_tpu_torch.models.features import build_features
-from kepler_tpu_torch.ops.attribution import scatter_rows_
+from kepler_tpu_torch.ops.cuda_attribution import scatter_rows
 from kepler_tpu_torch.parallel.aggregator_core import (
     FleetResult,
     fleet_attribution_program,
@@ -354,7 +354,7 @@ def make_fused_window_program(n_workloads: int, n_zones: int,
                              torch.Tensor, torch.Tensor]:
             outs = alloc(resident, delta_rows.shape[0])
             for k in range(delta_rows.shape[0]):
-                scatter_rows_(resident, delta_rows[k], delta_idx[k])
+                scatter_rows(resident, delta_rows[k], delta_idx[k])
                 outs[k] = sparse_fn(model_params, resident, model_rows[k])
             return resident, outs
 
@@ -379,7 +379,7 @@ def make_fused_window_program(n_workloads: int, n_zones: int,
                         torch.Tensor, torch.Tensor]:
         outs = alloc(resident, delta_rows.shape[0])
         for k in range(delta_rows.shape[0]):
-            scatter_rows_(resident, delta_rows[k], delta_idx[k])
+            scatter_rows(resident, delta_rows[k], delta_idx[k])
             outs[k] = dense_fn(model_params, resident)
         return resident, outs
 

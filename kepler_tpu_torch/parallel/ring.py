@@ -10,15 +10,20 @@ the online-softmax merge (``ops.attention``). No shard forms the
 merge equals exact softmax attention.
 
 The JAX ring is one ``shard_map`` program; here one process drives each
-shard of the mesh in turn (virtual shards may share a device). Inputs
-are whole ``[B, T, H, D]`` tensors: T is cut into one contiguous block
-per shard on its device, and the output blocks are joined back in shard
-order on the first shard's device. ``backend="pallas"`` computes every
-block partial with kernel B3 (``ops.cuda_attention.flash_block_pallas``,
-scalar block starts, the causal mask rebuilt inside the kernel): n²
-launches a call on CUDA tensors. B3 has no backward, so gradients take
-the default ``"einsum"`` backend, as the JAX sequence-parallel trainer
-does.
+shard of the mesh in turn (virtual shards may share a device).
+:func:`ring_blocks` is the block core: it takes each shard's contiguous
+``T/n`` block of q, k, v and ``t_valid`` on its device and returns each
+shard's output block there. The sequence-parallel programs
+(``parallel.sequence``) call it between their per-shard trunk halves.
+The whole-tensor forms (:func:`ring_attention_shardmap`,
+:func:`make_ring_attention`) cut whole ``[B, T, H, D]`` tensors into the
+blocks (:func:`split_blocks`), run the core and join the output on the
+first shard's device (:func:`join_blocks`). ``backend="pallas"``
+computes every block partial with kernel B3
+(``ops.cuda_attention.flash_block_pallas``, scalar block starts, the
+causal mask rebuilt inside the kernel): n² launches a call on CUDA
+tensors. B3 has no backward, so gradients take the default ``"einsum"``
+backend, as the JAX sequence-parallel trainer does.
 """
 
 from __future__ import annotations
@@ -37,8 +42,9 @@ from kepler_tpu_torch.parallel.mesh import Mesh
 
 SEQ_AXIS = "seq"
 
-__all__ = ["SEQ_AXIS", "full_attention", "make_ring_attention",
-           "ring_attention_shardmap"]
+__all__ = ["SEQ_AXIS", "full_attention", "join_blocks",
+           "make_ring_attention", "ring_attention_shardmap", "ring_blocks",
+           "split_blocks"]
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor,
                       torch.Tensor], torch.Tensor]
@@ -56,10 +62,26 @@ def split_blocks(x: torch.Tensor, devices: list[torch.device]
                                                  devices)]
 
 
-def _ring(q, k, v, t_valid, *, devices, causal, compute_dtype, backend):
-    """The n shards' ring over whole tensors → the whole output."""
+def join_blocks(blocks: list[torch.Tensor], device: torch.device
+                ) -> torch.Tensor:
+    """Per-shard blocks ``[B, T/n, ...]`` → the whole ``[B, T, ...]`` on
+    ``device``, in shard order."""
+    return torch.cat([x.to(device) for x in blocks], dim=1)
+
+
+def ring_blocks(qs: list[torch.Tensor], ks: list[torch.Tensor],
+                vs: list[torch.Tensor], vals: list[torch.Tensor], *,
+                devices: list[torch.device], causal: bool = True,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                backend: str = "einsum") -> list[torch.Tensor]:
+    """The ring over per-shard blocks: shard ``i`` holds the ``T/n``
+    ticks from ``i · T/n`` of q, k, v ``[B, T/n, H, D]`` and ``t_valid``
+    ``[B, T/n]`` on ``devices[i]`` → its output block there, in q's
+    dtype. The block core of every ring form: nothing is split or
+    joined here."""
+    if backend not in ("einsum", "pallas"):
+        raise ValueError(f"unknown ring backend {backend!r}")
     n = len(devices)
-    qs, ks, vs, vals = (split_blocks(x, devices) for x in (q, k, v, t_valid))
     b, t_loc, h, d = qs[0].shape
     scale = 1.0 / math.sqrt(d)
 
@@ -92,9 +114,17 @@ def _ring(q, k, v, t_valid, *, devices, causal, compute_dtype, backend):
                                             l_blk)
         if s < n - 1:  # JAX's last hop only brings each block home
             ks, vs, vals = (ppermute(x, devices) for x in (ks, vs, vals))
-    out = [(oi / stats_to_out(torch.clamp(li, min=1e-30))).to(q.dtype)
-           for oi, li in zip(o, l)]
-    return torch.cat([x.to(devices[0]) for x in out], dim=1)
+    return [(oi / stats_to_out(torch.clamp(li, min=1e-30))).to(qi.dtype)
+            for oi, li, qi in zip(o, l, qs)]
+
+
+def _ring(q, k, v, t_valid, *, devices, causal, compute_dtype, backend):
+    """The n shards' ring over whole tensors → the whole output:
+    split, :func:`ring_blocks`, join."""
+    qs, ks, vs, vals = (split_blocks(x, devices) for x in (q, k, v, t_valid))
+    out = ring_blocks(qs, ks, vs, vals, devices=devices, causal=causal,
+                      compute_dtype=compute_dtype, backend=backend)
+    return join_blocks(out, devices[0])
 
 
 def ring_attention_shardmap(

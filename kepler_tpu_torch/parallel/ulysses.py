@@ -9,9 +9,11 @@ sharding (DeepSpeed-Ulysses). Its degree is capped by the head count (H
 must divide by the axis size); the ring scales to any divisor of T. Both
 plug into the temporal trunk's ``attention_fn`` seam.
 
-Inputs and outputs are whole tensors, as ``parallel.ring``'s: T is cut
-into one block per shard, and the output is joined on the first
-shard's device.
+:func:`ulysses_blocks` is the block core, with ``ring.ring_blocks``'
+contract: per-shard ``T/n`` blocks in, per-shard output blocks out. The
+whole-tensor forms cut T into one block per shard and join the output
+on the first shard's device; the temporal program runs its trunk per
+shard block around the core (``parallel.sequence``).
 """
 
 from __future__ import annotations
@@ -24,11 +26,20 @@ from kepler_tpu_torch.ops.attention import full_attention
 from kepler_tpu_torch.parallel.collectives import (all_gather, all_to_all,
                                                    axis_devices)
 from kepler_tpu_torch.parallel.mesh import Mesh
-from kepler_tpu_torch.parallel.ring import SEQ_AXIS, Attention, split_blocks
+from kepler_tpu_torch.parallel.ring import (SEQ_AXIS, Attention, join_blocks,
+                                           split_blocks)
+from kepler_tpu_torch.parallel.sequence import make_sharded_temporal_program
 
 
-def _ulysses(q, k, v, t_valid, *, devices, causal, compute_dtype):
-    qs, ks, vs, tvs = (split_blocks(x, devices) for x in (q, k, v, t_valid))
+def ulysses_blocks(qs: list[torch.Tensor], ks: list[torch.Tensor],
+                   vs: list[torch.Tensor], tvs: list[torch.Tensor], *,
+                   devices: list[torch.device], causal: bool = True,
+                   compute_dtype: torch.dtype = torch.bfloat16
+                   ) -> list[torch.Tensor]:
+    """Ulysses over per-shard blocks, the contract of
+    ``ring.ring_blocks``: shard ``i``'s ``T/n`` ticks of q, k, v
+    ``[B, T/n, H, D]`` and ``t_valid`` on ``devices[i]`` → its output
+    block there. H must divide by n."""
     # time-gather / head-scatter: [B, T/P, H, Dh] → [B, T, H/P, Dh]
     qg, kg, vg = (all_to_all(x, devices, split_axis=2, concat_axis=1)
                   for x in (qs, ks, vs))
@@ -37,8 +48,15 @@ def _ulysses(q, k, v, t_valid, *, devices, causal, compute_dtype):
                            compute_dtype=compute_dtype)
             for a, b, c, m in zip(qg, kg, vg, tv)]
     # head-gather / time-scatter back: [B, T, H/P, Dh] → [B, T/P, H, Dh]
-    back = all_to_all(outs, devices, split_axis=1, concat_axis=2)
-    return torch.cat([x.to(devices[0]) for x in back], dim=1)
+    return all_to_all(outs, devices, split_axis=1, concat_axis=2)
+
+
+def _heads_divide(h: int, n: int, axis_name: str) -> None:
+    if h % n:
+        raise ValueError(
+            f"Ulysses needs heads ({h}) divisible by the '{axis_name}' "
+            f"mesh size ({n}); use the ring for more parallelism than "
+            "heads")
 
 
 def ulysses_attention_shardmap(
@@ -55,13 +73,12 @@ def ulysses_attention_shardmap(
     n = len(devices)
 
     def checked(q, k, v, t_valid):
-        if q.shape[2] % n:
-            raise ValueError(
-                f"Ulysses needs heads ({q.shape[2]}) divisible by the "
-                f"'{axis_name}' mesh size ({n}); use the ring for more "
-                "parallelism than heads")
-        return _ulysses(q, k, v, t_valid, devices=devices, causal=causal,
-                        compute_dtype=compute_dtype)
+        _heads_divide(q.shape[2], n, axis_name)
+        blocks = (split_blocks(x, devices) for x in (q, k, v, t_valid))
+        return join_blocks(ulysses_blocks(*blocks, devices=devices,
+                                          causal=causal,
+                                          compute_dtype=compute_dtype),
+                           devices[0])
 
     return checked
 
@@ -88,16 +105,15 @@ def make_ulysses_temporal_program(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> Callable:
     """The temporal estimator served with Ulysses context parallelism,
-    the all-to-all twin of ``sequence.make_temporal_program``."""
-    from kepler_tpu_torch.models.temporal import predict_temporal
+    the all-to-all twin of ``sequence.make_temporal_program``: the trunk
+    per shard block, attention as :func:`ulysses_blocks`."""
+    devices = axis_devices(mesh, axis_name)
+    n = len(devices)
 
-    attn = ulysses_attention_shardmap(mesh, axis_name=axis_name,
-                                      causal=True,
-                                      compute_dtype=compute_dtype)
+    def core(qs, ks, vs, tvs):
+        _heads_divide(qs[0].shape[2], n, axis_name)
+        return ulysses_blocks(qs, ks, vs, tvs, devices=devices, causal=True,
+                              compute_dtype=compute_dtype)
 
-    def fn(params, feat_hist, workload_valid, t_valid):
-        return predict_temporal(params, feat_hist, workload_valid, t_valid,
-                                clamp=clamp, compute_dtype=compute_dtype,
-                                attention_fn=attn)
-
-    return fn
+    return make_sharded_temporal_program(devices, core, clamp=clamp,
+                                         compute_dtype=compute_dtype)

@@ -124,3 +124,78 @@ def test_scatter_rows_drops_pads():
     np.testing.assert_array_equal(resident.numpy(),
                                   [[6, 7, 8], [0, 0, 0], [0, 1, 2],
                                    [0, 0, 0]])
+
+
+# -- the delta update's row scatter ---------------------------------------------
+
+def scatter_inputs(seed: int, n: int, width: int, db: int):
+    rng = np.random.default_rng(seed)
+    resident = rng.normal(size=(n, width)).astype(np.float32)
+    rows = rng.normal(size=(db, width)).astype(np.float32)
+    rows[0, 0] = np.nan  # NaN is the invalid-slot encoding: copied as is
+    idx = rng.permutation(n)[:db].astype(np.int32)
+    idx[rng.uniform(size=db) < 0.25] = n  # pads
+    idx[0] = n + 3  # beyond the pad value: dropped too
+    return resident, rows, idx
+
+
+@pytest.mark.parametrize("n,width,db", [(16, 12, 8), (64, 268, 33),
+                                        (8, 5, 1)])
+def test_scatter_rows_matches_jax_drop_mode(n, width, db):
+    """The plain version and the wrapper on CPU tensors against JAX's
+    ``resident.at[idx].set(rows, mode="drop")`` on unique indices with
+    pads: bit-equal, NaN included."""
+    from kepler_tpu_torch.ops.cuda_attribution import scatter_rows
+
+    resident, rows, idx = scatter_inputs(n + db, n, width, db)
+    want = np.asarray(jnp.asarray(resident).at[jnp.asarray(idx)].set(
+        jnp.asarray(rows), mode="drop"))
+    for fn in (ta.scatter_rows_, scatter_rows):
+        got = torch.from_numpy(resident.copy())
+        out = fn(got, torch.from_numpy(rows), torch.from_numpy(idx))
+        assert out is got
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_rows_last_duplicate_wins_and_db_zero():
+    """Two entries naming one row: the later delta row wins. DB = 0
+    leaves the batch as it was. Every call that writes advances the
+    resident's version counter (the in-place update autograd and the
+    device tier see)."""
+    from kepler_tpu_torch.ops.cuda_attribution import scatter_rows
+
+    rows = torch.arange(15, dtype=torch.float32).reshape(5, 3)
+    for fn in (ta.scatter_rows_, scatter_rows):
+        resident = torch.zeros((4, 3))
+        version = resident._version
+        fn(resident, rows, torch.tensor([1, 3, 1, 4, 3], dtype=torch.int32))
+        np.testing.assert_array_equal(
+            resident.numpy(), [[0, 0, 0], [6, 7, 8], [0, 0, 0],
+                               [12, 13, 14]])
+        assert resident._version > version
+        before = resident.clone()
+        fn(resident, rows[:0], torch.zeros(0, dtype=torch.int32))
+        assert torch.equal(resident, before)
+
+
+def test_scatter_rows_wrapper_records_one_kernel_op_and_refuses_other_devices():
+    """Under a program recorder the wrapper is one ``kernel:scatter_rows``
+    op on the CPU too (its plain version unrecorded), so a window's
+    fingerprint reads the same on both devices; a tensor on a device
+    other than the CPU or CUDA is refused."""
+    from kepler_tpu_torch.analysis.device.trace import OpRecorder
+    from kepler_tpu_torch.ops import recorder
+    from kepler_tpu_torch.ops.cuda_attribution import LAUNCHES, scatter_rows
+
+    resident, rows, idx = (torch.from_numpy(x)
+                           for x in scatter_inputs(1, 16, 12, 8))
+    rec = OpRecorder([])
+    before = LAUNCHES["scatter_rows"]
+    with recorder.recording(rec), rec:
+        scatter_rows(resident, rows, idx)
+    assert rec.ops == {"kernel:scatter_rows": 1}
+    assert LAUNCHES["scatter_rows"] == before  # the plain version ran
+    meta = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        scatter_rows(meta, meta[:1], torch.zeros(1, dtype=torch.int32,
+                                                 device="meta"))

@@ -1,4 +1,5 @@
-"""Kernels B1, B2 and B3 on the card, against their plain versions there.
+"""Kernels B1, B2 and B3 and the delta update's row scatter on the card,
+against their plain versions there.
 
 These tests need an NVIDIA card and the CUDA toolkit: they build
 ``kepler_tpu_torch/ops/csrc`` at first launch and skip elsewhere. They
@@ -26,6 +27,7 @@ import torch
 
 from kepler_tpu_torch.ops import cuda_attention as cat
 from kepler_tpu_torch.ops import cuda_attribution as ca
+from kepler_tpu_torch.ops.attribution import scatter_rows_ as ta_scatter_rows_
 from kepler_tpu_torch.parallel.packed import PackedLayout
 
 
@@ -123,6 +125,61 @@ def test_fused_window_kernel_equals_plain(cuda_device, n, w, z, db_kind):
     ulps = f16_ulps(plane.cpu().numpy(), plane_ref.cpu().numpy())
     assert int(ulps.max()) <= 1
     assert int((ulps > 0).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,width,db", [(16_384, 268, 8), (16_384, 268, 512),
+                                        (16_384, 268, 1024), (1024, 268, 1024),
+                                        (37, 17, 5)])
+def test_scatter_rows_kernel_equals_plain(cuda_device, n, width, db):
+    """The row scatter in one launch against its plain version on the
+    same inputs: pads (N and beyond) dropped, a duplicate index (the
+    later row wins), NaN copied as is — bit-equal."""
+    rng = np.random.default_rng(n + db)
+    resident = torch.from_numpy(rng.normal(size=(n, width)).astype(
+        np.float32)).to(cuda_device)
+    rows = rng.normal(size=(db, width)).astype(np.float32)
+    rows[0, 0] = np.nan
+    idx = rng.permutation(n)[:db].astype(np.int32)
+    idx[rng.uniform(size=db) < 0.25] = n
+    idx[-1] = n + 7
+    if db >= 3:
+        idx[1] = idx[2] = rng.integers(0, n)  # a duplicate: row 2 wins
+    rows_d = torch.from_numpy(rows).to(cuda_device)
+    idx_d = torch.from_numpy(idx).to(cuda_device)
+    plain = resident.clone()
+    before = ca.LAUNCHES["scatter_rows"]
+    version = resident._version
+    out = ca.scatter_rows(resident, rows_d, idx_d)
+    ta_scatter_rows_(plain, rows_d, idx_d)
+    torch.cuda.synchronize()
+    assert out is resident and resident._version > version
+    assert ca.LAUNCHES["scatter_rows"] == before + 1
+    assert torch.equal(resident.view(torch.int32), plain.view(torch.int32))
+    ca.scatter_rows(resident, rows_d[:0], idx_d[:0])  # DB = 0: no launch
+    assert ca.LAUNCHES["scatter_rows"] == before + 1
+
+
+@pytest.mark.cuda
+def test_scatter_rows_raises_without_its_library(cuda_device, monkeypatch):
+    """No fallback: on a CUDA tensor the wrapper launches its kernel or
+    raises, and a failed build leaves the batch untouched."""
+    from kepler_tpu_torch.ops import build
+
+    def missing(name):
+        raise RuntimeError(f"nvcc not found: cannot build {name}.cu")
+
+    monkeypatch.setattr(build, "load", missing)
+    resident = torch.zeros((8, 4), device=cuda_device)
+    rows = torch.ones((2, 4), device=cuda_device)
+    idx = torch.tensor([1, 8], dtype=torch.int32, device=cuda_device)
+    before = ca.LAUNCHES["scatter_rows"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ca.scatter_rows(resident, rows, idx)
+    assert ca.LAUNCHES["scatter_rows"] == before
+    assert bool((resident == 0).all())
+    with pytest.raises(TypeError, match="int32"):
+        ca.scatter_rows(resident, rows, idx.long())
 
 
 @pytest.mark.cuda

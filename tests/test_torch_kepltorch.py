@@ -93,9 +93,11 @@ def test_registry_mirrors_the_reference_contracts():
             (c.name, c.dims) for c in want.cases]
         assert spec.donates == want.donates, spec.name
         assert spec.require_shard_map == want.require_shard_map
-        # the port spells out the DP×TP step's gradient all-reduce,
-        # which the reference leaves to GSPMD
-        extra = {"psum"} if spec.name == "trainer.train_step" else set()
+        # the port spells out the DP×TP step's gradient all-reduce and
+        # the sequence program's last-valid pooling, which the reference
+        # leaves to GSPMD
+        extra = ({"psum"} if spec.name in ("trainer.train_step",
+                                           "sequence.temporal") else set())
         assert spec.allowed_collectives == want.allowed_collectives | extra
         # the port's bf16 operand rounding casts back to f32 too
         assert spec.allowed_half_casts - {"bfloat16->float32"} == \

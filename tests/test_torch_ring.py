@@ -294,3 +294,223 @@ def test_remat_equals_no_remat():
     assert out[0][0] == out[1][0]
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
+
+
+# -- the per-shard programs (the trunk on each shard's T/n block) -------------
+
+# T = 64 over 8 shards: blocks of 8 ticks. Windows: full, the last valid
+# tick at the end of block 0 (length 8) and at the start of block 1
+# (length 9), one empty, ragged, and the last tick of block 3 (32). The
+# positional table is longer than T (t_max 128), so no tensor of the run
+# but the sequence itself has an axis of 64.
+BLOCK_T, BLOCK_T_MAX = 64, 128
+BLOCK_LENGTHS = [64, 8, 9, 0, 27, 32]
+
+
+def block_inputs(seed: int):
+    rng = np.random.default_rng(seed)
+    w = len(BLOCK_LENGTHS)
+    hist = rng.uniform(0.0, 3.0, (w, BLOCK_T, 7)).astype(np.float32)
+    tv = valid_of(BLOCK_LENGTHS, BLOCK_T)
+    hist = np.where(tv[..., None], hist, 0.0).astype(np.float32)
+    wv = np.array([True, True, True, True, False, True])
+    targets = rng.uniform(0.0, 30.0, (w, 4)).astype(np.float32)
+    return hist, wv, tv, targets
+
+
+def assert_watts(got: np.ndarray, want: np.ndarray, cd: str) -> None:
+    if cd == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-2 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_per_shard_program_matches_jax_and_dense(cd):
+    """The per-shard sequence program on 8 shards against JAX's
+    ``make_temporal_program`` on 8 devices and the port's dense path:
+    f32 within rtol = atol = 1e-5, bf16 within 1e-2 · max|watts|."""
+    params = jax_params(d_model=32, t_max=BLOCK_T_MAX, seed=31)
+    hist, wv, tv, _ = block_inputs(32)
+    jcd, tcd = DTYPES[cd]
+    want = np.asarray(jsp_program(jmake_mesh([8], ["seq"]),
+                                  compute_dtype=jcd)(
+        jax.tree.map(jnp.asarray, params),
+        *(jnp.asarray(x) for x in (hist, wv, tv))))
+    pp = port_est.params_from_numpy("temporal", params)
+    args = [t_(x) for x in (hist, wv, tv)]
+    got = make_temporal_program(seq_mesh(), compute_dtype=tcd)(pp, *args)
+    assert got.shape == (len(BLOCK_LENGTHS), 4)
+    dense = predict_temporal(pp, *args, compute_dtype=tcd).numpy()
+    for ref in (want, dense):
+        assert_watts(got.numpy(), ref, cd)
+    assert np.all(got.numpy()[~wv] == 0.0) and np.all(got.numpy() >= 0.0)
+
+
+def test_per_shard_program_takes_leading_axes_and_no_t_valid():
+    """Leading axes flatten into the batch and ``t_valid=None`` means
+    every tick is valid, as in ``predict_temporal``."""
+    params = port_est.params_from_numpy(
+        "temporal", jax_params(d_model=32, t_max=BLOCK_T_MAX, seed=33))
+    hist, wv, tv, _ = block_inputs(34)
+    program = make_temporal_program(seq_mesh(), compute_dtype=torch.float32)
+    flat = program(params, *(t_(x) for x in (hist, wv, tv)))
+    lead = program(params, t_(hist.reshape(2, 3, BLOCK_T, 7)),
+                   t_(wv.reshape(2, 3)), t_(tv.reshape(2, 3, BLOCK_T)))
+    assert lead.shape == (2, 3, 4)
+    assert torch.equal(lead.reshape(6, 4), flat)
+    np.testing.assert_allclose(
+        program(params, t_(hist), t_(wv), None).numpy(),
+        predict_temporal(params, t_(hist), t_(wv), None,
+                         compute_dtype=torch.float32).numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+def jax_sp_loss_and_grads(params, hist, wv, tv, targets):
+    """JAX's sequence-parallel forward (the ring inside the trunk, T
+    sharded over 8 devices) → (loss, gradients) of the masked MSE."""
+    jmesh = jmake_mesh([8], ["seq"])
+    jattn = jring_fn(jmesh, compute_dtype=jnp.float32)
+
+    def jloss(p, h, w, v, y):
+        pred = jpredict_temporal(p, h, w, v, clamp=False,
+                                 compute_dtype=jnp.float32,
+                                 attention_fn=jattn)
+        return jtrain.masked_mse(pred, y, w)
+
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    hist_s, rep = (NamedSharding(jmesh, P(None, "seq")),
+                   NamedSharding(jmesh, P()))
+    fn = jax.jit(jax.value_and_grad(jloss),
+                 in_shardings=(rep, hist_s, rep, hist_s, rep))
+    return fn(jax.tree.map(jnp.asarray, params),
+              *(jnp.asarray(x) for x in (hist, wv, tv, targets)))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_per_shard_train_step_matches_jax(remat):
+    """One per-shard train step at f32 against JAX: the loss within rtol
+    1e-5 of JAX's step, the summed gradients (left in the state's
+    ``.grad``) within rtol 1e-4, atol 1e-5 of ``jax.value_and_grad`` of
+    JAX's sharded forward, and the updated params within rtol 1e-4,
+    atol 1e-5 of JAX's ``make_sequence_parallel_train_step``."""
+    params = jax_params(d_model=32, t_max=BLOCK_T_MAX, seed=35)
+    hist, wv, tv, targets = block_inputs(36)
+    jopt = jtrain.make_optimizer(1e-2)
+    jstep = jsp_step(jmake_mesh([8], ["seq"]), jopt, remat=remat)
+    jstate, jl = jstep(jtrain.create_train_state(
+        jax.tree.map(jnp.asarray, params), jopt),
+        *(jnp.asarray(x) for x in (hist, wv, tv, targets)))
+    jloss, jgrads = jax_sp_loss_and_grads(params, hist, wv, tv, targets)
+    np.testing.assert_allclose(float(jl), float(jloss), rtol=1e-6)
+
+    state = ptrain.create_train_state(
+        port_est.params_from_numpy("temporal", params),
+        ptrain.make_optimizer(1e-2))
+    step = make_sequence_parallel_train_step(seq_mesh(), remat=remat)
+    state, loss = step(state, *(t_(x) for x in (hist, wv, tv, targets)))
+    assert state.step == 1
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    for key, p in state.params.items():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrads[key]),
+                                   rtol=1e-4, atol=1e-5, err_msg=key)
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   np.asarray(jstate.params[key]),
+                                   rtol=1e-4, atol=1e-5, err_msg=key)
+
+
+def test_per_shard_gradients_are_summed_in_one_psum(monkeypatch):
+    """The train step's gradient all-reduce is one explicit ``psum`` of
+    the 8 shards' flattened gradients, whose sum is the state's
+    gradient; the state is updated in place."""
+    from kepler_tpu_torch.parallel import sequence as pseq
+
+    params = jax_params(d_model=32, t_max=BLOCK_T_MAX, seed=37)
+    hist, wv, tv, targets = block_inputs(38)
+    calls = []
+    real = pseq.psum
+
+    def spying(xs, devices):
+        calls.append([x.detach().clone() for x in xs])
+        return real(xs, devices)
+
+    monkeypatch.setattr(pseq, "psum", spying)
+    state = ptrain.create_train_state(
+        port_est.params_from_numpy("temporal", params),
+        ptrain.make_optimizer(1e-2))
+    before = {k: v for k, v in state.params.items()}
+    step = make_sequence_parallel_train_step(seq_mesh())
+    state, _ = step(state, *(t_(x) for x in (hist, wv, tv, targets)))
+    assert all(state.params[k] is before[k] for k in before)
+    n_params = sum(p.numel() for p in state.params.values())
+    grads = [c for c in calls if c[0].shape == (n_params,)]
+    assert len(grads) == 1 and len(grads[0]) == 8
+    summed = grads[0][0].clone()
+    for g in grads[0][1:]:
+        summed = summed + g
+    flat = torch.cat([p.grad.reshape(-1) for p in state.params.values()])
+    assert torch.equal(flat, summed)
+    # every shard's trunk contributes: no shard's gradient is zero
+    assert all(bool(g.abs().sum() > 0) for g in grads[0])
+
+
+def long_time_axes(shapes, t: int, b: int) -> list:
+    """The recorded float outputs with an axis as long as the whole
+    sequence (T, or B · T once flattened)."""
+    return [(name, s) for name, s in shapes if t in s or b * t in s]
+
+
+def test_no_trunk_op_sees_more_than_one_block():
+    """Under the op recorder, no op of the per-shard serving program or
+    train step (its backward and AdamW included) returns a float tensor
+    with an axis as long as the sequence; the largest carries T/n ticks.
+    The whole-tensor trunk through the same ring does return such
+    tensors, so the check can see them."""
+    from kepler_tpu_torch.ops.recorder import OutputShapes
+
+    params = port_est.params_from_numpy(
+        "temporal", jax_params(d_model=32, t_max=BLOCK_T_MAX, seed=39))
+    hist, wv, tv, targets = (t_(x) for x in block_inputs(40))
+    b, t, n = len(BLOCK_LENGTHS), BLOCK_T, 8
+    program = make_temporal_program(seq_mesh(n), compute_dtype=torch.float32)
+    with OutputShapes() as rec:
+        program(params, hist, wv, tv)
+    assert rec.shapes and not long_time_axes(rec.shapes, t, b)
+    assert ("mm", (b * t // n, 4 * 32)) in rec.shapes  # the MLP, per block
+
+    state = ptrain.create_train_state(params, ptrain.make_optimizer(1e-2))
+    step = make_sequence_parallel_train_step(seq_mesh(n), remat=True)
+    with OutputShapes() as rec:
+        step(state, hist, wv, tv, targets)
+    assert rec.shapes and not long_time_axes(rec.shapes, t, b)
+
+    ring = pring.ring_attention_shardmap(seq_mesh(n),
+                                         compute_dtype=torch.float32)
+    with OutputShapes() as rec:
+        predict_temporal(params, hist, wv, tv, compute_dtype=torch.float32,
+                         attention_fn=ring)
+    assert long_time_axes(rec.shapes, t, b)
+
+
+@pytest.mark.parametrize("backend", ["einsum", "pallas"])
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_ring_blocks_equal_the_whole_tensor_ring(backend, cd):
+    """``ring_blocks`` over split blocks, joined, is bit-identical to the
+    whole-tensor ring, on both backends; each output block lies on its
+    shard's device in q's dtype."""
+    q, k, v = qkv(41)
+    tv = valid_of(LENGTHS["ragged"])
+    _, tcd = DTYPES[cd]
+    mesh = seq_mesh()
+    devices = list(mesh.devices)
+    whole = make_ring_attention(mesh, compute_dtype=tcd, backend=backend)(
+        *(t_(x) for x in (q, k, v, tv)))
+    blocks = [pring.split_blocks(t_(x), devices) for x in (q, k, v, tv)]
+    out = pring.ring_blocks(*blocks, devices=devices, causal=True,
+                            compute_dtype=tcd, backend=backend)
+    assert len(out) == 8 and all(o.shape == (3, 4, 4, 16) for o in out)
+    assert all(o.dtype == torch.float32 for o in out)
+    assert torch.equal(pring.join_blocks(out, devices[0]), whole)
+    with pytest.raises(ValueError, match="unknown ring backend"):
+        pring.ring_blocks(*blocks, devices=devices, backend="xla")

@@ -503,3 +503,62 @@ def test_fleet_programs_take_a_device():
     assert prog.device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown attribution backend"):
         tcore.make_fleet_program(device="cpu", backend="cuda")
+
+
+# -- the trunk's two halves -----------------------------------------------------
+
+def _trunk_before_the_split(params, feat_hist, t_valid, cd):
+    """The trunk as one function, as it stood before its two halves:
+    the bit-for-bit reference of ``trunk_qkv`` → attention →
+    ``trunk_out``."""
+    import torch.nn.functional as F
+
+    from kepler_tpu_torch.models.nn import acc_matmul, layer_norm
+    from kepler_tpu_torch.ops.attention import full_attention
+
+    b, t, _ = feat_hist.shape
+    d = params["in_proj"].shape[1]
+    h = 4
+    x = acc_matmul(feat_hist, params["in_proj"], cd)
+    x = x + params["pos_emb"][:t]
+    x = torch.where(t_valid[..., None], x, 0.0)
+    y = layer_norm(x, params["ln1_scale"], params["ln1_bias"])
+    q = acc_matmul(y, params["wq"], cd).reshape(b, t, h, d // h)
+    k = acc_matmul(y, params["wk"], cd).reshape(b, t, h, d // h)
+    v = acc_matmul(y, params["wv"], cd).reshape(b, t, h, d // h)
+    attn = full_attention(q, k, v, causal=True, t_valid=t_valid,
+                          compute_dtype=cd).reshape(b, t, d)
+    x = x + acc_matmul(attn, params["wo"], cd)
+    y = layer_norm(x, params["ln2_scale"], params["ln2_bias"])
+    y = F.gelu(acc_matmul(y, params["w_mlp0"], cd) + params["b_mlp0"],
+               approximate="tanh")
+    x = x + acc_matmul(y, params["w_mlp1"], cd) + params["b_mlp1"]
+    return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_trunk_halves_at_offset_zero_equal_the_whole_trunk(cd):
+    """``trunk_qkv`` at offset 0, dense attention and ``trunk_out`` are
+    bit-identical to the trunk as one function; a block of ticks from
+    ``t0`` reads the positions from ``t0`` (within 1e-6 of the whole
+    window's slice: the matmuls see fewer rows)."""
+    from kepler_tpu_torch.models.temporal import (temporal_trunk, trunk_out,
+                                                  trunk_qkv)
+
+    params = port_est.params_from_numpy("temporal",
+                                        jax_params(t_max=16, seed=51))
+    hist, _, tv = history_inputs(52, n=3, w=4, t=16)
+    hist = torch.from_numpy(hist.reshape(12, 16, 7))
+    tv = torch.from_numpy(tv.reshape(12, 16))
+    want = _trunk_before_the_split(params, hist, tv, cd)
+    assert torch.equal(temporal_trunk(params, hist, tv, compute_dtype=cd),
+                       want)
+    x, q, k, v = trunk_qkv(params, hist, tv, cd)
+    attn = full_attention(q, k, v, causal=True, t_valid=tv,
+                          compute_dtype=cd)
+    assert torch.equal(trunk_out(params, x, attn, cd), want)
+    xb, qb, _, _ = trunk_qkv(params, hist[:, 8:], tv[:, 8:], cd, t0=8)
+    np.testing.assert_allclose(xb.numpy(), x[:, 8:].numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(qb.numpy(), q[:, 8:].numpy(), rtol=1e-6,
+                               atol=1e-6)

@@ -101,3 +101,59 @@ def test_ulysses_temporal_program_matches_jax_and_dense_serving(cd):
             np.testing.assert_allclose(got, ref, rtol=1e-2,
                                        atol=1e-2 * float(np.abs(ref).max()))
     assert np.all(got[~wv] == 0.0)
+
+
+# -- the per-shard program (the trunk on each shard's T/n block) --------------
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_per_shard_ulysses_program_matches_jax_and_dense(cd):
+    """The Ulysses program on 4 shards (blocks of 16 ticks, windows
+    ending on a block boundary, one empty) against JAX's
+    ``make_ulysses_temporal_program`` on 4 devices and the dense path:
+    f32 within rtol = atol = 1e-5, bf16 within 1e-2 · max|watts|."""
+    from tests.test_torch_ring import BLOCK_T_MAX, assert_watts, block_inputs
+
+    params = jax_params(d_model=32, t_max=BLOCK_T_MAX, seed=43)
+    hist, wv, tv, _ = block_inputs(44)
+    jcd, tcd = DTYPES[cd]
+    want = np.asarray(july_program(jseq_mesh(4), compute_dtype=jcd)(
+        jax.tree.map(jnp.asarray, params),
+        *(jnp.asarray(x) for x in (hist, wv, tv))))
+    pp = port_est.params_from_numpy("temporal", params)
+    args = [t_(x) for x in (hist, wv, tv)]
+    got = make_ulysses_temporal_program(seq_mesh(4), compute_dtype=tcd)(
+        pp, *args).numpy()
+    dense = predict_temporal(pp, *args, compute_dtype=tcd).numpy()
+    for ref in (want, dense):
+        assert_watts(got, ref, cd)
+    assert np.all(got[~wv] == 0.0)
+
+
+def test_per_shard_ulysses_program_refuses_more_shards_than_heads():
+    from tests.test_torch_ring import BLOCK_T_MAX, block_inputs
+
+    pp = port_est.params_from_numpy(
+        "temporal", jax_params(d_model=32, t_max=BLOCK_T_MAX, seed=45))
+    hist, wv, tv, _ = block_inputs(46)
+    with pytest.raises(ValueError, match="ring for more parallelism"):
+        make_ulysses_temporal_program(seq_mesh(8))(
+            pp, *(t_(x) for x in (hist, wv, tv)))
+
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_ulysses_blocks_equal_the_whole_tensor_form(cd):
+    from kepler_tpu_torch.parallel.ring import join_blocks, split_blocks
+    from kepler_tpu_torch.parallel.ulysses import ulysses_blocks
+
+    q, k, v = qkv(47)
+    tv = valid_of(LENGTHS["ragged"])
+    _, tcd = DTYPES[cd]
+    mesh = seq_mesh(4)
+    devices = list(mesh.devices)
+    whole = make_ulysses_attention(mesh, compute_dtype=tcd)(
+        *(t_(x) for x in (q, k, v, tv)))
+    out = ulysses_blocks(*(split_blocks(t_(x), devices)
+                           for x in (q, k, v, tv)),
+                         devices=devices, compute_dtype=tcd)
+    assert [o.shape for o in out] == [(3, 8, 4, 16)] * 4
+    assert torch.equal(join_blocks(out, devices[0]), whole)
