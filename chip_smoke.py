@@ -107,7 +107,18 @@ zones, buckets N = 1024, W = 256):
    shard), B2 in ``window.fused_pallas``, the row scatter in the
    ``window.update`` entries — each case's fingerprint
    against the same case run on the CPU, the kernel cases' outputs
-   bit-equal to their plain versions.
+   bit-equal to their plain versions;
+16. the Aggregator's whole-mesh programs per node block (``main_mesh``,
+   phase ``mesh``), on 8 virtual shards of the card as an 8-shard
+   ``node`` mesh and a 4 × 2 ``node × model`` mesh (one block per node
+   row, on its first shard): the fused tier (path 3's ratio schedule, K =
+   4, pallas) on both meshes — B2 once per node block per flush, every
+   window bit-equal to the one-shard Aggregator's on the card; the
+   temporal window (history 16, 6 windows) on the 8-shard mesh — B1 once
+   per block per window; the einsum-serial rung on the 4 × 2 mesh with
+   the 50/50 MLP fleet, reached through two injected
+   ``device.dispatch_error`` s; and the op shapes of each block's
+   program, none of which may hold all 1024 rows.
 
 Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
@@ -122,7 +133,7 @@ on paths 2, 3, 9, 11 and 13 launches it.
 
 ``--phases a,b`` runs only the named phases (of ``PHASES``: ``kernels``,
 ``ratio``, ``mixed``, ``serial_mlp``, ``aggregator``, ``temporal``,
-``train``, ``node``, ``sharded``, ``chaos``, ``parallel``,
+``train``, ``node``, ``sharded``, ``mesh``, ``chaos``, ``parallel``,
 ``analysis``), e.g. ``python3 chip_smoke.py --phases parallel``; with no
 argument every phase runs. The ``kernels`` line then carries the
 launches of the phases that ran, and each kernel's timings only when the
@@ -3298,6 +3309,437 @@ def main_multihost_virtual(dev: torch.device, phases: list,
     return row
 
 
+# -- the Aggregator's whole-mesh programs per node block ------------------------
+
+#: the meshes of the ``mesh`` phase: name → (shape, axes), 8 virtual
+#: shards of the card each; node blocks are the node rows (8 and 4)
+MESH_SHAPES = {"node8": ([8], ("node",)),
+               "node4_model2": ([4, 2], ("node", "model"))}
+MESH_TEMPORAL_WINDOWS = 6
+
+
+def card_mesh(dev: torch.device, name: str | None):
+    """The named mesh over 8 virtual shards of the card (None: one
+    shard, the reference run of each check)."""
+    from kepler_tpu_torch.parallel.mesh import make_mesh
+
+    if name is None:
+        return make_mesh([1], devices=[dev])
+    shape, axes = MESH_SHAPES[name]
+    return make_mesh(shape, axes, devices=[dev] * SHARDS)
+
+
+def keep_calls(agg, method: str, saved: list):
+    """Wrap ``agg.<method>``: the arguments of every call that returns
+    land in ``saved`` (with the result last)."""
+    inner = getattr(agg, method)
+
+    def kept(*args, **kw):
+        out = inner(*args, **kw)
+        saved.append((args, kw, out))
+        return out
+
+    setattr(agg, method, kept)
+
+
+def same_published(got, ref, what: str, model: str | None = None) -> int:
+    """A published window of the mesh run against the one-shard run's, by
+    node: ratio rows bit-equal (the f16 plane, or µW on the serial rung;
+    node power and energy, cumulative joules); model rows within rtol
+    1e-3 (``model="packed"``, atol 1e-3 W) or the bf16 bound
+    (``"bf16"``: rtol 1e-2, atol 1e-2 · max|watts|). → ratio rows."""
+    from kepler_tpu_torch.parallel.fleet import MODE_MODEL
+
+    check(got.timestamp == ref.timestamp
+          and sorted(got.names) == sorted(ref.names),
+          f"{what}: another window than the one-shard run's")
+
+    def watts(res, i):
+        if res._wl_watts_f16 is not None:
+            return res._wl_watts_f16[i].astype(np.float32)
+        return res.wl_power_uw[i] * 1e-6
+
+    scale = max((float(np.abs(watts(ref, ref.rows[n])).max(initial=0.0))
+                 for n in ref.names if ref.mode[ref.rows[n]] == MODE_MODEL),
+                default=0.0)
+    n_ratio = 0
+    for name in ref.names:
+        i, j = got.rows[name], ref.rows[name]
+        a, b = watts(got, i), watts(ref, j)
+        check(np.isfinite(a).all(), f"{what}: {name} non-finite watts")
+        if int(ref.mode[j]) == MODE_MODEL:
+            ok = (np.allclose(a, b, rtol=1e-3, atol=1e-3) if model ==
+                  "packed" else np.allclose(a, b, rtol=1e-2,
+                                            atol=1e-2 * scale))
+            check(model is not None and ok, f"{what}: model row {name} off "
+                  f"the one-shard run by {float(np.abs(a - b).max())} W")
+            continue
+        n_ratio += 1
+        check(np.array_equal(a, b)
+              and np.array_equal(got.node_power_uw[i], ref.node_power_uw[j])
+              and np.array_equal(got.node_energy_uj[i],
+                                 ref.node_energy_uj[j])
+              and np.array_equal(got.node_joules_total[i],
+                                 ref.node_joules_total[j]),
+              f"{what}: ratio row {name} differs from the one-shard run")
+    return n_ratio
+
+
+@contextlib.contextmanager
+def kept_inputs(module, name: str, saved: list):
+    """Within: every call of ``module.<name>`` first keeps clones of its
+    tensor arguments in ``saved`` (the call may update them in place)."""
+    inner = getattr(module, name)
+
+    def kept(*args, **kw):
+        saved.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return inner(*args, **kw)
+
+    setattr(module, name, kept)
+    try:
+        yield saved
+    finally:
+        setattr(module, name, inner)
+
+
+def blocks_against_plain(kernel, plain, calls: list, rows: int,
+                         what: str) -> dict:
+    """Each kept per-block call replayed through the kernel's wrapper and
+    its plain version on clones of the same inputs: every output bit for
+    bit (NaN payloads included) and every call over ``rows`` node rows
+    (one block's). → the calls checked and the largest abs error."""
+    check(len(calls) > 0, f"{what}: no per-block call was kept")
+    err = 0.0
+    for args in calls:
+        check(args[0].shape[0] == rows,
+              f"{what}: a call over {args[0].shape[0]} rows, not {rows}")
+        got = kernel(*(a.clone() if isinstance(a, torch.Tensor) else a
+                       for a in args))
+        want = plain(*(a.clone() if isinstance(a, torch.Tensor) else a
+                       for a in args))
+        sync()
+        for g, w in zip(got, want):
+            check(same_bits(g, w), f"{what}: a block's output differs "
+                  "from the plain version's")
+            diff = (g.float() - w.float()).abs().nan_to_num(0.0)
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    return {"calls": len(calls), "rows": rows, "max_abs_err": err,
+            "parity": "bit-equal"}
+
+
+def ops_over_rows(fn, n: int) -> dict:
+    """Run ``fn`` under ``ops.recorder.OutputShapes`` → how many float
+    ops it ran and which returned an axis of ``n`` (the whole batch's
+    node rows: none may, each block's program sees its own rows)."""
+    from kepler_tpu_torch.ops.recorder import OutputShapes
+
+    with OutputShapes() as rec:
+        fn()
+        sync()
+    wide = [(op, list(s)) for op, s in rec.shapes if n in s]
+    check(rec.shapes and not wide,
+          f"{len(wide)} ops returned an axis of all {n} rows: {wide[:3]}")
+    return {"float_ops": len(rec.shapes), "ops_with_an_axis_of_n": len(wide),
+            "largest": max((list(s) for _, s in rec.shapes),
+                           key=lambda s: int(np.prod(s)))}
+
+
+def mesh_fused(dev: torch.device) -> dict:
+    """(a) The fused tier through the Aggregator over each mesh: the
+    ratio schedule (8 intervals, K = 4, pallas), every published window
+    bit-equal to the one-shard Aggregator's on the card, B2 once per
+    node block per flush; device and host ms per flush beside the
+    one-shard form's; B2 at each block's shapes against its plain
+    version."""
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.parallel.packed import PackedLayout
+
+    intervals = ratio_frames()
+    kw = dict(backend="pallas", model_mode=None, fused_window_k=FUSED_K)
+
+    def run(name):
+        agg, _, ticks, published = make_aggregator(
+            dev, mesh=card_mesh(dev, name), **kw)
+        flushes: list = []
+        keep_calls(agg, "_dispatch_fused_flush", flushes)
+        legs = []
+        reset_launches()
+        for _live, frames in intervals:
+            ticks[0] += 5.0
+            ingest_direct(agg, frames)
+            agg.aggregate_once()
+            legs.append({k: agg._stats[k] for k in LEG_KEYS})
+        sync()
+        launches = read_launches()
+        check(agg.window_health()["rung_name"] == "packed-fused-scan"
+              and len(published) == RATIO_INTERVALS
+              and len(flushes) == RATIO_INTERVALS // FUSED_K,
+              f"{name}: the fused tier did not publish every interval")
+        flush = flushes[-1][0][1]  # (engine, flush, stage_ms)
+        timing = {
+            "flush_device_ms": device_ms(
+                lambda: flush.program(*flush.args)),
+            "flush_call_ms": time_ms(lambda: flush.program(*flush.args),
+                                     reps=5, batch=5),
+            "flush_host_ms": [legs[i]["last_dispatch_ms"]
+                              for i in range(FUSED_K - 1,
+                                             RATIO_INTERVALS, FUSED_K)],
+            "legs_ms_per_interval": legs}
+        return agg, published, flush, launches, timing
+
+    _, ref, _, _, one = run(None)
+    out: dict = {"one_shard": one}
+    total: dict = {}
+    for name in MESH_SHAPES:
+        agg, published, flush, launches, timing = run(name)
+        blocks = len(agg._engine_fused._blocks)
+        flushes = RATIO_INTERVALS // FUSED_K
+        check(launches["fused_window_step"] == blocks * flushes,
+              f"{name}: B2 launched {launches['fused_window_step']} times "
+              f"for {blocks} node blocks × {flushes} flushes")
+        check(launches["outer_product_attribution"] == 0
+              and launches["scatter_rows"] == 0
+              and launches["flash_block"] == 0,
+              f"{name}: the fused tier launched another kernel: {launches}")
+        ratio_rows = sum(same_published(got, want, f"fused {name} "
+                                        f"interval {t}")
+                         for t, (got, want) in enumerate(zip(published,
+                                                             ref)))
+        timing["structure"] = ops_over_rows(
+            lambda: flush.program(*flush.args), N_NODES)
+        # B2 at the blocks' own shapes (block-local indices, per-block
+        # DB) against its plain version: the flush's residents as they
+        # stand, its delta sets
+        lay = PackedLayout(agg._engine_fused._key[1], len(ZONES))
+        _, residents, rows, idxs = flush.args
+        timing["b2_per_block"] = blocks_against_plain(
+            lambda r, d, i: ca.fused_window_steps(r, d, i, lay),
+            lambda r, d, i: ca.fused_window_steps_ref(r, d, i, lay),
+            list(zip(residents, rows, idxs)), N_NODES // blocks,
+            f"{name} B2 per block")
+        out[name] = {"node_blocks": blocks, "launches": launches,
+                     "ratio_rows_bit_equal": ratio_rows, **timing}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    out["launches"] = total
+    return out
+
+
+def mesh_temporal(dev: torch.device) -> dict:
+    """(b) The temporal window (``model: temporal``, history 16, pallas)
+    over the 8-shard mesh, 6 windows: B1 once per node block per window,
+    ratio rows bit-equal to the one-shard window on the card, model
+    watts within the bf16 bound; the program's device ms (its inputs
+    already on the card) and the window's host legs beside the
+    one-shard form's."""
+    from kepler_tpu_torch.fleet import wire
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.parallel.aggregator_core import (node_blocks,
+                                                           put_blocks)
+
+    windows = temporal_schedule()[:MESH_TEMPORAL_WINDOWS]
+    frames = [[wire.encode_report_v2(r, ZONES, seq=t + 1, run="r1")
+               for r in reports] for t, reports in enumerate(windows)]
+    params = temporal_params()
+
+    def run(name):
+        agg, _, ticks, published = make_aggregator(
+            dev, mesh=card_mesh(dev, name), backend="pallas",
+            model_mode="temporal", history_window=HISTORY_T,
+            model_params=params)
+        saved: list = []
+        keep_calls(agg, "_dispatch_legacy", saved)
+        legs = []
+        reset_launches()
+        for batch_frames in frames:
+            ticks[0] += 5.0
+            ingest_direct(agg, batch_frames)
+            check(agg.aggregate_once() is not None,
+                  f"{name}: a temporal window did not publish")
+            legs.append({k: agg._stats[k] for k in LEG_KEYS})
+        sync()
+        launches = read_launches()
+        last = saved[-1][2]  # the last window's _Pending
+        b = last.batch
+        mesh = agg._program.mesh
+        blocks = put_blocks([b.zone_deltas_uj, b.zone_valid, b.usage_ratio,
+                             b.cpu_deltas, b.workload_valid,
+                             b.node_cpu_delta, b.dt_s, b.mode,
+                             last.feat_hist, last.t_valid], mesh)
+        p = [params_to(params, blk.device) for blk in node_blocks(mesh)]
+
+        def call():
+            return agg._program(p, *zip(*blocks))
+
+        timing = {"program_profile": profile_top(call),
+                  "legs_ms_per_window": legs}
+        if name is not None:
+            timing["structure"] = ops_over_rows(call, N_NODES)
+            # B1 at the blocks' own shapes against its plain version
+            with kept_inputs(ca, "outer_product_attribution", []) as b1:
+                call()
+            timing["b1_per_block"] = blocks_against_plain(
+                ca.outer_product_attribution,
+                ca.outer_product_attribution_ref, b1,
+                N_NODES // len(node_blocks(mesh)), f"{name} B1 per block")
+        return len(node_blocks(mesh)), published, launches, timing
+
+    _, ref, _, one = run(None)
+    blocks, published, launches, timing = run("node8")
+    check(launches["outer_product_attribution"]
+          == blocks * MESH_TEMPORAL_WINDOWS,
+          f"B1 launched {launches['outer_product_attribution']} times for "
+          f"{blocks} node blocks × {MESH_TEMPORAL_WINDOWS} windows")
+    check(launches["flash_block"] == 0 and launches["fused_window_step"] == 0,
+          f"the temporal window launched B2 or B3: {launches}")
+    ratio_rows = sum(same_published(got, want, f"temporal window {t}",
+                                    model="bf16")
+                     for t, (got, want) in enumerate(zip(published, ref)))
+    return {"node_blocks": blocks, "windows": MESH_TEMPORAL_WINDOWS,
+            "launches": launches, "ratio_rows_bit_equal": ratio_rows,
+            **timing, "one_shard": one}
+
+
+def mesh_serial(dev: torch.device) -> dict:
+    """(c) The einsum-serial rung over the 4 × 2 mesh: the 50/50
+    ratio/MLP fleet of ``main_aggregator_mixed`` (pallas, depth 2) with
+    two injected ``device.dispatch_error`` s, which walk the window down
+    to ``einsum-serial`` and back up, against the one-shard Aggregator
+    on the card under the same plan: the same rung timeline, ratio rows
+    bit-equal, model rows within 1e-3 on the packed rungs and the bf16
+    bound on the serial rung (its bf16 trunk); B1 once per node block in
+    every dispatched window."""
+    from kepler_tpu_torch import fault
+    from kepler_tpu_torch.parallel.aggregator_core import node_blocks
+
+    params = mlp_params(SEED + 4)
+    intervals, _ = mixed_intervals(SEED + 4)
+    spec = fault.FaultSpec(site="device.dispatch_error", skip=2, count=2)
+
+    def run(name):
+        mesh = card_mesh(dev, name)
+        agg, _, ticks, published = make_aggregator(
+            dev, mesh=mesh, backend="pallas", model_mode="mlp",
+            model_params=params, pipeline_depth=2, repromote_after=2)
+        packed: list = []
+        serial: list = []
+        keep_calls(agg, "_dispatch_packed", packed)
+        keep_calls(agg, "_dispatch_legacy", serial)
+        legs = []
+        with fault.installed(fault.FaultPlan([spec])) as plan:
+            reset_launches()
+            for frames in intervals:
+                ticks[0] += 5.0
+                ingest_direct(agg, frames)
+                agg.aggregate_once()
+                legs.append({k: agg._stats[k] for k in LEG_KEYS})
+            agg._drain_pipeline()
+            sync()
+            launches = read_launches()
+        check(plan.fired("device.dispatch_error") == 2,
+              f"{name}: the injected dispatch errors did not fire twice")
+        # every device rung spans the node blocks here: on a one-shard
+        # or 2-D mesh the packed-serial rung is rung 0's unsharded
+        # engine, as in the reference
+        dispatched = len(packed) + len(serial)
+        blocks = len(node_blocks(mesh))
+        check(launches["outer_product_attribution"] == blocks * dispatched,
+              f"{name}: B1 launched {launches['outer_product_attribution']}"
+              f" times for {dispatched} windows over {blocks} node blocks")
+        timeline = [e["rung_name"] for e in agg._rung_timeline]
+        check("einsum-serial" in timeline,
+              f"{name}: the ladder never reached einsum-serial: {timeline}")
+        return (agg, published, launches, timeline, legs,
+                {"dispatched_windows": dispatched,
+                 "einsum_serial_windows": len(serial)})
+
+    _, ref, _, ref_timeline, ref_legs, _ = run(None)
+    agg, published, launches, timeline, legs, counts = run("node4_model2")
+    check(timeline == ref_timeline,
+          f"rung timeline {timeline} != one-shard {ref_timeline}")
+    check(len(published) == len(ref), "published count differs")
+    ratio_rows = sum(same_published(
+        got, want, f"serial window {t}",
+        model="packed" if got._wl_watts_f16 is not None else "bf16")
+        for t, (got, want) in enumerate(zip(published, ref)))
+    return {"node_blocks": 4, "launches": launches, "timeline": timeline,
+            "ratio_rows_bit_equal": ratio_rows, **counts,
+            "legs_ms_per_window": legs, "one_shard_legs_ms_per_window":
+            ref_legs}
+
+
+def mesh_engine_structure(dev: torch.device) -> dict:
+    """(d) The unsharded engine over the 4 × 2 mesh under
+    ``OutputShapes``: a full pack, then a delta window (the update once
+    per node block, block-local indices), each program per block — no
+    op returns an axis of all 1024 rows."""
+    from kepler_tpu_torch.fleet.window import PackedWindowEngine, fetch_plane
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops.attribution import scatter_rows_
+
+    params = mlp_params(SEED)
+    wins = mixed_windows()[:2]
+    eng = PackedWindowEngine(device=card_mesh(dev, "node4_model2"),
+                             backend="pallas", model_mode="mlp",
+                             node_bucket=N_NODES)
+    single = PackedWindowEngine(device=dev, backend="pallas",
+                                model_mode="mlp", node_bucket=N_NODES)
+    out: dict = {}
+    scatters: list = []
+    for t, rows in enumerate(wins):
+        want = run_windows(single, [rows], params)[0]
+
+        def window():
+            plan = eng.plan_window(rows, ZONES, params)
+            out[t] = (fetch_plane(eng.dispatch_window(plan)), plan.meta)
+
+        # the engine binds the row scatter when the delta window first
+        # needs it: its per-block calls are kept from then on
+        with kept_inputs(ca, "scatter_rows", scatters):
+            shapes = ops_over_rows(window, N_NODES)
+        worst = same_rows(out[t], want, f"2-D engine window {t}")
+        out[f"window_{t}"] = {**shapes, "model_rel_vs_one_device": worst}
+    res = {k: v for k, v in out.items() if isinstance(k, str)}
+    # kt_scatter_rows at the blocks' own shapes against its plain version
+    res["scatter_per_block"] = blocks_against_plain(
+        lambda r, d, i: (ca.scatter_rows(r, d, i),),
+        lambda r, d, i: (scatter_rows_(r, d, i),), scatters,
+        N_NODES // 4, "2-D engine scatter per block")
+    return res
+
+
+def main_mesh(dev: torch.device) -> dict:
+    """Path 16: the Aggregator's whole-mesh programs per node block, on
+    8 virtual shards of the card as an 8-shard ``node`` mesh (8 blocks)
+    and a 4 × 2 ``node × model`` mesh (4 blocks, one per node row on its
+    first shard): (a) the fused tier, (b) the temporal window, (c) the
+    einsum-serial rung, (d) the unsharded engine's op shapes. On one card
+    the blocks share the card, so the times measure the overhead of
+    blocks, not scaling."""
+    t0 = time.perf_counter()
+    fused = mesh_fused(dev)
+    temporal = mesh_temporal(dev)
+    serial = mesh_serial(dev)
+    engine = mesh_engine_structure(dev)
+    launches: dict = {}
+    for part in (fused, temporal, serial):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    row = {"phase": "main_mesh", "nodes": N_NODES,
+           "workloads": N_WORKLOADS, "zones": len(ZONES),
+           "meshes": {k: {"shape": v[0], "axes": list(v[1])}
+                      for k, v in MESH_SHAPES.items()},
+           "launches": launches, "fused": fused, "temporal": temporal,
+           "einsum_serial": serial, "engine_2d": engine,
+           "note": "8 virtual shards of one card: overhead of node "
+                   "blocks, not scaling",
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 CHAOS_BLACKBOX_INDEX = 0
 
 
@@ -4088,8 +4530,8 @@ def main_analysis(dev: torch.device) -> dict:
 
 
 PHASES = ("kernels", "ratio", "mixed", "serial_mlp", "aggregator",
-          "temporal", "train", "node", "sharded", "chaos", "parallel",
-          "analysis")
+          "temporal", "train", "node", "sharded", "mesh", "chaos",
+          "parallel", "analysis")
 
 
 def parse_phases(argv: list[str]) -> list[str]:
@@ -4154,6 +4596,16 @@ def main(argv: list[str] | None = None) -> int:
           "flags": list(build.NVCC_FLAGS)})
 
     on = set(phases)
+    laps: dict = {}  # wall seconds of each phase that ran
+    mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Charge the wall time since the last lap to phase ``name``."""
+        now = time.perf_counter()
+        if name in on:
+            laps[name] = laps.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+
     r: dict = {}  # the rows of the phases that ran, by path
     b1 = b2_flush = None
     b2_rows: dict = {}
@@ -4165,18 +4617,23 @@ def main(argv: list[str] | None = None) -> int:
         b3_rows = [kernel_b3(dev, b, t) for b, t in B3_SHAPES]
         scatter_rows = {db: kernel_scatter_rows(dev, db)
                         for db in SCATTER_DBS}
+    lap("kernels")
     main_db = 512  # the ratio schedule's flush DB, when it does not run
     if "ratio" in on:
         r["main_ratio_fused"] = main_ratio(dev)
         main_db = r["main_ratio_fused"]["flushes"][-1]["db"]
+    lap("ratio")
     if "kernels" in on:
         if main_db not in b2_rows:
             b2_rows[main_db] = kernel_b2(dev, main_db)
         b2_flush = kernel_b2_flush(dev, FUSED_K, main_db)
+    lap("kernels")
     if "mixed" in on:
         r["main_mixed"] = main_mixed(dev)
+    lap("mixed")
     if "serial_mlp" in on:
         main_serial_mlp(dev)
+    lap("serial_mlp")
     if "aggregator" in on:
         r["main_aggregator_fused"] = main_aggregator_fused(dev)
         r["main_aggregator_mixed"] = main_aggregator_mixed(dev)
@@ -4184,32 +4641,43 @@ def main(argv: list[str] | None = None) -> int:
         models = main_aggregator_models(dev)
         r["main_aggregator_models_moe"] = models["moe"]
         r["main_aggregator_models_deep"] = models["deep"]
+    lap("aggregator")
     if "temporal" in on:
         fleet, saved, params, outs = main_temporal_fleet(dev)
         r["main_temporal_fleet"] = fleet
         r["main_temporal_trunk"] = main_temporal_trunk(dev, saved, params,
                                                        outs)
         del saved, outs
+    lap("temporal")
     if "train" in on:
         r["main_train"] = main_train(dev)
+    lap("train")
     if "node" in on:
         main_node_agent(dev)
         r["main_node_fleet"] = main_node_fleet(dev)
         main_node_cmd()
+    lap("node")
     multihost = None
     if "sharded" in on:
         sh_phases = sharded_phases()
         r["main_sharded"], sharded_planes = main_sharded(dev, sh_phases)
         multihost = main_multihost_virtual(dev, sh_phases, sharded_planes)
         del sh_phases, sharded_planes
+    lap("sharded")
+    if "mesh" in on:
+        r["main_mesh"] = main_mesh(dev)
+    lap("mesh")
     if "chaos" in on:
         r["main_chaos_pallas"] = main_chaos(dev)
+    lap("chaos")
     ring = None
     if "parallel" in on:
         ring = main_parallel(dev)["ring"]
         r["main_parallel_ring"] = ring
+    lap("parallel")
     if "analysis" in on:
         r["main_analysis"] = main_analysis(dev)
+    lap("analysis")
 
     b1_paths = launches_of(r, "outer_product_attribution")
     if multihost is not None:
@@ -4248,7 +4716,8 @@ def main(argv: list[str] | None = None) -> int:
             "ring_b3_device_ms_per_launch": ring["b3_device_ms_per_launch"],
             "ring_call_b3_bound_ms": ring["b3_bound_ms_per_call"]}
     scatter_paths = launches_of(r, "scatter_rows")
-    ran_scatter_paths = {"mixed", "aggregator", "sharded", "chaos"} & on
+    ran_scatter_paths = {"mixed", "aggregator", "sharded", "mesh",
+                         "chaos"} & on
     check(not ran_scatter_paths or sum(scatter_paths.values()) > 0,
           f"the row scatter launched no time on the main paths "
           f"{sorted(ran_scatter_paths)}: {scatter_paths}")
@@ -4269,7 +4738,8 @@ def main(argv: list[str] | None = None) -> int:
         kernel_line(scatter_rows.get(512), "scatter_rows", scatter_paths,
                     **scatter_extra)]
     emit({"phase": "total", "phases": phases,
-          "seconds": time.perf_counter() - t_script})
+          "seconds": time.perf_counter() - t_script,
+          "phase_seconds": laps})
     print(smi, flush=True)
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",

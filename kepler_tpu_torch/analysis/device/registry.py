@@ -222,6 +222,7 @@ def _build_window_update(case: ProgramCase, dev: torch.device) -> tuple:
     from kepler_tpu_torch.fleet.window import (MultiHostWindowEngine,
                                                PackedWindowEngine,
                                                ShardedWindowEngine)
+    from kepler_tpu_torch.parallel.aggregator_core import block_local_index
     from kepler_tpu_torch.parallel.packed import packed_width
 
     d = case.dims
@@ -236,14 +237,24 @@ def _build_window_update(case: ProgramCase, dev: torch.device) -> tuple:
     elif d.get("sharded"):
         engine = ShardedWindowEngine(_mesh(8, dev))
     else:
-        engine = PackedWindowEngine(dev)
+        # the unsharded engine over the reference's 8-device mesh: its
+        # resident batch in 8 node blocks, the whole delta on the
+        # device once, one scatter per block with block-local indices
+        engine = PackedWindowEngine(_mesh(8, dev))
     fn = engine._update_for(nb, width, db)[0]
     rng = _rng(case)
     rows = _packed_rows(rng, nb + db, wb, z, model=False)
     # distinct target rows, the last one a pad (N → dropped)
     idx = rng.choice(nb, db, replace=False).astype(np.int32)
     idx[-1] = nb
-    return fn, (_t(rows[:nb], dev), _t(rows[nb:], dev), _t(idx, dev))
+    if not engine._blocks:
+        return fn, (_t(rows[:nb], dev), _t(rows[nb:], dev), _t(idx, dev))
+    n_blk = len(engine._blocks)
+    sb = nb // n_blk
+    local = block_local_index(idx, nb, n_blk)
+    delta = _t(rows[nb:], dev)
+    return fn, ([_t(rows[b * sb:(b + 1) * sb], dev) for b in range(n_blk)],
+                [delta] * n_blk, [_t(local[b], dev) for b in range(n_blk)])
 
 
 def _fused_deltas(rng: np.random.RandomState, k: int, db: int, nb: int,
@@ -258,23 +269,47 @@ def _fused_deltas(rng: np.random.RandomState, k: int, db: int, nb: int,
 def _build_fused(case: ProgramCase, dev: torch.device) -> tuple:
     from kepler_tpu_torch.parallel.packed import make_fused_window_program
 
+    from kepler_tpu_torch.fleet.window import block_local_rows
+    from kepler_tpu_torch.parallel.packed import (block_delta_width,
+                                                  cut_deltas_by_block)
+
     d = case.dims
     nb, wb, z, k, db = d["n"], d["w"], d["z"], d["k"], d["db"]
     mb = d.get("m")
     model_mode = d.get("model_mode")
+    n_seg = d.get("devices", 8)
     rng = _rng(case)
+    # over the reference's mesh: one loop per node block (the mesh form
+    # of the program), on a single device the whole resident
+    mesh = _mesh(n_seg, dev) if n_seg > 1 else None
     fn = make_fused_window_program(
         wb, z, model_mode=model_mode, backend=d.get("backend", "einsum"),
-        model_bucket=mb, device=dev)
+        model_bucket=mb, device=dev, mesh=mesh)
     params = (_params(model_mode, z, rng, dev) if model_mode
               else _no_params(dev))
     resident = _packed_rows(rng, nb, wb, z, model=bool(model_mode))
     rows, idx = _fused_deltas(rng, k, db, nb, wb, z, bool(model_mode))
-    args: list = [params, _t(resident, dev), _t(rows, dev), _t(idx, dev)]
+    mrows = None
     if mb is not None:
-        args.append(_t(np.stack([
-            np.sort(rng.choice(nb + 1, mb, replace=False))
-            for _ in range(k)]).astype(np.int32), dev))
+        mrows = np.stack([np.sort(rng.choice(nb + 1, mb, replace=False))
+                          for _ in range(k)]).astype(np.int32)
+    if mesh is None:
+        args: list = [params, _t(resident, dev), _t(rows, dev),
+                      _t(idx, dev)]
+        if mrows is not None:
+            args.append(_t(mrows, dev))
+        return fn, tuple(args)
+    sb = nb // n_seg
+    dbb = max(1, block_delta_width(list(idx), nb, n_seg))
+    cut_rows = np.empty((n_seg, k, dbb, rows.shape[-1]), np.float32)
+    cut_idx = np.empty((n_seg, k, dbb), np.int32)
+    cut_deltas_by_block(list(zip(rows, idx)), nb, cut_rows, cut_idx)
+    args = [[params] * n_seg,
+            [_t(resident[b * sb:(b + 1) * sb], dev) for b in range(n_seg)],
+            [_t(r, dev) for r in cut_rows], [_t(i, dev) for i in cut_idx]]
+    if mrows is not None:
+        args.append([_t(m, dev)
+                     for m in block_local_rows(list(mrows), nb, n_seg, mb)])
     return fn, tuple(args)
 
 
@@ -286,14 +321,21 @@ def _build_fleet(case: ProgramCase, dev: torch.device) -> tuple:
     n, w, z = d["n"], d["w"], d["z"]
     rng = _rng(case)
     batch = _fleet_batch(rng, n, w, z, dev)
+    # over the reference's 8-device mesh: the program once per node
+    # block, every argument a per-block sequence
+    mesh = _mesh(8, dev)
+    sb = n // 8
     if d.get("temporal"):
         t = d["t"]
-        fn = make_temporal_fleet_program(dev)
-        return fn, (_params("temporal", z, rng, dev),) + batch + (
-            _t(_feats(rng, n, w, t), dev),
-            _t(rng.uniform(size=(n, w, t)) < 0.8, dev))
-    fn = make_fleet_program(dev, model_mode="mlp")
-    return fn, (_params("mlp", z, rng, dev),) + batch
+        fn = make_temporal_fleet_program(mesh=mesh)
+        params = _params("temporal", z, rng, dev)
+        batch += (_t(_feats(rng, n, w, t), dev),
+                  _t(rng.uniform(size=(n, w, t)) < 0.8, dev))
+    else:
+        fn = make_fleet_program(model_mode="mlp", mesh=mesh)
+        params = _params("mlp", z, rng, dev)
+    return fn, ([params] * 8,) + tuple(
+        [x[b * sb:(b + 1) * sb] for b in range(8)] for x in batch)
 
 
 def _build_pallas_attribution(case: ProgramCase, dev: torch.device
@@ -499,9 +541,9 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
         source="kepler_tpu_torch/parallel/packed.py",
         description="fused device-resident window loop, ratio-only: K "
                     "intervals' delta rows applied in place and K packed "
-                    "f16 outputs per dispatch (zero collectives: the "
-                    "only cross-shard step stays the caller's batched "
-                    "publish fetch)",
+                    "f16 outputs per dispatch, once per node block of the "
+                    "8-shard mesh (zero collectives: the only cross-shard "
+                    "step stays the caller's batched publish fetch)",
         build=_build_fused,
         cases=(
             ProgramCase("n16_w8_z2_k4_d8",
@@ -549,8 +591,9 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
     ProgramSpec(
         name="window.update",
         source="kepler_tpu_torch/fleet/window.py",
-        description="in-place scatter-update of the resident packed "
-                    "batch (delta H2D path)",
+        description="in-place scatter-update of the unsharded engine's "
+                    "resident packed batch (delta H2D path), once per "
+                    "node block of the 8-shard mesh",
         build=_build_window_update,
         cases=(
             ProgramCase("n16_w8_z2_d8",
@@ -593,8 +636,8 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
     ProgramSpec(
         name="fleet.dense_mlp",
         source="kepler_tpu_torch/parallel/aggregator_core.py",
-        description="unpacked fleet program with mlp estimator (no "
-                    "collectives)",
+        description="unpacked fleet program with mlp estimator, once per "
+                    "node block of the 8-shard mesh (no collectives)",
         build=_build_fleet,
         cases=(
             ProgramCase("n16_w4_z2", dims={"n": 16, "w": 4, "z": 2}),
@@ -605,7 +648,8 @@ DEVICE_PROGRAMS: tuple[ProgramSpec, ...] = (
         name="fleet.temporal",
         source="kepler_tpu_torch/parallel/aggregator_core.py",
         description="temporal fleet program (dense causal attention over "
-                    "per-workload history windows)",
+                    "per-workload history windows), once per node block "
+                    "of the 8-shard mesh",
         build=_build_fleet,
         cases=(
             ProgramCase("n8_w4_t8_z2",

@@ -24,8 +24,10 @@ staging per interval, one launch and one fetch per K windows (with
 
 Every dispatched window queues its result plane for an asynchronous D2H
 copy into pinned host memory, with a ``torch.cuda.Event`` recorded on the
-dispatching stream right behind it (``fleet.window.copy_to_host_async``).
-The fetch, which runs on the fetch-worker thread, waits on that event
+dispatching stream right behind it (``fleet.window.copy_to_host_async``;
+over shards or node blocks one pinned buffer, an event per device,
+``copy_blocks_to_host_async``). The fetch, which runs on the
+fetch-worker thread, waits on that event
 before it reads the buffer: PyTorch's current stream is per thread, so
 nothing relies on the worker's own stream to order after the launches.
 
@@ -40,12 +42,19 @@ The device mesh (``parallel.mesh``; ``mesh_shape`` ``[]`` = every
 visible device, 1-D over ``node``): on a node mesh of two or more shards
 rung 0 is the ``ShardedWindowEngine`` (per-shard rings, sticky node→shard
 assignment, one launch per shard) and the packed-serial rung a
-single-device engine on the first shard's device. Shards may be virtual
-(several on one card). With ``multihost_enabled`` and a mesh spanning
-several processes, rung 0 is the ``MultiHostWindowEngine`` (only this
-process's shards, bucket needs agreed across processes), ingest
-ownership derives from the mesh shard map, and a cross-host failure
-demotes to "mesh minus one host" and runs membership succession.
+single-device engine on the first shard's device. Everything else spans
+the mesh as the reference's node sharding does, one NODE BLOCK per node
+row on the row's first shard's device (``aggregator_core.node_blocks``):
+the fused tier's resident block and flush (B2 once per block with
+``backend="pallas"``), the unsharded engine on a 2-D ``node × model``
+mesh, and the einsum-serial and temporal programs (the batch cut by
+block, one H2D each, the results joined in block order at fetch).
+Shards may be virtual (several on one card). With ``multihost_enabled``
+and a mesh spanning several processes, rung 0 is the
+``MultiHostWindowEngine`` (only this process's shards, bucket needs
+agreed across processes), ingest ownership derives from the mesh shard
+map, and a cross-host failure demotes to "mesh minus one host" and runs
+membership succession.
 
 Device errors. The ladder (fused/pipelined → packed-serial → einsum-serial
 → NumPy host) demotes one rung per device failure. A
@@ -126,8 +135,8 @@ from kepler_tpu_torch.fleet.window import (DeviceWindowError, FusedFlush,
                                            PackedWindowEngine, RowInput,
                                            ShardedWindowEngine, WindowMeta,
                                            align_zone_matrices,
-                                           copy_plane_to_host_async,
-                                           copy_to_host_async)
+                                           copy_blocks_to_host_async,
+                                           copy_plane_to_host_async)
 from kepler_tpu_torch.monitor.history import HistoryBuffer
 from kepler_tpu_torch.telemetry import DEFAULT_DELIVERY_BUCKETS, Histogram
 from kepler_tpu_torch.parallel.aggregator_core import (
@@ -291,8 +300,8 @@ class _Pending:
     """
 
     kind: str  # "packed" | "legacy" | "fused" | "numpy"
-    # packed/legacy: the HostCopy (sharded: ShardedHostCopy) of the
-    # result tensor(s) queued at dispatch; fused/numpy: the window's
+    # packed/legacy: the HostCopy of the result tensor(s) queued at
+    # dispatch (per shard or node block, joined); fused/numpy: the window's
     # plane, already on the host
     out: object
     meta: WindowMeta | None  # packed path row layout
@@ -927,7 +936,8 @@ class Aggregator:
             # the virtual topology labels each shard (by index) with its
             # process; every later query reads the shard's own label
             self._mesh = self._mesh.with_processes(self._mh_device_process)
-        # the single-device rungs run on the mesh's first shard's device
+        # the packed-serial rung runs on the mesh's first shard's device;
+        # the other rungs span the mesh's node blocks
         self._device = self._mesh.devices[0]
         n_dev = self._mesh.size
         # the node axis shards over the mesh: round the bucket up so padded
@@ -1052,11 +1062,22 @@ class Aggregator:
             return self._mesh
         return Mesh((Shard(self._device),), (1,), (NODE_AXIS,))
 
+    def _serial_mesh(self) -> Mesh:
+        """The mesh the einsum-serial and temporal programs run over: the
+        window mesh, or — when it spans processes — this process's own
+        shards (its batch holds only the nodes it ingested, and a
+        process launches on its own devices only)."""
+        mesh = self._window_mesh()
+        if len(set(mesh.processes)) > 1:
+            return self._local_mesh()
+        return mesh
+
     def _mesh_shard_count(self, mesh: Mesh | None = None) -> int:
         """Shards the packed window runs over: the node-axis size when
         the mesh is 1-D over ``node`` (every shard independent, with its
         own resident ring). Single-shard and 2-D (node × model) meshes
-        run the unsharded engine on the first shard's device."""
+        run the unsharded engine — on a 2-D mesh its batch is still cut
+        into node blocks, but its H2D stays whole-batch."""
         mesh = mesh if mesh is not None else self._mesh
         if mesh is None:
             return 1
@@ -2982,9 +3003,9 @@ class Aggregator:
 
     def _fused_engine(self) -> FusedWindowEngine:
         """Rung 0's fused-tier engine (lazy, like the packed engines).
-        Runs over the FULL configured mesh as one block on its first
-        shard's device, with the node bucket aligned to the mesh size as
-        the reference's sharded scan aligns it."""
+        Runs over the FULL configured mesh, as the reference's does: the
+        resident block and the flush's K planes are cut into the mesh's
+        node blocks, each on its node row's first shard's device."""
         if self._engine_fused is None:
             self._engine_mesh = self._window_mesh()
             self._engine_fused = FusedWindowEngine(
@@ -3069,7 +3090,8 @@ class Aggregator:
             # the first launch of a (buckets, zones, mode, K, DB) key runs
             # inside the engine's own window.compile span
             outs = engine.dispatch(flush, inject_faults=False)
-            copy = copy_to_host_async(outs)
+            # [K, N, W+2, Z], joined along the node axis over blocks
+            copy = copy_plane_to_host_async(outs, axis=1)
         fetch_box = [0.0]
 
         def _materialize() -> np.ndarray:
@@ -3227,15 +3249,17 @@ class Aggregator:
                 raise DeviceWindowError(
                     "compile_error",
                     "injected compile failure (serial fleet program)")
+            # over the mesh's node blocks, as the reference's programs
+            # shard their batch by node (B1 once per block with pallas)
+            mesh = self._serial_mesh()
             if self._model_mode == "temporal":
                 self._program = make_temporal_fleet_program(
-                    device=self._device, backend=self._backend,
-                    accuracy_mode=self._accuracy_mode)
+                    backend=self._backend,
+                    accuracy_mode=self._accuracy_mode, mesh=mesh)
             else:
                 self._program = make_fleet_program(
-                    device=self._device, model_mode=self._model_mode,
-                    backend=self._backend,
-                    accuracy_mode=self._accuracy_mode)
+                    model_mode=self._model_mode, backend=self._backend,
+                    accuracy_mode=self._accuracy_mode, mesh=mesh)
         program = self._program
         params = self._params_for_zones(n_zones)
         feat_hist = t_valid = None
@@ -3258,9 +3282,10 @@ class Aggregator:
         else:
             result = run_fleet_attribution(program, batch, params,
                                            feat_hist, t_valid)
-        copy = copy_to_host_async(
-            result.node_power_uw, result.node_energy_uj,
-            result.workload_power_uw, result.workload_energy_uj)
+        # the node blocks' fields into one pinned buffer, in block order
+        copy = copy_blocks_to_host_async([(
+            r.node_power_uw, r.node_energy_uj, r.workload_power_uw,
+            r.workload_energy_uj) for r in result])
         t_dispatched = _time.perf_counter()
         return _Pending(
             kind="legacy", out=copy, meta=None, now=now,
@@ -3334,9 +3359,8 @@ class Aggregator:
         fetch_ms = 0.0
         if p.kind == "packed":
             # the plane's D2H copy was queued at dispatch; the fetch
-            # waits on its event (explicitly — it runs on the fetch
+            # waits on its events (explicitly — it runs on the fetch
             # worker's thread, whose current stream is not the engine's)
-            # a HostCopy, or a ShardedHostCopy on a sharded engine
             copy: HostCopy = p.out  # type: ignore[assignment]
 
             def _materialize() -> np.ndarray:

@@ -35,7 +35,11 @@ a 1-D node mesh (``parallel.mesh``) — each shard keeps its own ring, its
 own staging and its own launches, with sticky node→shard assignment —
 and :class:`MultiHostWindowEngine` narrows that to the shards of this
 process, agreeing bucket needs with the other processes
-(:class:`HostLocalFabric` stands in for them in one process).
+(:class:`HostLocalFabric` stands in for them in one process). The
+unsharded engines (:class:`PackedWindowEngine`, :class:`FusedWindowEngine`)
+take a mesh too: a 2-D ``node × model`` mesh, or the fused tier's full
+mesh, cuts their resident batch into one block per node row, each on its
+row's first shard's device, as the reference's node sharding does.
 
 The engines own no locks and no HTTP. Entry points take ``device="cuda"``
 (or a mesh of CUDA shards) by default and raise when CUDA is absent;
@@ -74,6 +78,7 @@ __all__ = [
     "WindowMeta",
     "WindowPlan",
     "align_zone_matrices",
+    "copy_blocks_to_host_async",
     "copy_plane_to_host_async",
     "copy_to_host_async",
     "fetch_plane",
@@ -193,25 +198,26 @@ def fetch_plane(out: torch.Tensor | Sequence[torch.Tensor | None]
 class HostCopy:
     """Device tensors on their way to pinned host memory.
 
-    Made by :func:`copy_to_host_async`. :meth:`wait` blocks on the event
-    recorded behind the copies, then returns the host arrays. Reading a
-    pinned buffer filled by a ``non_blocking`` copy before that event
-    completes reads stale bytes without any error, so every read goes
-    through :meth:`wait`. The event is explicit: :meth:`wait` may run on
+    Made by :func:`copy_to_host_async` and :func:`copy_blocks_to_host_async`.
+    :meth:`wait` blocks on the events recorded behind the copies (one
+    per device), then returns the host arrays. Reading a pinned buffer
+    filled by a ``non_blocking`` copy before its event completes reads
+    stale bytes without any error, so every read goes through
+    :meth:`wait`. The events are explicit: :meth:`wait` may run on
     another thread, whose current CUDA stream is not the one the copies
     were queued on.
     """
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "events")
 
     def __init__(self, host: tuple[torch.Tensor, ...],
-                 event: torch.cuda.Event | None) -> None:
+                 events: tuple[torch.cuda.Event, ...] = ()) -> None:
         self.host = host
-        self.event = event
+        self.events = events
 
     def wait(self) -> tuple[np.ndarray, ...]:
-        if self.event is not None:
-            self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
         return tuple(h.numpy() for h in self.host)
 
 
@@ -220,45 +226,69 @@ def copy_to_host_async(*tensors: torch.Tensor) -> HostCopy:
     current stream (where the launches that made them were queued), with
     one event recorded right behind the copies. CPU tensors are already
     on the host and are taken as they are."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        return HostCopy(tuple(t.detach() for t in tensors), None)
-    host = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        host.append(h)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(dev))
-    return HostCopy(tuple(host), event)
+    return copy_blocks_to_host_async([tensors])
 
 
-class ShardedHostCopy:
-    """One sharded plane on its way to the host: a :class:`HostCopy` per
-    shard, queued on each shard's device. :meth:`wait` waits on every
-    shard's event and returns ``(plane,)`` — the shards' rows
-    concatenated in shard order — like a one-tensor :class:`HostCopy`."""
+def copy_blocks_to_host_async(
+        blocks: Sequence[Sequence[torch.Tensor] | None], axis: int = 0
+) -> HostCopy:
+    """Queue the D2H copy of per-block results → a :class:`HostCopy` of
+    each field joined over the blocks along ``axis``, in block order.
 
-    __slots__ = ("copies",)
-
-    def __init__(self, copies: list[HostCopy]) -> None:
-        self.copies = copies
-
-    def wait(self) -> tuple[np.ndarray]:
-        parts = [c.wait()[0] for c in self.copies]
-        return (np.concatenate(parts, axis=0),)
+    ``blocks[b]`` is block ``b``'s fields on its device (None: launched
+    by another process, skipped). On CUDA every field of every block
+    lands in its slice of ONE pinned byte buffer (a copy per block and
+    field — per leading index when ``axis > 0``, so both sides stay
+    contiguous), with one event per device behind its copies: one host
+    allocation and no host-side join, however many blocks. CPU tensors
+    are joined on the host as they are."""
+    parts = [tuple(b) for b in blocks if b is not None]
+    first = parts[0]
+    if first[0].device.type != "cuda":
+        if len(parts) == 1:
+            return HostCopy(tuple(t.detach() for t in first))
+        return HostCopy(tuple(
+            torch.from_numpy(np.concatenate(
+                [p[f].detach().numpy() for p in parts], axis=axis))
+            for f in range(len(first))))
+    shapes, offsets, size = [], [], 0
+    for f, t in enumerate(first):
+        shape = list(t.shape)
+        shape[axis] = sum(p[f].shape[axis] for p in parts)
+        shapes.append(shape)
+        offsets.append(size)
+        size += -(-int(np.prod(shape)) * t.element_size() // 16) * 16
+    buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+    host = tuple(
+        buf[off:off + int(np.prod(shape)) * t.element_size()].view(
+            t.dtype).view(shape)
+        for t, shape, off in zip(first, shapes, offsets))
+    at = [0] * len(first)
+    for p in parts:
+        for f, t in enumerate(p):
+            dst = host[f].narrow(axis, at[f], t.shape[axis])
+            for lead in np.ndindex(*dst.shape[:axis]):
+                dst[lead].copy_(t[lead], non_blocking=True)
+            at[f] += t.shape[axis]
+    events = []
+    for dev in dict.fromkeys(p[0].device for p in parts):
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        events.append(event)
+    return HostCopy(host, tuple(events))
 
 
 def copy_plane_to_host_async(
-        out: torch.Tensor | Sequence[torch.Tensor | None]
-) -> HostCopy | ShardedHostCopy:
-    """Queue a result plane's D2H copy: one :func:`copy_to_host_async`
-    for a tensor, one per launched shard for a sharded plane (shards
-    that are None — launched by another process — are skipped)."""
+        out: torch.Tensor | Sequence[torch.Tensor | None], axis: int = 0
+) -> HostCopy:
+    """Queue a result plane's D2H copy: a tensor, or one tensor per
+    shard or node block (None: launched by another process) joined along
+    ``axis`` (the node axis: 0 for a plane, 1 for a fused flush's
+    ``[K, N, W+2, Z]`` planes; :func:`copy_blocks_to_host_async`)."""
     if isinstance(out, torch.Tensor):
         return copy_to_host_async(out)
-    return ShardedHostCopy([copy_to_host_async(t) for t in out
-                            if t is not None])
+    return copy_blocks_to_host_async(
+        [None if t is None else (t,) for t in out], axis)
 
 
 def align_zone_matrices(reports: Sequence[NodeReport],
@@ -312,22 +342,22 @@ def align_zone_matrices(reports: Sequence[NodeReport],
 class _HostSlot:
     """One host staging slot: f32 rows + i32 indices, pinned when the
     engine's device is CUDA. ``reserve`` waits for the slot's last
-    upload to complete before handing its memory back for rewriting."""
+    uploads to complete before handing its memory back for rewriting."""
 
-    __slots__ = ("device", "rows", "idx", "_event")
+    __slots__ = ("device", "rows", "idx", "_events")
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
         self.rows = torch.zeros((0, 0), dtype=torch.float32)
         self.idx = torch.zeros(0, dtype=torch.int32)
-        self._event: torch.cuda.Event | None = None
+        self._events: list[torch.cuda.Event] = []
 
     def reserve(self, rows_shape: tuple[int, ...],
                 idx_shape: tuple[int, ...]) -> tuple[np.ndarray, np.ndarray]:
         """→ writable (rows, idx) host views of the requested shapes."""
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
+        for event in self._events:
+            event.synchronize()
+        self._events = []
         pin = self.device.type == "cuda"
         if tuple(self.rows.shape) != rows_shape:
             self.rows = torch.empty(rows_shape, dtype=torch.float32,
@@ -339,13 +369,54 @@ class _HostSlot:
 
     def upload(self) -> tuple[torch.Tensor, torch.Tensor]:
         """→ device copies of (rows, idx), enqueued on the current stream."""
-        if self.device.type != "cuda":
-            return self.rows.clone(), self.idx.clone()
-        rows = self.rows.to(self.device, non_blocking=True)
-        idx = self.idx.to(self.device, non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record(torch.cuda.current_stream(self.device))
+        return self.upload_blocks([self.device], whole=True)[0]
+
+    def upload_blocks(self, devices: Sequence[torch.device], whole: bool
+                      ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """→ one device ``(rows, idx)`` per entry of ``devices``, each
+        enqueued on that device's current stream: with ``whole`` the
+        whole slot, moved once per DISTINCT device; else entry ``i`` is
+        the slot's ``i``-th block ``(rows[i], idx[i])`` on
+        ``devices[i]``."""
+        moved: dict = {}
+        out = []
+        for i, dev in enumerate(devices):
+            key = dev if whole else i
+            if key not in moved:
+                src = ((self.rows, self.idx) if whole
+                       else (self.rows[i], self.idx[i]))
+                moved[key] = self._move(src, dev)
+            out.append(moved[key])
+        return out
+
+    def _move(self, src: tuple[torch.Tensor, torch.Tensor],
+              dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        if dev.type != "cuda":
+            return src[0].clone(), src[1].clone()
+        rows = src[0].to(dev, non_blocking=True)
+        idx = src[1].to(dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        self._events.append(event)
         return rows, idx
+
+
+def block_local_rows(rows: Sequence[np.ndarray], n_rows: int,
+                     n_blocks: int, width: int) -> np.ndarray:
+    """Lists of global row indices → ``[n_blocks, len(rows), width]``
+    BLOCK-LOCAL ones (``aggregator_core.block_local_index``): for each
+    list, block ``b`` keeps, in order, the indices that land in its rows;
+    the rest of its segment is its pad (gather-clamped,
+    scatter-dropped)."""
+    from kepler_tpu_torch.parallel.aggregator_core import block_local_index
+
+    sb = n_rows // n_blocks
+    out = np.full((n_blocks, len(rows), width), sb, np.int32)
+    for j, r in enumerate(rows):
+        for b, local in enumerate(block_local_index(r, n_rows, n_blocks)):
+            hit = local[local < sb]
+            out[b, j, :len(hit)] = hit
+    return out
 
 
 def _cost_stats(label: str, arg_bytes: int, out_bytes: int,
@@ -381,10 +452,23 @@ class PackedWindowEngine:
     fleet path. Single-threaded by contract: only the aggregation loop
     calls :meth:`plan_window` and :meth:`dispatch_window`.
 
-    ``device`` may be a :class:`~kepler_tpu_torch.parallel.mesh.Mesh`:
-    the batch then lives on the mesh's first shard's device, unsharded
-    (a 2-D ``node × model`` mesh), with the node bucket aligned to the
-    mesh size as the reference aligns it."""
+    ``device`` may be a :class:`~kepler_tpu_torch.parallel.mesh.Mesh`
+    (the aggregator's 2-D ``node × model`` mesh, or its fused tier's
+    mesh): the node bucket is then aligned to the mesh size as the
+    reference aligns it, and on two or more node blocks
+    (``parallel.aggregator_core.node_blocks``) the resident batch is cut
+    into them, as the reference's ``P(node, None)`` sharding cuts it.
+    Block ``b`` holds rows ``[b·N/n, (b+1)·N/n)`` on its node row's first
+    shard's device; the staged delta uploads whole once per distinct
+    device (the reference's replicated device_put) and scatters into
+    every block with block-local indices, and the packed program runs
+    once per block, its planes joined in block order at fetch. The
+    engine stays the unsharded one all the same: one staging, one
+    ``n_shards``, whole-batch H2D."""
+
+    # a mesh cuts the resident batch into node blocks (the sharded
+    # engine lays its shards out itself)
+    _NODE_BLOCKS = True
 
     # program-cache bound: ladder moves retire old shapes; keep a few
     # around for oscillation, evict the oldest beyond this
@@ -401,11 +485,19 @@ class PackedWindowEngine:
         if backend not in ("einsum", "pallas"):
             raise ValueError(f"unknown attribution backend {backend!r}; "
                              "valid: einsum, pallas")
+        from kepler_tpu_torch.parallel.aggregator_core import node_blocks
+
         n_dev = 1
+        mesh: Mesh | None = None
         if isinstance(device, Mesh):
-            n_dev = device.size
-            device = device.devices[0]
+            mesh = device
+            n_dev = mesh.size
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        # the resident batch's node blocks (none: one tensor on `device`)
+        blocks = (node_blocks(mesh) if mesh is not None and self._NODE_BLOCKS
+                  else ())
+        self._blocks = blocks if len(blocks) > 1 else ()
         self._backend = backend
         self._model_mode = model_mode
         # the bucket sequence follows the mesh size, as the reference's
@@ -421,8 +513,8 @@ class PackedWindowEngine:
         self._programs: dict[tuple, list] = {}
         self._updates: dict[tuple, list] = {}  # (n, width, db) key
         self.compile_count = 0  # program-cache misses (attribution + update)
-        # packed programs run per shard over this mesh (sharded engines)
-        self._program_mesh: Mesh | None = None
+        # packed programs run per shard or node block over this mesh
+        self._program_mesh: Mesh | None = mesh if self._blocks else None
         self._params_src: Any = None
         self._params_dev: dict[torch.device, dict] = {}
 
@@ -472,6 +564,37 @@ class PackedWindowEngine:
             self._params_dev[dev] = params_to(params, dev)
         return self._params_dev[dev]
 
+    # -- node blocks -------------------------------------------------------
+    # An engine without node blocks is one block on its device: these
+    # helpers build every per-block value as a list and hand a program
+    # the list over blocks, or the one value.
+
+    def _block_devices(self) -> list[torch.device]:
+        """Each node block's device (one block, on the engine's device,
+        when the batch is not cut)."""
+        return [b.device for b in self._blocks] or [self.device]
+
+    def _program_arg(self, parts: list) -> Any:
+        """Per-block values → a program argument: the list over node
+        blocks, or the single block's value."""
+        return parts if self._blocks else parts[0]
+
+    def _program_params(self, params: Any) -> Any:
+        """The params on each block's device (cached per device)."""
+        return self._program_arg([self._device_params(params, d)
+                                  for d in self._block_devices()])
+
+    def _blocks_on(self, local: np.ndarray) -> Any:
+        """``[n_blocks, …]`` host array → block ``i``'s entry on its
+        device, the array moving once per distinct device."""
+        on: dict[torch.device, torch.Tensor] = {}
+        parts = []
+        for i, dev in enumerate(self._block_devices()):
+            if dev not in on:
+                on[dev] = torch.from_numpy(local).to(dev)
+            parts.append(on[dev][i])
+        return self._program_arg(parts)
+
     # -- program/update caches ---------------------------------------------
 
     def _program_for(self, nb: int, wb: int, z: int,
@@ -509,8 +632,14 @@ class PackedWindowEngine:
                     "compile_error",
                     f"injected compile failure for update key {key}")
             from kepler_tpu_torch.ops.cuda_attribution import scatter_rows
+            from kepler_tpu_torch.parallel.aggregator_core import (
+                shard_by_node)
 
-            entry = [scatter_rows, True, None, self._update_label(key)]
+            # over node blocks: (blocks, rows per block, local idx per
+            # block) → one scatter launch per block
+            update = (shard_by_node(scatter_rows, self._program_mesh)
+                      if self._blocks else scatter_rows)
+            entry = [update, True, None, self._update_label(key)]
             self._updates[key] = entry
             self.compile_count += 1
             while len(self._updates) > self._CACHE_CAP:
@@ -667,17 +796,16 @@ class PackedWindowEngine:
         self._buf_served[self._buf_i] = self._window_seq
         meta = self._meta(rows, zones_t, nb)
         resident = self._buffers[self._buf_i]
-        dev_params = self._device_params(params)
+        dev_params = self._program_params(params)
         args: tuple
         mb: int | None = None
         if self._sparse:
             model_idx = np.flatnonzero(
                 np.asarray(self._mode, np.int32) == MODE_MODEL)
             mb = self._ladder_m.fit(max(1, len(model_idx)))
-            idx = np.full(mb, nb, np.int32)  # pad → gather-clamped, dropped
-            idx[:len(model_idx)] = model_idx
-            args = (dev_params, resident,
-                    torch.from_numpy(idx).to(self.device))
+            local = block_local_rows([model_idx], nb,
+                                     len(self._block_devices()), mb)
+            args = (dev_params, resident, self._blocks_on(local[:, 0]))
         else:
             args = (dev_params, resident)
         entry = self._program_for(nb, wb, z, mb)
@@ -769,8 +897,11 @@ class PackedWindowEngine:
         # every ring buffer starts from this full pack, each its own
         # device allocation, all content-current
         host = torch.from_numpy(packed)
-        self._buffers = [host.to(self.device, copy=True)
-                         for _ in self._stages]
+        devs = self._block_devices()
+        sb = nb // len(devs)
+        self._buffers = [self._program_arg(
+            [host[i * sb:(i + 1) * sb].to(d, copy=True)
+             for i, d in enumerate(devs)]) for _ in self._stages]
         idents = ([r.ident for r in ordered]
                   + [_EMPTY] * (nb - n_real))
         self._content = [list(idents) for _ in self._buffers]
@@ -865,6 +996,9 @@ class PackedWindowEngine:
         content identity differs from what this buffer last held (changed
         reports, joins, clears) and scatter the slice in place. → rows
         staged (0 = the buffer is already true)."""
+        from kepler_tpu_torch.parallel.aggregator_core import (
+            block_local_index)
+
         nb = self._key[0]  # type: ignore[index]
         changed, cleared = self._sync_rows(
             rows, self._content[self._buf_i], mark_others=True)
@@ -877,15 +1011,24 @@ class PackedWindowEngine:
         width = self._empty_row.shape[0]
         self._stage_i = (self._stage_i + 1) % len(self._stages)
         slot = self._stages[self._stage_i]
-        stage, idx = slot.reserve((db, width), (db,))
+        devs = self._block_devices()
+        stage, idx = slot.reserve((db, width), (len(devs), db))
         stage[:] = 0.0
-        idx[:] = nb
-        self._fill_stage(stage, idx, changed, cleared, zones_t)
+        global_idx = np.full(db, nb, np.int32)
+        self._fill_stage(stage, global_idx, changed, cleared, zones_t)
+        # each block's view of the whole staged delta: block-local
+        # indices, every row that lands elsewhere (and every pad) dropped
+        idx[:] = block_local_index(global_idx, nb, len(devs))
         entry = self._update_for(nb, width, db)
         update = entry[0]  # keplint: donates=0
         update_cold, entry[1] = entry[1], False
         resident = self._buffers[self._buf_i]
-        rows_dev, idx_dev = slot.upload()
+        # the whole delta once per distinct device, as the reference's
+        # replicated device_put
+        moved = slot.upload_blocks(devs, whole=True)
+        rows_dev = self._program_arg([r for r, _ in moved])
+        idx_dev = self._program_arg([i[b] for b, (_, i) in
+                                     enumerate(moved)])
         if update_cold:
             entry[2] = _cost_stats(entry[3], 4 * (nb * width + db * width
                                                   + db),
@@ -937,9 +1080,19 @@ class FusedWindowEngine(PackedWindowEngine):
     the next flush is cut, and every launch is ordered on one stream, so
     the in-place update never races a reader. A failed flush abandons the
     ring wholesale — :meth:`reset` drops the pending host ring too.
+
+    Over a mesh of two or more node blocks (the aggregator's full mesh,
+    as the reference's fused tier runs on it) the resident buffer is one
+    block per node block, each on its device; a flush cuts the pending
+    delta sets per block (``parallel.packed.cut_deltas_by_block``: the
+    rows that land there, block-local indices, at a width from the
+    engine's delta ladder) straight into one pinned slot, moves each
+    block's part once, runs the loop per block — with
+    ``backend="pallas"`` and no model one B2 launch per block — and the
+    K planes come back per block, joined along the node axis at fetch.
     """
 
-    def __init__(self, device: str | torch.device = "cuda",
+    def __init__(self, device: str | torch.device | Mesh = "cuda",
                  backend: str = "einsum",
                  model_mode: str | None = None,
                  node_bucket: int = 8, workload_bucket: int = 256,
@@ -1026,49 +1179,57 @@ class FusedWindowEngine(PackedWindowEngine):
         interval's delta to a common bucketed width and the batch to K
         (no-op tail intervals: zero rows, all-pad indices → dropped,
         their outputs never published)."""
+        from kepler_tpu_torch.parallel.packed import (block_delta_width,
+                                                      cut_deltas_by_block)
+
         nb, wb, zones_t = self._key  # type: ignore[misc]
         z = len(zones_t)
         pending, self._pending = self._pending, []
         k_live = len(pending)
         k = self.fused_k
-        need_d = max(1, max(len(idx) for _, idx, _, _ in pending))
-        db = min(self._ladder_d.fit(need_d), nb)
+        devs = self._block_devices()
+        steps = [(stage, idx) for stage, idx, _, _ in pending]
+        # the delta width of one block's sets, on the engine's ladder
+        need_d = block_delta_width([idx for _, idx in steps], nb, len(devs))
+        db = min(self._ladder_d.fit(max(1, need_d)), nb // len(devs))
         width = self._empty_row.shape[0]
+        h2d = sum(len(idx) for _, idx in steps)
+        # ONE pinned slot [blocks, K, db, width], cut into in place, each
+        # block's part moved once to its device
         slot = self._stages[0]
-        rows_b, idx_b = slot.reserve((k, db, width), (k, db))
-        rows_b[:] = 0.0
-        idx_b[:] = nb
-        h2d = 0
-        for j, (stage, idx, _, _) in enumerate(pending):
-            n = len(idx)
-            rows_b[j, :n] = stage
-            idx_b[j, :n] = idx
-            h2d += n
-        rows_dev, idx_dev = slot.upload()
+        rows_b, idx_b = slot.reserve((len(devs), k, db, width),
+                                     (len(devs), k, db))
+        cut_deltas_by_block(steps, nb, rows_b, idx_b)
+        moved = slot.upload_blocks(devs, whole=False)
+        rows_dev = self._program_arg([r for r, _ in moved])
+        idx_dev = self._program_arg([i for _, i in moved])
         args_tail: list = []
         mb: int | None = None
         if self._sparse:
             need_m = max(1, max(len(mi) for _, _, mi, _ in pending))
             mb = self._ladder_m.fit(need_m)
-            mrows = np.full((k, mb), nb, np.int32)
-            for j, (_, _, mi, _) in enumerate(pending):
-                mrows[j, :len(mi)] = mi
-            args_tail.append(torch.from_numpy(mrows).to(self.device))
+            # no-op tail intervals take an all-pad segment
+            per_step = ([mi for _, _, mi, _ in pending]
+                        + [np.zeros(0, np.int32)] * (k - k_live))
+            args_tail.append(self._blocks_on(block_local_rows(
+                per_step, nb, len(devs), mb)))
         entry = self._fused_program_for(nb, wb, z, mb, k, db)
         program, cold = entry[0], entry[1]
         if cold:
             self._fused_cost(entry, nb, wb, z, mb, k, db)
         entry[1] = False
-        args = (self._device_params(params), self._buffers[0],
-                rows_dev, idx_dev, *args_tail)
+        args = (self._program_params(params), self._buffers[0], rows_dev,
+                idx_dev, *args_tail)
         return FusedFlush(program=program, args=args, cold=cold,
                           metas=[m for _, _, _, m in pending],
                           k=k, k_live=k_live, h2d_rows=h2d)
 
     def dispatch(self, flush: FusedFlush, *,
-                 inject_faults: bool = True) -> torch.Tensor:
+                 inject_faults: bool = True) -> Any:
         """Run one fused batch → the ``[K, N, W+2, Z]`` f16 outputs on the
-        device. The resident block is updated in place; a flush cut
+        device (over node blocks: each block's ``[K, N/n, W+2, Z]``, in
+        block order; fetch with ``copy_plane_to_host_async(outs,
+        axis=1)``). The resident block is updated in place; a flush cut
         before a rebuild (``rebind=False``) runs against the retired
         old-shape block, which is then dropped. A device failure resets
         the ring and raises :class:`DeviceWindowError`.
@@ -1100,7 +1261,8 @@ class FusedWindowEngine(PackedWindowEngine):
 
             program = make_fused_window_program(
                 n_workloads=wb, n_zones=z, model_mode=self._model_mode,
-                backend=self._backend, model_bucket=mb, device=self.device)
+                backend=self._backend, model_bucket=mb, device=self.device,
+                mesh=self._program_mesh)
             entry = [program, True, None, self._fused_label(key)]
             self._fused_programs[key] = entry
             self.compile_count += 1
@@ -1125,14 +1287,18 @@ class FusedWindowEngine(PackedWindowEngine):
         from kepler_tpu_torch.ops.cuda_attribution import (
             fused_window_steps_cost)
 
+        # over node blocks: each block's K delta sets of width db, and
+        # one B2 launch per block over its N/n rows
+        n_blk = len(self._block_devices())
         width = wb + 2 * z + 4
-        arg = 4 * (nb * width + k * db * width + k * db)
+        arg = 4 * (nb * width + n_blk * k * db * (width + 1))
         if mb is not None:
-            arg += 4 * k * mb
+            arg += 4 * n_blk * k * mb
         out = 4 * nb * width + 2 * k * nb * (wb + 2) * z
         kernel = None
         if self._backend == "pallas" and not self._model_mode:
-            kernel = fused_window_steps_cost(nb, db, wb, z, k)
+            nbytes, ops = fused_window_steps_cost(nb // n_blk, db, wb, z, k)
+            kernel = (n_blk * nbytes, n_blk * ops)
         entry[2] = _cost_stats(entry[3], arg, out, kernel)
 
     # -- failure recovery / introspection ----------------------------------
@@ -1190,13 +1356,16 @@ class ShardedWindowEngine(PackedWindowEngine):
       the shard's buffer (``parallel.packed`` over the mesh; with a
       model mode the sparse gather stays shard-local, with
       ``backend="pallas"`` kernel B1 launches once per shard). The
-      result is one plane per shard; the publish fetch queues one D2H
-      copy per shard and concatenates them in shard order.
+      result is one plane per shard; the publish fetch queues each
+      shard's D2H copy into its rows of one pinned host buffer, in
+      shard order (``copy_blocks_to_host_async``).
 
     Requires a 1-D mesh over the node axis with ≥ 2 shards; the
     aggregator runs :class:`PackedWindowEngine` on single-shard and 2-D
     (node × model) meshes, and demotes to it on any shard's failure.
     """
+
+    _NODE_BLOCKS = False
 
     def __init__(self, mesh: Mesh, backend: str = "einsum",
                  model_mode: str | None = None,

@@ -12,12 +12,18 @@ The temporal fleet program (the aggregator's ``model: temporal``) takes
 each workload's feature history ``[N, W, T, F]`` beside the window and
 serves the temporal estimator's single-query fast path.
 
-Programs are plain callables over tensors on one device
-(:class:`FleetProgram`); :func:`run_fleet_attribution` moves a host
-batch there and runs one step. The ``make_*`` functions take ``device``
-(default ``"cuda"``) and raise when it is missing. Over a node mesh,
-:func:`shard_by_node` runs a single-shard body once per shard, on that
-shard's block and device (the packed window programs use it).
+Programs are plain callables over tensors (:class:`FleetProgram`);
+:func:`run_fleet_attribution` moves a host batch there and runs one
+step. The ``make_*`` functions take ``device`` (default ``"cuda"``) and
+raise when it is missing, or a ``mesh``: the program then runs once per
+NODE BLOCK of the mesh, as the reference's programs shard their batch by
+node. Node row ``i`` of the mesh (its first axis, ``node``) owns rows
+``[i·N/n, (i+1)·N/n)`` of the batch, and the block lives on the device
+of the row's first shard (model index 0): these programs have no
+model-axis math and replicated params, so the port computes each block
+once where the reference replicates it over ``model``
+(:func:`node_blocks`, :func:`shard_by_node`; the packed window programs
+use them too).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from kepler_tpu_torch.models.temporal import predict_temporal
 from kepler_tpu_torch.ops import recorder
 from kepler_tpu_torch.ops.attribution import AttributionResult, attribute_fleet
 from kepler_tpu_torch.parallel.fleet import MODE_MODEL, FleetBatch
-from kepler_tpu_torch.parallel.mesh import Mesh
+from kepler_tpu_torch.parallel.mesh import NODE_AXIS, Mesh
 
 
 class FleetResult(NamedTuple):
@@ -181,30 +187,97 @@ def on_device(device: torch.device) -> contextlib.AbstractContextManager:
     return contextlib.nullcontext()
 
 
+class NodeBlock(NamedTuple):
+    """One node block of a mesh: its index, the index of the shard it
+    runs on (its node row's first shard) and that shard's device."""
+
+    index: int
+    shard: int
+    device: torch.device
+
+
+def node_blocks(mesh: Mesh) -> tuple[NodeBlock, ...]:
+    """The node blocks of ``mesh``, in row order: one per shard of a 1-D
+    mesh, one per node row of a ``node × …`` mesh (shards are row-major,
+    so row ``i`` starts at shard ``i · size / n_node``). A mesh without a
+    ``node`` axis takes its first axis for it."""
+    n_node = mesh.axis_size(NODE_AXIS) or mesh.shape[0]
+    per_row = mesh.size // n_node
+    return tuple(NodeBlock(i, i * per_row, mesh.shards[i * per_row].device)
+                 for i in range(n_node))
+
+
+def block_local_index(idx: np.ndarray, n_rows: int,
+                      n_blocks: int) -> np.ndarray:
+    """Global row ids → ``[n_blocks, *idx.shape]`` BLOCK-LOCAL ones, in
+    place: block ``b`` owns rows ``[b·sb, (b+1)·sb)`` (``sb = n_rows /
+    n_blocks``) and sees each id that lands there less ``b·sb``, every
+    other id (another block's row, or a pad outside ``[0, n_rows)``) as
+    ``sb``, its own pad (gather-clamped, scatter-dropped). One block
+    leaves the ids in range as they are and pads with ``n_rows``."""
+    idx = np.asarray(idx)
+    sb = n_rows // n_blocks
+    first = sb * np.arange(n_blocks).reshape((n_blocks,) + (1,) * idx.ndim)
+    local = idx[None] - first
+    return np.where((local >= 0) & (local < sb), local, sb).astype(np.int32)
+
+
 def shard_by_node(fn: Callable, mesh: Mesh) -> Callable:
-    """Run ``fn`` once per shard of ``mesh``'s node axis.
+    """Run ``fn`` once per node block of ``mesh`` (:func:`node_blocks`).
 
     ``sharded(*args)`` takes each argument as a sequence with one entry
-    per shard (that shard's block, on its device) and returns a tuple of
-    ``fn``'s outputs in shard order. A shard whose arguments are all None
-    is not run here (another process owns it) and its output is None.
-    The fleet forward has no cross-node math, so running it per shard
-    changes layout, not semantics, and needs no collective.
+    per block (that block's rows, on its device) and returns a tuple of
+    ``fn``'s outputs in block order. A block whose arguments are all
+    None is not run here (another process owns it) and its output is
+    None. The fleet forward has no cross-node math, so running it per
+    block changes layout, not semantics, and needs no collective.
     """
-    devices = mesh.devices
+    blocks = node_blocks(mesh)
 
     def sharded(*args: Sequence[Any]) -> tuple:
         out = []
-        for k, dev in enumerate(devices):
-            if all(a[k] is None for a in args):
+        for b in blocks:
+            if all(a[b.index] is None for a in args):
                 out.append(None)
                 continue
-            recorder.shard(k)
-            with on_device(dev):
-                out.append(fn(*(a[k] for a in args)))
+            recorder.shard(b.index)
+            with on_device(b.device):
+                out.append(fn(*(a[b.index] for a in args)))
         return tuple(out)
 
     return sharded
+
+
+def put_blocks(arrays: Sequence[np.ndarray], mesh: Mesh
+               ) -> list[list[torch.Tensor]]:
+    """Host arrays with a leading node axis → per node block, each
+    array's block on the block's device, with ONE host-to-device copy
+    per block: the block's slices are packed into one byte buffer, which
+    moves once and is viewed back into the arrays' dtypes and shapes."""
+    blocks = node_blocks(mesh)
+    arrays = [np.asarray(a) for a in arrays]
+    n_rows = arrays[0].shape[0]
+    if n_rows % len(blocks):  # node buckets are aligned to the mesh size
+        raise ValueError(f"{n_rows} rows do not divide into {len(blocks)} "
+                         "node blocks")
+    sb = n_rows // len(blocks)
+    out = []
+    for b in blocks:
+        parts = [np.ascontiguousarray(a[b.index * sb:(b.index + 1) * sb])
+                 for a in arrays]
+        offsets, size = [], 0
+        for p in parts:
+            offsets.append(size)
+            size += -(-p.nbytes // 16) * 16  # 16-byte aligned segments
+        buf = np.empty(size, np.uint8)
+        for p, off in zip(parts, offsets):
+            buf[off:off + p.nbytes] = p.reshape(-1).view(np.uint8)
+        dev_buf = torch.from_numpy(buf).to(b.device)
+        out.append([
+            dev_buf[off:off + p.nbytes].view(torch.from_numpy(p[:0]).dtype
+                                             ).view(p.shape)
+            for p, off in zip(parts, offsets)])
+    return out
 
 
 def accuracy_mode_predictor(predict_fn: Callable,
@@ -227,27 +300,39 @@ def accuracy_mode_predictor(predict_fn: Callable,
 
 @dataclass(frozen=True)
 class FleetProgram:
-    """A fleet program bound to the device its inputs must lie on."""
+    """A fleet program bound to the device its inputs must lie on, or,
+    with ``mesh``, run once per node block of the mesh: it then takes
+    every argument as a per-block sequence and returns the blocks'
+    :class:`FleetResult` s in block order."""
 
-    fn: Callable[..., FleetResult]
+    fn: Callable[..., Any]
     device: torch.device
+    mesh: Mesh | None = None
 
-    def __call__(self, *args: Any) -> FleetResult:
+    def __call__(self, *args: Any) -> Any:
         return self.fn(*args)
+
+
+def _bind(body: Callable, device: str | torch.device,
+          mesh: Mesh | None) -> FleetProgram:
+    if mesh is None:
+        return FleetProgram(body, resolve_device(device))
+    return FleetProgram(shard_by_node(body, mesh), mesh.devices[0], mesh)
 
 
 def make_fleet_program(device: str | torch.device = "cuda",
                        model_mode: str | None = None,
                        backend: str = "einsum",
-                       accuracy_mode: bool = False) -> FleetProgram:
+                       accuracy_mode: bool = False,
+                       mesh: Mesh | None = None) -> FleetProgram:
     """The single-tick fleet program on ``device`` (the aggregator's
-    serial rung).
+    serial rung), or over ``mesh``'s node blocks.
 
     ``model_mode``: None = ratio only; "linear"/"mlp" evaluates that
     predictor for mixed fleets. ``backend``: "einsum" (plain tensor ops)
-    or "pallas" (the attribution contraction as kernel B1).
+    or "pallas" (the attribution contraction as kernel B1, once per
+    node block over a mesh).
     """
-    dev = resolve_device(device)
     predict_fn = predictor(model_mode) if model_mode else None
     if predict_fn is not None and accuracy_mode:
         predict_fn = accuracy_mode_predictor(predict_fn, model_mode)
@@ -258,17 +343,17 @@ def make_fleet_program(device: str | torch.device = "cuda",
                                          predict_fn=predict_fn,
                                          attribute_fn=attribute_fn)
 
-    return FleetProgram(program, dev)
+    return _bind(program, device, mesh)
 
 
 def make_temporal_fleet_program(device: str | torch.device = "cuda",
                                 backend: str = "einsum",
-                                accuracy_mode: bool = False
-                                ) -> FleetProgram:
-    """The TEMPORAL fleet program on ``device`` (extra ``feat_hist`` and
-    ``t_valid`` inputs). With ``backend="pallas"`` its attribution runs as
-    kernel B1; the estimator's fast path launches no kernel."""
-    dev = resolve_device(device)
+                                accuracy_mode: bool = False,
+                                mesh: Mesh | None = None) -> FleetProgram:
+    """The TEMPORAL fleet program on ``device``, or over ``mesh``'s node
+    blocks (extra ``feat_hist`` and ``t_valid`` inputs). With
+    ``backend="pallas"`` its attribution runs as kernel B1 (once per
+    block); the estimator's fast path launches no kernel."""
     attribute_fn = resolve_attribute_fn(backend)
 
     def program(model_params: Any, *data: torch.Tensor) -> FleetResult:
@@ -276,7 +361,7 @@ def make_temporal_fleet_program(device: str | torch.device = "cuda",
                                       attribute_fn=attribute_fn,
                                       accuracy_mode=accuracy_mode)
 
-    return FleetProgram(program, dev)
+    return _bind(program, device, mesh)
 
 
 def run_fleet_attribution(
@@ -285,20 +370,29 @@ def run_fleet_attribution(
     model_params: Any = None,
     feat_hist: np.ndarray | torch.Tensor | None = None,  # [N, W, T, F]
     t_valid: np.ndarray | torch.Tensor | None = None,  # [N, W, T]
-) -> FleetResult:
+) -> FleetResult | tuple[FleetResult, ...]:
     """Host entry: move the padded batch (and the params, and for temporal
-    programs the history windows) to the program's device, run one step."""
-    dev = program.device
+    programs the history windows) to the program's device, run one step.
 
-    def put(x: Any) -> torch.Tensor:
-        return torch.as_tensor(x).to(dev)
-
-    params = (params_to(model_params, dev)
-              if model_params is not None else None)
-    args = [put(batch.zone_deltas_uj), put(batch.zone_valid),
-            put(batch.usage_ratio), put(batch.cpu_deltas),
-            put(batch.workload_valid), put(batch.node_cpu_delta),
-            put(batch.dt_s), put(batch.mode)]
+    Over a mesh the batch is cut into the program's node blocks, each
+    moved to its block's device in one copy, with the params once per
+    distinct device; → the blocks' results in block order."""
+    data = [batch.zone_deltas_uj, batch.zone_valid, batch.usage_ratio,
+            batch.cpu_deltas, batch.workload_valid, batch.node_cpu_delta,
+            batch.dt_s, batch.mode]
     if feat_hist is not None:
-        args += [put(feat_hist), put(t_valid)]
-    return program(params, *args)
+        data += [feat_hist, t_valid]
+    mesh = program.mesh
+    if mesh is None:
+        dev = program.device
+        params = (params_to(model_params, dev)
+                  if model_params is not None else None)
+        return program(params, *(torch.as_tensor(x).to(dev) for x in data))
+    blocks = put_blocks([np.asarray(x) for x in data], mesh)
+    on: dict[torch.device, Any] = {}
+    params = []
+    for b in node_blocks(mesh):
+        if model_params is not None and b.device not in on:
+            on[b.device] = params_to(model_params, b.device)
+        params.append(on.get(b.device))
+    return program(params, *zip(*blocks))

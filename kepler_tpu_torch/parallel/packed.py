@@ -15,8 +15,9 @@ hand-written CUDA kernels of ``ops.cuda_attribution`` (B1 in the
 per-window program, B2 once per flush of the fused window loop);
 ``backend="einsum"`` composes plain tensor ops. The builders take an
 explicit ``device`` (default ``"cuda"``) and raise when it is missing;
-the per-window program also runs over a node mesh, once per shard
-(B1 once per shard per window with ``backend="pallas"``).
+the per-window program and the fused loop also run over a mesh, once
+per node block (B1 once per block per window, B2 once per block per
+flush, with ``backend="pallas"``).
 
 Sparse model evaluation (``model_bucket``, einsum backend only): the
 estimator runs only on the gathered MODE_MODEL rows named by a bucketed
@@ -44,6 +45,7 @@ from kepler_tpu_torch.models.features import build_features
 from kepler_tpu_torch.ops.cuda_attribution import scatter_rows
 from kepler_tpu_torch.parallel.aggregator_core import (
     FleetResult,
+    block_local_index,
     fleet_attribution_program,
     mix_model_watts,
     resolve_attribute_fn,
@@ -283,18 +285,19 @@ def make_packed_fleet_program(n_workloads: int, n_zones: int,
     takes a third ``model_rows`` int32 [model_bucket] argument and
     evaluates the estimator ONLY on those rows; entries ≥ N are padding.
 
-    ``mesh``: the SHARDED program over the mesh's node axis
-    (:func:`~kepler_tpu_torch.parallel.aggregator_core.shard_by_node`).
-    Every argument is then a sequence with one entry per shard — the
-    shard's params, its ``[sb, W+2Z+4]`` block and, sparse, its
-    ``model_rows`` segment — and the result is the tuple of the shards'
-    ``[sb, W+2, Z]`` planes, in shard order. Every case runs per shard:
+    ``mesh``: the program per NODE BLOCK of the mesh (one per shard of a
+    1-D mesh, one per node row of a ``node × model`` mesh;
+    :func:`~kepler_tpu_torch.parallel.aggregator_core.shard_by_node`).
+    Every argument is then a sequence with one entry per block — the
+    block's params, its ``[sb, W+2Z+4]`` rows and, sparse, its
+    ``model_rows`` segment — and the result is the tuple of the blocks'
+    ``[sb, W+2, Z]`` planes, in block order. Every case runs per block:
     the dense body (with ``backend="pallas"``, kernel B1 once per
-    shard), and the sparse body, which needs ``local_model_rows``: each
-    shard's ``model_bucket`` segment holds SHARD-LOCAL row indices (pad
-    = the shard's row count, gather-clamped and scatter-dropped per
-    shard), so the gather, the estimator and the scatter-back stay on
-    the shard.
+    block), and the sparse body, which needs ``local_model_rows``: each
+    block's ``model_bucket`` segment holds BLOCK-LOCAL row indices (pad
+    = the block's row count, gather-clamped and scatter-dropped per
+    block), so the gather, the estimator and the scatter-back stay on
+    the block.
     """
     dense, sparse = _window_step_fns(n_workloads, n_zones, model_mode,
                                      backend, model_bucket)
@@ -308,12 +311,46 @@ def make_packed_fleet_program(n_workloads: int, n_zones: int,
     return shard_by_node(sparse if sparse is not None else dense, mesh)
 
 
+def block_delta_width(idxs: Sequence[np.ndarray], n_rows: int,
+                      n_blocks: int) -> int:
+    """The most rows any of a flush's delta index sets lands in any one
+    node block (0 for none): the least per-block delta width that
+    :func:`cut_deltas_by_block` can write."""
+    sb = n_rows // n_blocks
+    return max([0] + [int((block_local_index(i, n_rows, n_blocks) < sb)
+                          .sum(axis=-1).max()) for i in idxs])
+
+
+def cut_deltas_by_block(steps: Sequence[tuple[np.ndarray, np.ndarray]],
+                        n_rows: int, rows_out: np.ndarray,
+                        idx_out: np.ndarray) -> None:
+    """A flush's delta sets, cut per node block into the staging
+    ``rows_out [n_blocks, K, db, width]`` and ``idx_out [n_blocks, K,
+    db]``: step ``j``'s ``(rows [n_j, width], idx [n_j])`` (global row
+    ids) gives block ``b`` the delta rows that land in it, in order, with
+    BLOCK-LOCAL indices (``aggregator_core.block_local_index``); the
+    rest of the block's segment, and every step past ``len(steps)``, is
+    zero rows at the block's pad (its row count, dropped as ``N`` is for
+    the whole batch). ``db`` must hold :func:`block_delta_width` of the
+    steps' indices. One block writes the sets as they are, padded."""
+    n_blocks = idx_out.shape[0]
+    sb = n_rows // n_blocks
+    rows_out[:] = 0.0
+    idx_out[:] = sb
+    for j, (rows, idx) in enumerate(steps):
+        for b, local in enumerate(block_local_index(idx, n_rows, n_blocks)):
+            hit = local < sb
+            n = int(hit.sum())
+            rows_out[b, j, :n] = rows[hit]
+            idx_out[b, j, :n] = local[hit]
+
+
 def make_fused_window_program(n_workloads: int, n_zones: int,
                               model_mode: str | None = None,
                               backend: str = "einsum",
                               model_bucket: int | None = None,
-                              device: str | torch.device = "cuda"
-                              ) -> Callable:
+                              device: str | torch.device = "cuda",
+                              mesh: Mesh | None = None) -> Callable:
     """→ the DEVICE-RESIDENT window loop: one host sync per K windows.
 
     ``fused(params, resident, delta_rows, delta_idx[, model_rows])``:
@@ -336,8 +373,21 @@ def make_fused_window_program(n_workloads: int, n_zones: int,
     intervals' scatter + unpack + attribution in one kernel body.
     Everywhere else each interval composes the drop-mode scatter with
     the shared window body.
+
+    ``mesh``: the loop runs once per node block of the mesh
+    (:func:`~kepler_tpu_torch.parallel.aggregator_core.shard_by_node`),
+    as the reference's program shards its resident and outputs by node.
+    Every argument is then a per-block sequence — the block's params,
+    its ``[N/n, width]`` resident, its delta sets with BLOCK-LOCAL
+    indices (pad = the block's row count; :func:`cut_deltas_by_block`)
+    and, sparse, its local model rows — and the result is
+    ``(residents, outs)``: the blocks' residents and their
+    ``[K, N/n, W+2, Z]`` planes, each in block order. With
+    ``backend="pallas"`` and no model that is one B2 launch per block
+    per flush: the reference gives B2 up on several devices only because
+    its indices are global row ids there, and block-local ones serve
+    the same kernel.
     """
-    resolve_device(device)
     dense_fn, sparse_fn = _window_step_fns(
         n_workloads, n_zones, model_mode, backend, model_bucket)
     lay = PackedLayout(n_workloads, n_zones)
@@ -348,42 +398,47 @@ def make_fused_window_program(n_workloads: int, n_zones: int,
                            dtype=torch.float16, device=resident.device)
 
     if sparse_fn is not None:
-        def fused_sparse(model_params: Any, resident: torch.Tensor,
-                         delta_rows: torch.Tensor, delta_idx: torch.Tensor,
-                         model_rows: torch.Tensor) -> tuple[
-                             torch.Tensor, torch.Tensor]:
+        def fused(model_params: Any, resident: torch.Tensor,
+                  delta_rows: torch.Tensor, delta_idx: torch.Tensor,
+                  model_rows: torch.Tensor) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
             outs = alloc(resident, delta_rows.shape[0])
             for k in range(delta_rows.shape[0]):
                 scatter_rows(resident, delta_rows[k], delta_idx[k])
                 outs[k] = sparse_fn(model_params, resident, model_rows[k])
             return resident, outs
-
-        return fused_sparse
-
-    if backend == "pallas" and model_mode is None:
+    elif backend == "pallas" and model_mode is None:
         from kepler_tpu_torch.ops.cuda_attribution import fused_window_steps
 
-        def fused_kernel(model_params: Any, resident: torch.Tensor,
-                         delta_rows: torch.Tensor,
-                         delta_idx: torch.Tensor) -> tuple[
-                             torch.Tensor, torch.Tensor]:
+        def fused(model_params: Any, resident: torch.Tensor,
+                  delta_rows: torch.Tensor,
+                  delta_idx: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
             return fused_window_steps(resident, delta_rows, delta_idx, lay,
                                       out=alloc(resident,
                                                 delta_rows.shape[0]))
+    else:
+        def fused(model_params: Any, resident: torch.Tensor,
+                  delta_rows: torch.Tensor,
+                  delta_idx: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+            outs = alloc(resident, delta_rows.shape[0])
+            for k in range(delta_rows.shape[0]):
+                scatter_rows(resident, delta_rows[k], delta_idx[k])
+                outs[k] = dense_fn(model_params, resident)
+            return resident, outs
 
-        return fused_kernel
+    if mesh is None:
+        resolve_device(device)
+        return fused
+    per_block = shard_by_node(fused, mesh)
 
-    def fused_dense(model_params: Any, resident: torch.Tensor,
-                    delta_rows: torch.Tensor,
-                    delta_idx: torch.Tensor) -> tuple[
-                        torch.Tensor, torch.Tensor]:
-        outs = alloc(resident, delta_rows.shape[0])
-        for k in range(delta_rows.shape[0]):
-            scatter_rows(resident, delta_rows[k], delta_idx[k])
-            outs[k] = dense_fn(model_params, resident)
-        return resident, outs
+    def fused_blocks(*args: Sequence[Any]) -> tuple[tuple, tuple]:
+        pairs = per_block(*args)
+        return (tuple(None if p is None else p[0] for p in pairs),
+                tuple(None if p is None else p[1] for p in pairs))
 
-    return fused_dense
+    return fused_blocks
 
 
 def _numpy_gelu(x: np.ndarray) -> np.ndarray:

@@ -11,7 +11,7 @@ B1 must equal its plain version exactly; B2's resident block must equal
 it exactly and its f16 planes within one f16 ulp (none is expected: the
 kernel runs the plain version's f32 operations in the same order, with
 IEEE division and round-to-nearest conversion), for one step and for K
-steps in one launch. B3's two variants (tensor cores, SIMT) differ from
+steps in one launch, and per node block of a mesh bit for bit. B3's two variants (tensor cores, SIMT) differ from
 the plain version only in summation order: at f32 compute within rtol =
 atol = 1e-5; at bf16 compute ``m`` and ``l`` within rtol 1e-5 and ``pv``
 within 1e-2 · max|v| (products of bf16 values are exact and sums are f32;
@@ -125,6 +125,57 @@ def test_fused_window_kernel_equals_plain(cuda_device, n, w, z, db_kind):
     ulps = f16_ulps(plane.cpu().numpy(), plane_ref.cpu().numpy())
     assert int(ulps.max()) <= 1
     assert int((ulps > 0).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axes", [([8], ("node",)),
+                                        ([4, 2], ("node", "model"))])
+def test_fused_program_per_node_block_equals_plain(cuda_device, shape, axes):
+    """The fused loop over a mesh of virtual shards of the card, with
+    ``backend="pallas"``: one B2 launch per node block per flush, and
+    every block's resident and K planes bit-equal to the plain version
+    of B2 on the same block-local inputs."""
+    from kepler_tpu_torch.parallel.mesh import make_mesh
+    from kepler_tpu_torch.parallel.packed import (block_delta_width,
+                                                  cut_deltas_by_block,
+                                                  make_fused_window_program)
+
+    n, w, z, k, db = 1024, 256, 4, 4, 128
+    mesh = make_mesh(shape, axes, devices=[cuda_device] * 8)
+    n_blocks = shape[0]
+    sb = n // n_blocks
+    resident, _, _ = window_inputs(5, n, w, z, 1)
+    rng = np.random.default_rng(6)
+    deltas = np.stack([window_inputs(7 + s, db, w, z, 1)[0]
+                       for s in range(k)])
+    idx = np.stack([rng.permutation(n)[:db] for _ in range(k)]).astype(
+        np.int32)
+    idx[rng.uniform(size=idx.shape) < 0.2] = n  # pads
+    dbb = block_delta_width(list(idx), n, n_blocks)
+    cut_rows = np.empty((n_blocks, k, dbb, deltas.shape[-1]), np.float32)
+    cut_idx = np.empty((n_blocks, k, dbb), np.int32)
+    cut_deltas_by_block(list(zip(deltas, idx)), n, cut_rows, cut_idx)
+    cuts = list(zip(cut_rows, cut_idx))
+    lay = PackedLayout(w, z)
+    fused = make_fused_window_program(w, z, backend="pallas", mesh=mesh)
+
+    def blocks():
+        return [torch.from_numpy(resident[b * sb:(b + 1) * sb].copy()).to(
+            cuda_device) for b in range(n_blocks)]
+
+    rows = [torch.from_numpy(r).to(cuda_device) for r, _ in cuts]
+    idxs = [torch.from_numpy(i).to(cuda_device) for _, i in cuts]
+    before = ca.LAUNCHES["fused_window_step"]
+    res, outs = fused([None] * n_blocks, blocks(), rows, idxs)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES["fused_window_step"] == before + n_blocks
+    for b, plain in enumerate(blocks()):
+        _, plane = ca.fused_window_steps_ref(plain, rows[b], idxs[b], lay)
+        # bit for bit (the resident's empty workload slots are NaN)
+        assert torch.equal(res[b].view(torch.int32), plain.view(torch.int32))
+        assert outs[b].shape == (k, sb, w + 2, z)
+        assert torch.equal(outs[b].view(torch.int16),
+                           plane.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -363,6 +414,29 @@ def test_copy_to_host_async_waits_on_its_event(cuda_device):
     assert len(out) == 2
     assert np.array_equal(out[0], y.cpu().numpy())
     assert np.array_equal(out[1], x[:8].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_copy_blocks_to_host_async_joins_blocks_in_one_buffer(cuda_device,
+                                                             axis):
+    """Per-block results on the card land in one pinned buffer, each
+    field joined over the blocks along ``axis``, equal to the blocks
+    joined on the card."""
+    from kepler_tpu_torch.fleet.window import copy_blocks_to_host_async
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    blocks = [(torch.randn((4, 128, 6, 4), generator=gen,
+                           device=cuda_device).to(torch.float16),
+               torch.randn((4, 128), generator=gen, device=cuda_device))
+              for _ in range(8)]
+    copy = copy_blocks_to_host_async(blocks, axis=axis)
+    got = copy.wait()
+    assert len(copy.events) == 1
+    assert all(h.is_pinned() for h in copy.host)
+    for f in range(2):
+        want = torch.cat([b[f] for b in blocks], dim=axis).cpu().numpy()
+        assert np.array_equal(got[f].view(np.uint8), want.view(np.uint8))
 
 
 @pytest.mark.cuda

@@ -214,9 +214,11 @@ def test_declared_donation_not_updated_fires():
     real = spec_by_name("window.update")
 
     def build(case, dev):
+        # the resident batch is the unsharded engine's node blocks: the
+        # mutated update scatters into a clone of every block
         fn, args = real.build(case, dev)
         return (lambda resident, rows, idx:
-                fn(resident.clone(), rows, idx)), args
+                fn([r.clone() for r in resident], rows, idx)), args
 
     flipped = dataclasses.replace(real, build=build, cases=real.cases[:1])
     diags = _run(flipped, {"KTL121"})

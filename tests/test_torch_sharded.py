@@ -268,8 +268,16 @@ def test_aggregator_2d_mesh_runs_the_unsharded_engine():
     for agg in (pair.jax, pair.port):
         assert agg._stats["window_shards"] == 1
         assert agg.window_health()["rung_name"] == "packed-pipelined"
-    # the batch sits on the first shard's device, buckets aligned to 8
-    assert pair.port._engine._ladder_n.align == 8
+    # buckets aligned to 8; the batch cut into one block per node row,
+    # each on its row's first shard (shards 0, 2, 4, 6), every ring slot
+    eng = pair.port._engine
+    assert eng._ladder_n.align == 8
+    assert [b.shard for b in eng._blocks] == [0, 2, 4, 6]
+    nb = eng._key[0]
+    for slot in eng._buffers:
+        assert [t.shape for t in slot] == [(nb // 4, eng._empty_row.size)] * 4
+        assert all(t.device == pair.port._mesh.shards[b.shard].device
+                   for t, b in zip(slot, eng._blocks))
 
 
 def test_sticky_join_drop_rejoin_touch_one_shard_as_jax():
