@@ -118,7 +118,19 @@ zones, buckets N = 1024, W = 256):
    per block per window; the einsum-serial rung on the 4 × 2 mesh with
    the 50/50 MLP fleet, reached through two injected
    ``device.dispatch_error`` s; and the op shapes of each block's
-   program, none of which may hold all 1024 rows.
+   program, none of which may hold all 1024 rows;
+17. the families across processes (``main_dist``, phase ``dist``): two
+   ranks (``torch.multiprocessing``, under a time limit of their own)
+   share the card, each owning 4 of an 8-shard ``seq`` mesh, and join
+   NCCL through ``initialize_multihost(device="cuda")``. NCCL refuses
+   two ranks on one device; its words are printed, and the same two
+   ranks run over NCCL with a host id each (``NCCL_HOSTID``), which it
+   takes. Each rank runs the pallas ring at path 14's size (B3 for its 4
+   shards, 32 launches, then held against its plain version), the ring's
+   serving program at f32 and bf16 and one sequence-parallel train step
+   with remat; every output against the same mesh in one process (bit-
+   equal; bf16 watts within 1e-2 · max|watts|), with each call's wall
+   time and the bytes each collective handed to NCCL.
 
 Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
@@ -134,7 +146,7 @@ on paths 2, 3, 9, 11 and 13 launches it.
 ``--phases a,b`` runs only the named phases (of ``PHASES``: ``kernels``,
 ``ratio``, ``mixed``, ``serial_mlp``, ``aggregator``, ``temporal``,
 ``train``, ``node``, ``sharded``, ``mesh``, ``chaos``, ``parallel``,
-``analysis``), e.g. ``python3 chip_smoke.py --phases parallel``; with no
+``dist``, ``analysis``), e.g. ``python3 chip_smoke.py --phases parallel``; with no
 argument every phase runs. The ``kernels`` line then carries the
 launches of the phases that ran, and each kernel's timings only when the
 ``kernels`` phase ran.
@@ -4402,6 +4414,272 @@ def main_parallel(dev: torch.device) -> dict:
     return row
 
 
+# -- the families across processes (path 17) -----------------------------------
+
+# two ranks on the one card, each owning 4 of the mesh's 8 shards (0-3,
+# 4-7); each spawn under a time limit of its own
+DIST_RANKS = 2
+DIST_ATTEMPT_S, DIST_RUN_S = 150, 480
+DIST_SEED = SEED + 30
+
+
+def dist_mesh(dev: torch.device, ranks: int | None):
+    """The 8 shards of ``dev`` as a ``seq`` mesh: this process's
+    (``ranks=None``), or ``ranks`` ranks' in blocks."""
+    from kepler_tpu_torch.parallel.mesh import Shard, make_mesh
+
+    n = PARALLEL_SHARDS
+    shards = ([dev] * n if ranks is None else
+              [Shard(dev, k * ranks // n) for k in range(n)])
+    return make_mesh([n], ["seq"], devices=shards)
+
+
+def digest(x: torch.Tensor) -> list[int]:
+    """Two wrapping int64 sums over ``x``'s 32-bit words, plain and
+    position-weighted: two runs with equal digests hold (short of a
+    collision) the same bits. In slices, to bound the memory."""
+    words = x.detach().contiguous().view(torch.int32).reshape(-1)
+    total = weighted = 0
+    step = 1 << 25
+    for at in range(0, words.numel(), step):
+        w = words[at:at + step].to(torch.int64)
+        pos = torch.arange(at, at + w.numel(), device=w.device) % 65521 + 1
+        total += int(w.sum())
+        weighted += int((w * pos).sum())
+    return [total % (1 << 64), weighted % (1 << 64)]
+
+
+def dist_calls(dev: torch.device, ranks: int | None) -> dict:
+    """The dist phase's calls on :func:`dist_mesh` → each call's wall ms,
+    B3 launches and bytes by collective, and what it returned: the
+    pallas ring at B = 4096, T = 1024 (as a :func:`digest`; on a rank, B3
+    then held against its plain version on the diagonal block of the
+    rank's first shard), the ring's serving program at f32 and bf16 on
+    the same B and T, and one sequence-parallel train step with remat at
+    B = 512 (loss, gradients, updated params)."""
+    from kepler_tpu_torch.models import train
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.ops import cuda_attention as cat
+    from kepler_tpu_torch.parallel import (local_shards, make_ring_attention,
+                                           make_sequence_parallel_train_step,
+                                           make_temporal_program)
+    from kepler_tpu_torch.parallel import collectives as col
+
+    mesh = dist_mesh(dev, ranks)
+    out: dict = {"calls": {}}
+
+    def call(label: str, fn):
+        col.reset_crossing()
+        reset_launches()
+        res, ms = timed_call(fn)
+        out["calls"][label] = {
+            "ms": ms, "launches": read_launches(),
+            "bytes": {k: v["bytes"] for k, v in col.CROSSING.items()},
+            "crossings": {k: v["calls"] for k, v in col.CROSSING.items()}}
+        return res
+
+    b, t, n = PARALLEL_B, PARALLEL_T, PARALLEL_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    q, k, v = (torch.randn((b, t, N_HEADS, D_MODEL // N_HEADS),
+                           generator=gen, device=dev) for _ in range(3))
+    valid = ragged_lengths(gen, dev, b, t)
+    ring = make_ring_attention(mesh, backend="pallas")
+    got = call("ring_b3", lambda: ring(q, k, v, valid))
+    check(bool(torch.isfinite(got).all()), "dist ring: non-finite output")
+    out["ring_b3_digest"] = digest(got)
+    del got
+    if ranks is not None:
+        t_loc = t // n
+        blk = slice(local_shards(mesh)[0] * t_loc,
+                    (local_shards(mesh)[0] + 1) * t_loc)
+        qb, kb, vb = (x[:, blk].contiguous() for x in (q, k, v))
+        vab = valid[:, blk].contiguous()
+        start = blk.start
+        out["b3_max_abs_err"] = b3_check(
+            cat.flash_block_pallas(qb, kb, vb, vab, start, start),
+            cat.flash_block_ref(qb, kb, vb, vab, start, start), vb,
+            torch.bfloat16, f"B3 on rank {torch.distributed.get_rank()}'s "
+            "diagonal block")
+        del qb, kb, vb, vab
+    del q, k, v, valid
+    torch.cuda.empty_cache()
+
+    params = params_to(temporal_params(ACC_SCALE, t_max=t), dev)
+    hist, wv, tv, _ = temporal_inputs(dev, b, t, DIST_SEED + 1)
+    for cd, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        program = make_temporal_program(mesh, compute_dtype=dtype)
+        out[f"serve_{cd}"] = call(f"serve_{cd}", lambda: program(
+            params, hist, wv, tv)).cpu()
+    del hist, wv, tv
+    torch.cuda.empty_cache()
+
+    hist, wv, tv, targets = temporal_inputs(dev, PARALLEL_TRAIN_B, t,
+                                            DIST_SEED + 2)
+    state = train.create_train_state(params, train.make_optimizer(1e-3))
+    step = make_sequence_parallel_train_step(mesh, remat=True)
+    state, loss = call("train_step", lambda: step(state, hist, wv, tv,
+                                                  targets))
+    out["train_loss"] = loss.cpu()
+    out["train_params"] = {key: p.detach().cpu()
+                           for key, p in state.params.items()}
+    out["train_grads"] = {key: p.grad.cpu()
+                          for key, p in state.params.items()}
+    del hist, wv, tv, targets, state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(rank: int, world: int, addr: str, host_ids: bool,
+              prefix: str) -> None:
+    """One rank of the dist phase (``torch.multiprocessing``): join NCCL
+    on the card (``host_ids``: each rank first names itself a host of its
+    own, ``NCCL_HOSTID``), run :func:`dist_calls` over the ranks' mesh,
+    and write what it got, or what failed, to ``{prefix}-rank{rank}.pt``."""
+    result: dict = {"rank": rank}
+    try:
+        if host_ids:
+            os.environ["NCCL_HOSTID"] = f"kepler-dist-rank-{rank}"
+        from kepler_tpu_torch.parallel.mesh import initialize_multihost
+
+        dev = torch.device("cuda", 0)
+        t0 = time.perf_counter()
+        initialize_multihost(coordinator_address=addr, num_processes=world,
+                             process_id=rank, init_timeout=60, device=dev)
+        result["join_s"] = time.perf_counter() - t0
+        result["backend"] = str(torch.distributed.get_backend())
+        result.update(dist_calls(dev, world))
+        torch.distributed.destroy_process_group()
+    except Exception as err:  # the parent reads and reports it
+        result["error"] = f"{type(err).__name__}: {err}"[-3000:]
+    torch.save(result, f"{prefix}-rank{rank}.pt")
+
+
+def dist_spawn(host_ids: bool, tmp: str, limit_s: float) -> list[dict]:
+    """:func:`dist_rank` on DIST_RANKS processes, all killed at
+    ``limit_s`` → each rank's result (a rank that died or ran out of time
+    reads as an error)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    prefix = os.path.join(tmp, "host-ids" if host_ids else "plain")
+    ctx = mp.spawn(dist_rank, args=(DIST_RANKS, addr, host_ids, prefix),
+                   nprocs=DIST_RANKS, join=False)
+    deadline = time.monotonic() + limit_s
+    failure = None
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                failure = f"no result within {limit_s} s"
+                break
+    except Exception as err:  # a rank exited with an error code
+        failure = f"{type(err).__name__}: {err}"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    results = []
+    for rank in range(DIST_RANKS):
+        path = f"{prefix}-rank{rank}.pt"
+        results.append(torch.load(path, weights_only=False)
+                       if os.path.exists(path) else
+                       {"rank": rank, "error": failure or "no result"})
+    return results
+
+
+def main_dist(dev: torch.device) -> dict:
+    """Path 17: the families across processes. Two ranks share the card,
+    each owning 4 of the 8 shards, over NCCL (``initialize_multihost(
+    device="cuda")``). NCCL refuses two ranks on one device in this
+    build; that refusal is printed as it came, and the same two ranks
+    run over NCCL with a host id each, which makes NCCL take them (its
+    traffic then goes through its socket transport on the host's
+    loopback, not NVLink: correctness and overhead only). Their calls
+    (:func:`dist_calls`) against the same mesh in one process: the ring
+    and the f32 serving program and train step bit-equal, the bf16
+    serving program within 1e-2 · max|watts|, B3 launched for each
+    rank's 4 shards (32 a rank) and held against its plain version."""
+    t_phase = time.perf_counter()
+    one = dist_calls(dev, None)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = dist_spawn(False, tmp, DIST_ATTEMPT_S)
+        refusal = None
+        if any("error" in r for r in plain):
+            refusal = [r.get("error", "joined") for r in plain]
+            emit({"phase": "main_dist", "nccl_two_ranks_one_card":
+                  "refused", "said": refusal})
+            ranks = dist_spawn(True, tmp, DIST_RUN_S)
+        else:
+            ranks = plain
+    transport = ("nccl, a host id each (NCCL_HOSTID)" if refusal
+                 else "nccl")
+    for r in ranks:
+        check("error" not in r, f"dist rank {r['rank']} over {transport}: "
+              f"{r.get('error')}")
+        check("nccl" in r["backend"], f"rank {r['rank']} joined "
+              f"{r['backend']}, not NCCL")
+    per = PARALLEL_SHARDS * PARALLEL_SHARDS // DIST_RANKS
+    for r in ranks:
+        got = r["calls"]["ring_b3"]["launches"]
+        check(got["flash_block"] == per and got["flash_block_tc"] == per,
+              f"rank {r['rank']} launched B3 {got['flash_block']} times "
+              f"({got['flash_block_tc']} on tensor cores), not {per}")
+        check(r["ring_b3_digest"] == one["ring_b3_digest"],
+              f"rank {r['rank']}'s ring output differs from one process's")
+        check(same_bits(r["serve_f32"], one["serve_f32"]),
+              f"rank {r['rank']}'s f32 watts differ from one process's")
+        bound = 1e-2 * float(one["serve_bf16"].abs().max())
+        err = float((r["serve_bf16"] - one["serve_bf16"]).abs().max())
+        check(err <= bound, f"rank {r['rank']}'s bf16 watts off one "
+              f"process's by {err} (> {bound})")
+        check(same_bits(r["train_loss"], one["train_loss"])
+              and all(same_bits(r[f][key], one[f][key])
+                      for f in ("train_params", "train_grads")
+                      for key in one[f]),
+              f"rank {r['rank']}'s train step differs from one process's")
+    launches = {key: sum(r["calls"]["ring_b3"]["launches"][key]
+                         for r in ranks)
+                for key in ranks[0]["calls"]["ring_b3"]["launches"]}
+    row = {"phase": "main_dist", "ranks": DIST_RANKS,
+           "shards_per_rank": PARALLEL_SHARDS // DIST_RANKS,
+           "transport": transport, "nccl_refusal": refusal,
+           "backend": ranks[0]["backend"],
+           "join_s": [r["join_s"] for r in ranks],
+           "gpu": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               check=True, timeout=60).stdout.strip(),
+           "shapes": {"ring_and_serving": {"B": PARALLEL_B,
+                                           "T": PARALLEL_T},
+                      "train_step": {"B": PARALLEL_TRAIN_B,
+                                     "T": PARALLEL_T, "remat": True}},
+           "calls": {label: {"one_process_ms": one["calls"][label]["ms"],
+                             "ms_by_rank": [r["calls"][label]["ms"]
+                                            for r in ranks],
+                             "bytes_by_rank": [r["calls"][label]["bytes"]
+                                               for r in ranks],
+                             "crossings_by_rank": [
+                                 r["calls"][label]["crossings"]
+                                 for r in ranks]}
+                     for label in one["calls"]},
+           "b3_max_abs_err_by_rank": [r["b3_max_abs_err"] for r in ranks],
+           "bf16_max_abs_err_w": max(float(
+               (r["serve_bf16"] - one["serve_bf16"]).abs().max())
+               for r in ranks),
+           "bf16_bit_equal": all(same_bits(r["serve_bf16"],
+                                           one["serve_bf16"])
+                                 for r in ranks),
+           "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
 # the port's protocol models at the registry scopes, as the reference
 # package's explorations reach them: (states, transitions) per case
 # (tests/test_torch_protocol.py holds these against JAX's kepmc)
@@ -4531,7 +4809,7 @@ def main_analysis(dev: torch.device) -> dict:
 
 PHASES = ("kernels", "ratio", "mixed", "serial_mlp", "aggregator",
           "temporal", "train", "node", "sharded", "mesh", "chaos",
-          "parallel", "analysis")
+          "parallel", "dist", "analysis")
 
 
 def parse_phases(argv: list[str]) -> list[str]:
@@ -4675,6 +4953,9 @@ def main(argv: list[str] | None = None) -> int:
         ring = main_parallel(dev)["ring"]
         r["main_parallel_ring"] = ring
     lap("parallel")
+    if "dist" in on:
+        r["main_dist"] = main_dist(dev)
+    lap("dist")
     if "analysis" in on:
         r["main_analysis"] = main_analysis(dev)
     lap("analysis")
@@ -4695,7 +4976,8 @@ def main(argv: list[str] | None = None) -> int:
             k: x[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
             for x in (b2_rows[main_db], b2_flush)}
     b3_paths = launches_of({k: v for k, v in r.items() if k in (
-        "main_temporal_trunk", "main_parallel_ring")}, "flash_block")
+        "main_temporal_trunk", "main_parallel_ring", "main_dist")},
+        "flash_block")
     b3_extra: dict = {"launches_by_variant": {
         v: sum(r[p]["launches"][f"flash_block_{v}"] for p in b3_paths)
         for v in ("tc", "simt")}}

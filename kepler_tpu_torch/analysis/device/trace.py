@@ -149,13 +149,21 @@ class OpRecorder(TorchDispatchMode):
     def _count(self, name: str) -> None:
         self.ops[name] = self.ops.get(name, 0) + 1
 
-    @contextlib.contextmanager
-    def kernel(self, name: str) -> Iterator[None]:
+    def kernel(self, name: str):
         """One ``kernel:<name>`` op; nothing recorded inside."""
+        return self._one_op(f"kernel:{name}")
+
+    def crossing(self, name: str):
+        """One ``crossing:<name>`` op (a collective's cross-process leg);
+        nothing recorded inside."""
+        return self._one_op(f"crossing:{name}")
+
+    @contextlib.contextmanager
+    def _one_op(self, label: str) -> Iterator[None]:
         if self._suspended:
             yield
             return
-        self._count(f"kernel:{name}")
+        self._count(label)
         self._suspended += 1
         try:
             yield

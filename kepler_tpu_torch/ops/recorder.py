@@ -12,7 +12,9 @@ them here:
   launched (CUDA tensors);
 - a collective of ``parallel.collectives`` reports its name
   (:func:`collective`), the counterpart of a ``lax`` collective in a
-  jaxpr;
+  jaxpr, and its cross-process leg is one ``crossing:<name>`` op with
+  nothing recorded inside (:func:`crossing`), whatever ``torch.distributed``
+  calls and staging copies it makes;
 - a per-shard body reports the index of its shard (:func:`shard`), the
   counterpart of a ``shard_map``.
 
@@ -78,6 +80,19 @@ def collective(name: str, n_shards: int) -> None:
     rec = active()
     if rec is not None:
         rec.collective(name, n_shards)
+
+
+@contextlib.contextmanager
+def crossing(name: str) -> Iterator[None]:
+    """The cross-process leg of collective ``name``: under a recorder
+    with a ``crossing`` hook, one ``crossing:<name>`` op and nothing
+    recorded inside."""
+    hook = getattr(active(), "crossing", None)
+    if hook is None:
+        yield
+        return
+    with hook(name):
+        yield
 
 
 def shard(index: int) -> None:

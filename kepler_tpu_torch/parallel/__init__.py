@@ -33,6 +33,7 @@ from kepler_tpu_torch.parallel.mesh import (
     MultihostInit,
     Shard,
     initialize_multihost,
+    local_shards,
     make_mesh,
     multihost_status,
     submesh_for_processes,
@@ -89,6 +90,7 @@ __all__ = [
     "make_distributed_train_step",
     "make_expert_parallel_moe",
     "make_fleet_program",
+    "local_shards",
     "make_mesh",
     "make_pipeline",
     "make_pipelined_deep",

@@ -31,7 +31,8 @@ from typing import Callable
 import torch
 
 from kepler_tpu_torch.models.moe import expert_forward, gate_logits
-from kepler_tpu_torch.parallel.collectives import all_to_all, axis_devices
+from kepler_tpu_torch.parallel.collectives import (all_to_all, axis_devices,
+                                                   one_process)
 from kepler_tpu_torch.parallel.mesh import Mesh
 
 EXPERT_AXIS = "expert"
@@ -78,10 +79,11 @@ def make_expert_parallel_moe(
     :func:`top1_route`'s argmax) and ``gate_prob`` its combine weight
     (1.0 for explicit routing). ``rows_per_device`` is the JAX
     signature's and is not needed. The output lies on the first shard's
-    device.
+    device. The mesh's shards are this process's.
     """
     del rows_per_device
     devices = axis_devices(mesh, axis_name)
+    one_process(devices, "expert parallelism")
     n = len(devices)
 
     def fn(params, features, expert_id, gate_prob):

@@ -10,16 +10,20 @@ reference's:
   shard's device).
 
 A :class:`Mesh` is an ordered tuple of :class:`Shard` s, each a
-``torch.device`` and the index of the process that launches on it.
+``torch.device`` and the rank of the process that launches on it.
 Shard identity is the shard's INDEX, never its device: several shards
 may name the same device (virtual shards, the counterpart of the
 reference's forced host device count), and each still keeps its own
-buffers and launches.
+buffers and launches. A mesh built after :func:`initialize_multihost`
+holds every rank's shards, as JAX's global mesh holds every host's
+devices; :func:`local_shards` names the ones this rank launches.
 
 The packed fleet window has no cross-node math, so no tensor of a window
-ever crosses processes: each process launches its own shards. The only
-cross-process traffic is the tiny bucket-need agreement, which rides
-``torch.distributed`` on the gloo backend (:func:`initialize_multihost`).
+ever crosses processes: each process launches its own shards, and the
+only cross-process traffic is the tiny bucket-need agreement over gloo.
+The parallel families' tensors cross processes through
+``parallel.collectives``: CPU tensors over gloo, CUDA tensors over NCCL
+(``initialize_multihost(device=...)``).
 """
 
 from __future__ import annotations
@@ -84,6 +88,13 @@ class Mesh(NamedTuple):
         return self._replace(shards=tuple(
             Shard(s.device, int(process_of(k)))
             for k, s in enumerate(self.shards)))
+
+
+def local_shards(mesh: Mesh) -> tuple[int, ...]:
+    """The indices of the shards of ``mesh`` this rank launches, in mesh
+    order (every shard in a mesh of one process)."""
+    me = process_index()
+    return tuple(k for k, s in enumerate(mesh.shards) if s.process == me)
 
 
 class MultihostInit(NamedTuple):
@@ -280,14 +291,21 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
     init_timeout: float | None = None,
+    device: str | torch.device | None = None,
 ) -> MultihostInit:
-    """Join a multi-process job (``torch.distributed``, gloo backend) so
-    meshes span every process's devices — the scale-out leg beyond one
-    aggregator host.
+    """Join a multi-process job (``torch.distributed``) so meshes span
+    every process's devices — the scale-out leg beyond one aggregator
+    host.
 
     Report ingest stays HTTP behind a load balancer; each process
     launches only its own shards, and the processes agree on bucket
-    needs (a few integers) through the gloo process group.
+    needs (a few integers) through the gloo process group. ``device``
+    names where the parallel families' tensors live: None or ``cpu``
+    joins gloo alone; a CUDA device joins ``cpu:gloo,cuda:nccl`` with
+    NCCL bound to that device (``device_id``), so CPU tensors travel
+    over gloo and CUDA tensors over NCCL. On a CUDA device a failed join
+    RAISES RuntimeError naming its reason (NCCL's refusal is its cause):
+    nothing falls back to gloo.
 
     Arguments default from torch's env convention (``MASTER_ADDR`` /
     ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); explicit arguments (the
@@ -300,9 +318,18 @@ def initialize_multihost(
     and surfaced by :func:`multihost_status`, which the aggregator's
     ``fleet-window`` health probe republishes.
 
+    The group's timeout is ``init_timeout`` (300 s when unset): a
+    collective whose peer never comes raises after it.
+
     Call ONCE per process, before the aggregator builds its mesh.
     """
     global _last_init
+    # the card NCCL binds to (None: gloo alone)
+    card = None
+    if device is not None and resolve_device(device).type == "cuda":
+        card = torch.device(device)
+        if card.index is None:
+            card = torch.device("cuda", torch.cuda.current_device())
     addr = coordinator_address
     if not addr and os.environ.get("MASTER_ADDR"):
         addr = (f"{os.environ['MASTER_ADDR']}:"
@@ -337,6 +364,9 @@ def initialize_multihost(
                 process_id=pid_i)
             log.error("multi-host init FAILED "
                       "(coordinator_unreachable): %s", detail)
+            if card is not None:
+                raise RuntimeError(f"joining NCCL on {card} failed "
+                                   f"(coordinator_unreachable): {detail}")
             return _last_init
     try:
         if nproc_i is None or pid_i is None:
@@ -344,9 +374,13 @@ def initialize_multihost(
                 "the process count and process id are required "
                 "(aggregator.multihost.numProcesses / processId, or "
                 "WORLD_SIZE / RANK)")
+        backend, bind = "gloo", {}
+        if card is not None:
+            torch.cuda.set_device(card)
+            backend, bind = "cpu:gloo,cuda:nccl", {"device_id": card}
         torch.distributed.init_process_group(
-            "gloo", init_method=f"tcp://{addr}", world_size=nproc_i,
-            rank=pid_i, timeout=timedelta(seconds=bound))
+            backend, init_method=f"tcp://{addr}", world_size=nproc_i,
+            rank=pid_i, timeout=timedelta(seconds=bound), **bind)
     except Exception as err:
         # a failed join must not read as "unconfigured single-host": the
         # reason is preserved for the return/log/probe so the operator
@@ -359,6 +393,9 @@ def initialize_multihost(
             process_id=pid_i if pid_i is not None else 0)
         log.error("multi-host init FAILED (%s) against %s: %s",
                   reason, addr, detail)
+        if card is not None:  # NCCL's own words, whole
+            raise RuntimeError(f"joining NCCL on {card} failed ({reason}): "
+                               f"{type(err).__name__}: {err}") from err
         return _last_init
     rank, world = _world()
     _last_init = MultihostInit(True, "joined", num_processes=world,

@@ -24,7 +24,8 @@ from typing import Callable
 
 import torch
 
-from kepler_tpu_torch.parallel.collectives import axis_devices, ppermute
+from kepler_tpu_torch.parallel.collectives import (axis_devices, one_process,
+                                                   ppermute)
 from kepler_tpu_torch.parallel.mesh import Mesh
 
 STAGE_AXIS = "stage"
@@ -82,9 +83,11 @@ def make_pipeline(
     ``stacked_stage_params``: a dict of tensors with a leading stage axis
     S (divisible by the ``axis_name`` mesh size). ``B`` must divide by
     ``n_microbatches``. The output equals applying the S stages in
-    order; it lies on the first shard's device.
+    order; it lies on the first shard's device. The mesh's shards are
+    this process's.
     """
     devices = axis_devices(mesh, axis_name)
+    one_process(devices, "the pipeline")
 
     def fn(stage_params, x):
         b = x.shape[0]

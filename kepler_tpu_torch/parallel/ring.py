@@ -9,8 +9,11 @@ the online-softmax merge (``ops.attention``). No shard forms the
 ``[T, T]`` scores or holds the whole K/V sequence, and after n steps the
 merge equals exact softmax attention.
 
-The JAX ring is one ``shard_map`` program; here one process drives each
-shard of the mesh in turn (virtual shards may share a device).
+The JAX ring is one ``shard_map`` program; here each process drives
+each of its own shards of the mesh in turn (virtual shards may share a
+device), and the KV hops between two processes' shards go through
+``torch.distributed`` (``parallel.collectives``). Every rank runs the
+same schedule, the skipped last hop included.
 :func:`ring_blocks` is the block core: it takes each shard's contiguous
 ``T/n`` block of q, k, v and ``t_valid`` on its device and returns each
 shard's output block there. The sequence-parallel programs
@@ -18,7 +21,9 @@ shard's output block there. The sequence-parallel programs
 The whole-tensor forms (:func:`ring_attention_shardmap`,
 :func:`make_ring_attention`) cut whole ``[B, T, H, D]`` tensors into the
 blocks (:func:`split_blocks`), run the core and join the output on the
-first shard's device (:func:`join_blocks`). ``backend="pallas"``
+first shard's device (:func:`join_blocks`; on a mesh of several
+processes every rank gets it, by an ``all_gather``, on its first
+shard's device: :func:`gather_blocks`). ``backend="pallas"``
 computes every block partial with kernel B3
 (``ops.cuda_attention.flash_block_pallas``, scalar block starts, the
 causal mask rebuilt inside the kernel): n² launches a call on CUDA
@@ -37,12 +42,14 @@ from kepler_tpu_torch.ops import cuda_attention
 from kepler_tpu_torch.ops.attention import (_NEG_INF, block_attn,
                                             full_attention, merge_blocks,
                                             stats_to_out)
-from kepler_tpu_torch.parallel.collectives import axis_devices, ppermute
+from kepler_tpu_torch.parallel.collectives import (all_gather, axis_devices,
+                                                   crosses, local_indices,
+                                                   local_map, ppermute)
 from kepler_tpu_torch.parallel.mesh import Mesh
 
 SEQ_AXIS = "seq"
 
-__all__ = ["SEQ_AXIS", "full_attention", "join_blocks",
+__all__ = ["SEQ_AXIS", "full_attention", "gather_blocks", "join_blocks",
            "make_ring_attention", "ring_attention_shardmap", "ring_blocks",
            "split_blocks"]
 
@@ -53,13 +60,15 @@ Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor,
 def split_blocks(x: torch.Tensor, devices: list[torch.device]
                  ) -> list[torch.Tensor]:
     """``x [B, T, ...]`` → n contiguous blocks of T/n, block ``i`` on
-    ``devices[i]``. Raises ValueError when T does not divide by n."""
+    ``devices[i]`` (None at other ranks' shards). Raises ValueError when
+    T does not divide by n."""
     n = len(devices)
     if x.shape[1] % n:
         raise ValueError(f"T = {x.shape[1]} does not divide by the "
                          f"{n} shards of the axis")
-    return [b.to(d).contiguous() for b, d in zip(torch.chunk(x, n, dim=1),
-                                                 devices)]
+    blocks = torch.chunk(x, n, dim=1)
+    return local_map(devices,
+                     lambda i: blocks[i].to(devices[i]).contiguous())
 
 
 def join_blocks(blocks: list[torch.Tensor], device: torch.device
@@ -67,6 +76,16 @@ def join_blocks(blocks: list[torch.Tensor], device: torch.device
     """Per-shard blocks ``[B, T/n, ...]`` → the whole ``[B, T, ...]`` on
     ``device``, in shard order."""
     return torch.cat([x.to(device) for x in blocks], dim=1)
+
+
+def gather_blocks(blocks: list, devices: list[torch.device]
+                  ) -> torch.Tensor:
+    """The whole ``[B, T, ...]`` of the shards' blocks on this rank's
+    first shard's device: :func:`join_blocks` in one process, an
+    ``all_gather`` of the blocks over several."""
+    if not crosses(devices):
+        return join_blocks(blocks, devices[0])
+    return all_gather(blocks, devices, axis=1)[local_indices(devices)[0]]
 
 
 def ring_blocks(qs: list[torch.Tensor], ks: list[torch.Tensor],
@@ -78,11 +97,13 @@ def ring_blocks(qs: list[torch.Tensor], ks: list[torch.Tensor],
     ticks from ``i · T/n`` of q, k, v ``[B, T/n, H, D]`` and ``t_valid``
     ``[B, T/n]`` on ``devices[i]`` → its output block there, in q's
     dtype. The block core of every ring form: nothing is split or
-    joined here."""
+    joined here. Each rank computes its own shards' blocks (the others'
+    slots are None)."""
     if backend not in ("einsum", "pallas"):
         raise ValueError(f"unknown ring backend {backend!r}")
     n = len(devices)
-    b, t_loc, h, d = qs[0].shape
+    mine = local_indices(devices)
+    b, t_loc, h, d = qs[mine[0]].shape
     scale = 1.0 / math.sqrt(d)
 
     def partials(i, src):
@@ -101,30 +122,30 @@ def ring_blocks(qs: list[torch.Tensor], ks: list[torch.Tensor],
         return block_attn(qs[i], ks[i], vs[i], mask, scale, compute_dtype)
 
     f32 = torch.float32
-    o = [torch.zeros((b, t_loc, h, d), dtype=f32, device=dv)
-         for dv in devices]
-    m = [torch.full((b, h, t_loc), _NEG_INF, dtype=f32, device=dv)
-         for dv in devices]
-    l = [torch.zeros((b, h, t_loc), dtype=f32, device=dv)  # noqa: E741
-         for dv in devices]
+    o = local_map(devices, lambda i: torch.zeros(
+        (b, t_loc, h, d), dtype=f32, device=devices[i]))
+    m = local_map(devices, lambda i: torch.full(
+        (b, h, t_loc), _NEG_INF, dtype=f32, device=devices[i]))
+    l = local_map(devices, lambda i: torch.zeros(  # noqa: E741
+        (b, h, t_loc), dtype=f32, device=devices[i]))
     for s in range(n):
-        for i in range(n):
+        for i in mine:
             pv, m_blk, l_blk = partials(i, (i - s) % n)
             o[i], m[i], l[i] = merge_blocks(o[i], m[i], l[i], pv, m_blk,
                                             l_blk)
         if s < n - 1:  # JAX's last hop only brings each block home
             ks, vs, vals = (ppermute(x, devices) for x in (ks, vs, vals))
-    return [(oi / stats_to_out(torch.clamp(li, min=1e-30))).to(qi.dtype)
-            for oi, li, qi in zip(o, l, qs)]
+    return local_map(devices, lambda i: (o[i] / stats_to_out(
+        torch.clamp(l[i], min=1e-30))).to(qs[i].dtype))
 
 
 def _ring(q, k, v, t_valid, *, devices, causal, compute_dtype, backend):
     """The n shards' ring over whole tensors → the whole output:
-    split, :func:`ring_blocks`, join."""
+    split, :func:`ring_blocks`, gather."""
     qs, ks, vs, vals = (split_blocks(x, devices) for x in (q, k, v, t_valid))
     out = ring_blocks(qs, ks, vs, vals, devices=devices, causal=causal,
                       compute_dtype=compute_dtype, backend=backend)
-    return join_blocks(out, devices[0])
+    return gather_blocks(out, devices)
 
 
 def ring_attention_shardmap(
@@ -161,8 +182,10 @@ def make_ring_attention(
 
     Inputs are ``[B, T, H, D]`` (+ ``t_valid`` bool ``[B, T]``); T must
     divide by the ``axis_name`` mesh size. The output is whole, on the
-    first shard's device. ``backend="pallas"`` computes each block
-    partial with kernel B3; "einsum" with ``ops.attention.block_attn``.
+    first shard's device (on a mesh of several processes, every rank
+    passes the same whole inputs and gets the whole output on its first
+    shard's device). ``backend="pallas"`` computes each block partial
+    with kernel B3; "einsum" with ``ops.attention.block_attn``.
     """
     return ring_attention_shardmap(mesh, axis_name=axis_name, causal=causal,
                                    compute_dtype=compute_dtype,

@@ -32,6 +32,16 @@ virtual shards of one device share it. The train step gives each shard
 its own autograd leaves over that copy, so that each shard's gradient is
 its own, and sums them in shard order with an explicit ``psum`` (the
 all-reduce GSPMD inserts in JAX) into the state's params.
+
+On a mesh of several processes every rank passes the same whole inputs
+(and its own copy of the params or the state), runs steps 2-5 for its
+own shards, and the collectives carry the ring's hops and the ``psum`` s
+between ranks. Every rank gets the pooled rows, so each computes the
+watts on its first shard's device (the first shard's rank: as in one
+process). In the train step every rank computes the loss; the first
+shard's rank backpropagates it and the others a zero seed, so each rank
+runs the collectives' transposes, and the gradient ``psum`` gives every
+rank the same gradients and the same AdamW step.
 """
 
 from __future__ import annotations
@@ -44,7 +54,9 @@ from torch.utils.checkpoint import checkpoint
 
 from kepler_tpu_torch.models.temporal import _take_last, trunk_out, trunk_qkv
 from kepler_tpu_torch.models.train import Optimizer, TrainState, masked_mse
-from kepler_tpu_torch.parallel.collectives import axis_devices, psum
+from kepler_tpu_torch.parallel.collectives import (axis_devices,
+                                                   local_indices, local_map,
+                                                   psum)
 from kepler_tpu_torch.parallel.mesh import Mesh
 from kepler_tpu_torch.parallel.ring import SEQ_AXIS, ring_blocks, split_blocks
 
@@ -54,13 +66,18 @@ BlockCore = Callable[[list, list, list, list], list]
 
 
 def replicate(params: Params, devices: list[torch.device]) -> list[Params]:
-    """One copy of ``params`` per distinct device (none where they lie
-    already), listed per shard: virtual shards of one device share it."""
+    """One copy of ``params`` per distinct device of this rank's shards
+    (none where they lie already), listed per shard: virtual shards of
+    one device share it."""
     by_device: dict[torch.device, Params] = {}
-    for dev in devices:
+
+    def copy_on(i: int) -> Params:
+        dev = devices[i]
         if dev not in by_device:
             by_device[dev] = {k: v.to(dev) for k, v in params.items()}
-    return [by_device[dev] for dev in devices]
+        return by_device[dev]
+
+    return local_map(devices, copy_on)
 
 
 def sharded_predict(
@@ -75,35 +92,40 @@ def sharded_predict(
     compute_dtype: torch.dtype,
 ) -> torch.Tensor:
     """The temporal estimator over per-shard blocks (steps 2-6 of the
-    module docstring) → watts f32 [B, Z] on ``devices[0]``."""
+    module docstring) → watts f32 [B, Z] on this rank's first shard's
+    device (``devices[0]`` in one process)."""
     cd = compute_dtype
-    t_loc = hist_blocks[0].shape[1]
-    pre = [trunk_qkv(p, x, tv, cd, t0=i * t_loc)
-           for i, (p, x, tv) in enumerate(zip(replicas, hist_blocks,
-                                              tv_blocks))]
-    xs, qs, ks, vs = (list(part) for part in zip(*pre))
+    first = local_indices(devices)[0]
+    t_loc = hist_blocks[first].shape[1]
+    pre = local_map(devices, lambda i: trunk_qkv(
+        replicas[i], hist_blocks[i], tv_blocks[i], cd, t0=i * t_loc))
+    xs, qs, ks, vs = ([None if p is None else p[j] for p in pre]
+                      for j in range(4))
     attn = core(qs, ks, vs, tv_blocks)
     # the last valid position: the shards' valid counts, summed
-    counts = psum([tv.sum(dim=-1) for tv in tv_blocks], devices)
-    rows = []
-    for i, (p, x, a, hist, count) in enumerate(zip(replicas, xs, attn,
-                                                   hist_blocks, counts)):
-        hidden = trunk_out(p, x, a, cd)
-        local = torch.clamp(count - 1, min=0) - i * t_loc
+    counts = psum(local_map(devices, lambda i: tv_blocks[i].sum(dim=-1)),
+                  devices)
+
+    def pooled_row(i: int) -> torch.Tensor:
+        hidden = trunk_out(replicas[i], xs[i], attn[i], cd)
+        local = torch.clamp(counts[i] - 1, min=0) - i * t_loc
         here = ((local >= 0) & (local < t_loc))[:, None]
         at = torch.clamp(local, 0, t_loc - 1)
         row = torch.cat([_take_last(hidden, at),
-                         _take_last(hist, at).to(torch.float32)], dim=1)
-        rows.append(torch.where(here, row, 0.0))
-    pooled = psum(rows, devices)[0]
-    p0 = replicas[0]
+                         _take_last(hist_blocks[i], at).to(torch.float32)],
+                        dim=1)
+        return torch.where(here, row, 0.0)
+
+    pooled = psum(local_map(devices, pooled_row), devices)[first]
+    p0 = replicas[first]
     d = p0["w_head"].shape[0]
     # wide-and-deep: the last valid tick's raw features in f32
     watts = (pooled[:, :d] @ p0["w_head"] + pooled[:, d:] @ p0["w_skip"]
              + p0["b_head"])
     if clamp:
         watts = torch.clamp(watts, min=0.0)
-    return torch.where(workload_valid.to(devices[0])[:, None], watts, 0.0)
+    return torch.where(workload_valid.to(devices[first])[:, None], watts,
+                       0.0)
 
 
 def _blocks(feat_hist: torch.Tensor, workload_valid: torch.Tensor,
@@ -130,7 +152,8 @@ def make_sharded_temporal_program(
 ) -> Callable:
     """→ ``(params, feat_hist [W, T, F], workload_valid [W], t_valid
     [W, T]) → watts [W, Z]`` over ``devices`` with ``core`` as the
-    attention block core (the ring's or Ulysses')."""
+    attention block core (the ring's or Ulysses'); the watts lie on this
+    rank's first shard's device."""
 
     def fn(params, feat_hist, workload_valid, t_valid=None):
         hist, tv, wv, lead = _blocks(feat_hist, workload_valid, t_valid,
@@ -211,21 +234,26 @@ def make_sequence_parallel_train_step(
         keys = list(state.params)
         # each shard its own autograd leaves over its device's copy (on
         # the params' own device, their storage: nothing is copied)
-        replicas = [{k: v.detach().requires_grad_(True)
+        replicas = [None if r is None else
+                    {k: v.detach().requires_grad_(True)
                      for k, v in r.items()}
                     for r in replicate(state.params, devices)]
         pred = run(replicas, hist, tv, wv).reshape(*lead, -1)
-        dev0 = devices[0]
+        first = local_indices(devices)[0]
+        dev0 = devices[first]
         loss = masked_mse(
             pred, target_watts.to(dev0), workload_valid.to(dev0),
             None if label_valid is None else label_valid.to(dev0))
-        loss.backward()
+        # the first shard's rank seeds the backward; any other rank seeds
+        # zeros, to run the collectives' transposes beside it
+        loss.backward(None if first == 0 else torch.zeros_like(loss))
         # the gradient all-reduce: each shard's gradients flattened, one
         # psum in shard order (a leaf a shard never used adds zeros)
-        flat = [torch.cat([(r[k].grad if r[k].grad is not None
-                            else torch.zeros_like(r[k])).reshape(-1)
-                           for k in keys]) for r in replicas]
-        total = psum(flat, devices)[0]
+        flat = local_map(devices, lambda i: torch.cat([
+            (replicas[i][k].grad if replicas[i][k].grad is not None
+             else torch.zeros_like(replicas[i][k])).reshape(-1)
+            for k in keys]))
+        total = psum(flat, devices)[first]
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         offset = 0

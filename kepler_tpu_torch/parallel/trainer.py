@@ -21,6 +21,14 @@ takes its own slice's gradient and is all-reduced over ``node`` only.
 Each shard's AdamW holds the moments of the slice it updates, so
 optimizer memory splits over ``model`` too. :func:`gather_params` joins
 the slices into whole params for serving (the train → serve hand-off).
+
+A mesh of several processes keeps each node row (a tensor-parallel
+group) in one process: data parallelism crosses processes, as JAX's
+multi-host meshes put ``model`` on one host's chips. Each rank holds
+and steps its own rows' shards (the others' entries of the state's
+grids are None); the loss's two sums and the gradient all-reduce over
+``node`` cross ranks (``parallel.collectives``), so every rank gets the
+same loss and every replica the same gradients.
 """
 
 from __future__ import annotations
@@ -32,7 +40,9 @@ import torch.nn.functional as F
 
 from kepler_tpu_torch.models.nn import acc_matmul
 from kepler_tpu_torch.models.train import Optimizer, TrainState
-from kepler_tpu_torch.parallel.collectives import grid_devices, psum
+from kepler_tpu_torch.parallel.collectives import (AxisDevices, grid_devices,
+                                                   local_indices, psum,
+                                                   ranks_of)
 from kepler_tpu_torch.parallel.mesh import MODEL_AXIS, NODE_AXIS, Mesh
 
 AXES = (NODE_AXIS, MODEL_AXIS)
@@ -42,7 +52,8 @@ Spec = tuple  # per dimension: an axis name it splits over, or None
 
 class ShardedTrainState(NamedTuple):
     """Each shard's params (leaves that require grad) and AdamW, as
-    ``[node][model]`` grids, the step, and the mesh."""
+    ``[node][model]`` grids (None at other ranks' shards), the step, and
+    the mesh."""
 
     params: list[list[dict[str, torch.Tensor]]]
     opt_state: list[list[torch.optim.Optimizer]]
@@ -74,16 +85,34 @@ def _slice(x: torch.Tensor, spec: Spec, j: int, m: int) -> torch.Tensor:
     return x if dim is None else torch.chunk(x, m, dim=dim)[j]
 
 
-def shard_train_state(state: TrainState, mesh: Mesh) -> ShardedTrainState:
-    """Place a (single-device) MLP train state on the mesh: each shard
-    gets its own f32 copy of its slice of every param, and an optimizer
-    of the state's kind over them holding its slice of the moments."""
+def _grid(mesh: Mesh) -> tuple[list[AxisDevices], list[int]]:
+    """The mesh's rows of devices and this rank's rows; raises
+    ValueError when a node row spans processes."""
     grid = grid_devices(mesh, AXES)
+    for i, row in enumerate(grid):
+        if len(set(ranks_of(row))) > 1:
+            raise ValueError(
+                f"node row {i} spans ranks {sorted(set(ranks_of(row)))}: "
+                "the DP×TP trainer keeps each tensor-parallel row in one "
+                "process")
+    return grid, [i for i, row in enumerate(grid) if local_indices(row)]
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> ShardedTrainState:
+    """Place a (single-device) MLP train state on the mesh: each of this
+    rank's shards gets its own f32 copy of its slice of every param, and
+    an optimizer of the state's kind over them holding its slice of the
+    moments."""
+    grid, mine = _grid(mesh)
     m = len(grid[0])
     layout = mlp_param_shardings(mesh)
     opt = state.opt_state
     params, opts = [], []
-    for row in grid:
+    for i, row in enumerate(grid):
+        if i not in mine:
+            params.append([None] * m)
+            opts.append([None] * m)
+            continue
         p_row, o_row = [], []
         for j, dev in enumerate(row):
             own = {k: _slice(v.detach(), layout[k], j, m).to(
@@ -111,11 +140,12 @@ def shard_train_state(state: TrainState, mesh: Mesh) -> ShardedTrainState:
 def gather_params(state: ShardedTrainState,
                   device: str | torch.device | None = None
                   ) -> dict[str, torch.Tensor]:
-    """Whole params (detached) from the first node row of shards, on
-    ``device`` (default: the first shard's): what serving takes."""
-    row = state.params[0]
-    dev = torch.device(device) if device is not None else \
-        state.mesh.devices[0]
+    """Whole params (detached) from this rank's first node row of shards
+    (the mesh's first in one process), on ``device`` (default: the
+    row's first shard's): what serving takes."""
+    grid, mine = _grid(state.mesh)
+    row = state.params[mine[0]]
+    dev = torch.device(device) if device is not None else grid[mine[0]][0]
     layout = mlp_param_shardings(state.mesh)
     out = {}
     for k in row[0]:
@@ -123,6 +153,13 @@ def gather_params(state: ShardedTrainState,
         parts = [p[k].detach().to(dev) for p in row]
         out[k] = parts[0].clone() if dim is None else torch.cat(parts, dim)
     return out
+
+
+def _axis(grid: list[AxisDevices], cells: list[tuple[int, int]]
+          ) -> AxisDevices:
+    """The shards ``cells`` of the grid as one axis, with their ranks."""
+    return AxisDevices([grid[i][j] for i, j in cells],
+                       [ranks_of(grid[i])[j] for i, j in cells])
 
 
 def make_distributed_train_step(
@@ -140,7 +177,7 @@ def make_distributed_train_step(
     tensors are updated in place, as the port's other train steps do.
     """
     del optimizer
-    grid = grid_devices(mesh, AXES)
+    grid, mine = _grid(mesh)
     n, m = len(grid), len(grid[0])
     layout = mlp_param_shardings(mesh)
     cd = compute_dtype
@@ -153,11 +190,13 @@ def make_distributed_train_step(
             raise ValueError(f"batch {b} does not divide over the "
                              f"{n} '{NODE_AXIS}' shards")
         rows = [slice(i * (b // n), (i + 1) * (b // n)) for i in range(n)]
-        for o_row in state.opt_state:
-            for opt in o_row:
+        for i in mine:
+            for opt in state.opt_state[i]:
                 opt.zero_grad(set_to_none=True)
-        nums, dens = [], []
-        for i, (row, p_row) in enumerate(zip(grid, state.params)):
+        nums: list = [[None] * m for _ in range(n)]
+        dens: list = [[None] * m for _ in range(n)]
+        for i in mine:
+            row, p_row = grid[i], state.params[i]
             x = [features[rows[i]].to(d) for d in row]
             valid = [workload_valid[rows[i]].to(d) for d in row]
             tgt = [targets[rows[i]].to(d) for d in row]
@@ -167,26 +206,26 @@ def make_distributed_train_step(
                            approximate="tanh")
                 partial.append(acc_matmul(h, p["w1"], cd))
             summed = psum(partial, row)  # layer 1, over ``model``
-            num_row, den_row = [], []
-            for xj, vj, tj, sj, p in zip(x, valid, tgt, summed, p_row):
+            for j, (xj, vj, tj, sj, p) in enumerate(zip(x, valid, tgt,
+                                                        summed, p_row)):
                 h = F.gelu(sj + p["b1"], approximate="tanh")
                 watts = acc_matmul(h, p["w2"], cd)
                 watts = watts + xj.to(torch.float32) @ p["w_skip"]
                 watts = watts + p["b2"]
                 watts = torch.where(vj[..., None], watts, 0.0)
                 mask = vj[..., None].to(torch.float32)
-                num_row.append(torch.sum((watts - tj) ** 2 * mask))
-                den_row.append(torch.sum(mask))
-            nums.append(num_row)
-            dens.append(den_row)
+                nums[i][j] = torch.sum((watts - tj) ** 2 * mask)
+                dens[i][j] = torch.sum(mask)
         # numerator and denominator summed over ``node``, then divided
-        col0 = [row[0] for row in grid]
-        total = psum([r[0] for r in nums], col0)[0]
-        count = torch.clamp(psum([r[0] for r in dens], col0)[0], min=1.0)
+        col0 = _axis(grid, [(i, 0) for i in range(n)])
+        first = local_indices(col0)[0]
+        total = psum([r[0] for r in nums], col0)[first]
+        count = torch.clamp(psum([r[0] for r in dens], col0)[first],
+                            min=1.0)
         loss = (total / count).detach()
         # the mean over the model shards' identical losses
         objective = [nums[i][j] / (m * count.detach().to(grid[i][j]))
-                     for i in range(n) for j in range(m)]
+                     for i in mine for j in range(m)]
         torch.autograd.backward(objective)
         # gradient all-reduce: split leaves over ``node``, replicated ones
         # over ``node`` and ``model``
@@ -195,13 +234,14 @@ def make_distributed_train_step(
                       if _split_dim(spec) is not None else
                       [[(i, j) for i in range(n) for j in range(m)]])
             for group in groups:
-                leaves = [state.params[i][j][k] for i, j in group]
-                reduced = psum([p.grad for p in leaves],
-                               [grid[i][j] for i, j in group])
-                for p, g in zip(leaves, reduced):
-                    p.grad = g
-        for o_row in state.opt_state:
-            for opt in o_row:
+                reduced = psum([None if state.params[i][j] is None
+                                else state.params[i][j][k].grad
+                                for i, j in group], _axis(grid, group))
+                for (i, j), g in zip(group, reduced):
+                    if g is not None:
+                        state.params[i][j][k].grad = g
+        for i in mine:
+            for opt in state.opt_state[i]:
                 opt.step()
         return state._replace(step=state.step + 1), loss
 

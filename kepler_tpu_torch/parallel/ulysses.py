@@ -13,7 +13,9 @@ plug into the temporal trunk's ``attention_fn`` seam.
 contract: per-shard ``T/n`` blocks in, per-shard output blocks out. The
 whole-tensor forms cut T into one block per shard and join the output
 on the first shard's device; the temporal program runs its trunk per
-shard block around the core (``parallel.sequence``).
+shard block around the core (``parallel.sequence``). On a mesh of
+several processes each rank attends for its own shards' heads, and the
+all-to-alls and the all-gather cross ranks (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -24,10 +26,10 @@ import torch
 
 from kepler_tpu_torch.ops.attention import full_attention
 from kepler_tpu_torch.parallel.collectives import (all_gather, all_to_all,
-                                                   axis_devices)
+                                                   axis_devices, local_map)
 from kepler_tpu_torch.parallel.mesh import Mesh
-from kepler_tpu_torch.parallel.ring import (SEQ_AXIS, Attention, join_blocks,
-                                           split_blocks)
+from kepler_tpu_torch.parallel.ring import (SEQ_AXIS, Attention,
+                                           gather_blocks, split_blocks)
 from kepler_tpu_torch.parallel.sequence import make_sharded_temporal_program
 
 
@@ -44,9 +46,9 @@ def ulysses_blocks(qs: list[torch.Tensor], ks: list[torch.Tensor],
     qg, kg, vg = (all_to_all(x, devices, split_axis=2, concat_axis=1)
                   for x in (qs, ks, vs))
     tv = all_gather(tvs, devices, axis=1)  # [B, T] on every shard
-    outs = [full_attention(a, b, c, causal=causal, t_valid=m,
-                           compute_dtype=compute_dtype)
-            for a, b, c, m in zip(qg, kg, vg, tv)]
+    outs = local_map(devices, lambda i: full_attention(
+        qg[i], kg[i], vg[i], causal=causal, t_valid=tv[i],
+        compute_dtype=compute_dtype))
     # head-gather / time-scatter back: [B, T, H/P, Dh] → [B, T/P, H, Dh]
     return all_to_all(outs, devices, split_axis=1, concat_axis=2)
 
@@ -75,10 +77,10 @@ def ulysses_attention_shardmap(
     def checked(q, k, v, t_valid):
         _heads_divide(q.shape[2], n, axis_name)
         blocks = (split_blocks(x, devices) for x in (q, k, v, t_valid))
-        return join_blocks(ulysses_blocks(*blocks, devices=devices,
-                                          causal=causal,
-                                          compute_dtype=compute_dtype),
-                           devices[0])
+        return gather_blocks(ulysses_blocks(*blocks, devices=devices,
+                                            causal=causal,
+                                            compute_dtype=compute_dtype),
+                             devices)
 
     return checked
 
@@ -111,7 +113,8 @@ def make_ulysses_temporal_program(
     n = len(devices)
 
     def core(qs, ks, vs, tvs):
-        _heads_divide(qs[0].shape[2], n, axis_name)
+        _heads_divide(next(q for q in qs if q is not None).shape[2], n,
+                      axis_name)
         return ulysses_blocks(qs, ks, vs, tvs, devices=devices, causal=True,
                               compute_dtype=compute_dtype)
 

@@ -881,3 +881,43 @@ def test_parallel_families_on_the_card_match_the_cpu(cuda_device):
             atol = max(atol, 1e-6)
         torch.testing.assert_close(got[key], ref, rtol=rtol, atol=atol,
                                    msg=key)
+
+
+@pytest.mark.cuda
+def test_ring_across_two_nccl_ranks_on_the_card(cuda_device, tmp_path):
+    """Two ranks share the card (``tests/torch_dist_worker.py``, each
+    spawn under its own 60 s limit), each launching B3 for its 4 of the
+    pallas ring's 8 shards, the KV hops between them over NCCL. NCCL may
+    refuse two ranks on one device; its words are then the result of the
+    first spawn ("Duplicate GPU detected"), and the ranks run again with
+    a host id each (``NCCL_HOSTID``), which NCCL takes. Either way, both
+    ranks' outputs equal the one-process ring's on the card bit for bit,
+    and each rank made 32 tensor-core launches."""
+    import importlib.util
+    import pathlib
+
+    # by path: the card's machine may have another package named tests
+    path = pathlib.Path(__file__).with_name("torch_dist_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_dist_worker", path)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+
+    rng = np.random.default_rng(41)
+    q, k, v = (rng.normal(size=(4, 128, 4, 32)).astype(np.float32)
+               for _ in range(3))
+    valid = np.arange(128)[None, :] < np.array([128, 70, 0, 9])[:, None]
+    arrays = {"ring/q": q, "ring/k": k, "ring/v": v, "ring/tv": valid}
+    np.savez(tmp_path / "in.npz", **arrays)
+    want = worker.run_ring_cuda(arrays, None)["ring"]
+    ranks = worker.spawn("ring_cuda", "blocks", tmp_path / "in.npz",
+                         tmp_path)
+    if "error" in ranks[0]:
+        for out in ranks:
+            assert "Duplicate GPU" in str(out["error"]), str(out["error"])
+        ranks = worker.spawn("ring_cuda", "blocks", tmp_path / "in.npz",
+                             tmp_path, host_ids=True)
+    for out in ranks:
+        assert "error" not in out, str(out.get("error"))
+        assert int(out["launches/flash_block"]) == 32
+        assert int(out["launches/flash_block_tc"]) == 32
+        np.testing.assert_array_equal(out["ring"], want)
