@@ -268,13 +268,16 @@ def kernel_times_us(prof) -> list[tuple[float, str, int]]:
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
+def device_ms(fn, calls: int = 20, tries: int = 3,
+              match: str | None = None) -> float | None:
     """Device time of ``fn`` per call from ``torch.profiler``: the sum of
     the CUDA kernels' own time over ``calls`` calls, divided by ``calls``
     (no host time, no gaps). A trace is whole when it holds every kernel
     a multiple of ``calls`` times (each call launches the same kernels);
     one that dropped events is taken again, up to ``tries`` times. None
-    when no trace was whole."""
+    when no trace was whole. Given ``match``, only the kernels whose name
+    holds it count: work that another thread of the process launched
+    inside the window neither adds to the time nor spoils the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -285,7 +288,8 @@ def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        rows = kernel_times_us(prof)
+        rows = [r for r in kernel_times_us(prof)
+                if match is None or match in r[1]]
         if rows and all(count % calls == 0 for _, _, count in rows):
             return sum(us for us, _, _ in rows) / calls / 1e3
     return None
@@ -4044,7 +4048,7 @@ def parallel_ring(dev: torch.device) -> dict:
               "plan": cat.flash_block_plan(b, t_loc, t_loc, N_HEADS,
                                            D_MODEL // N_HEADS)._asdict(),
               "ms": time_ms(kern, reps=5, batch=4),
-              "device_ms": device_ms(kern, calls=5),
+              "device_ms": device_ms(kern, calls=5, match="flash_block"),
               "plain_ms": time_ms(plain, reps=3, batch=2),
               "plain_device_ms": device_ms(plain, calls=2),
               "library_ms": lib_ms, "library_device_ms": lib_device_ms,
@@ -4416,22 +4420,32 @@ def main_parallel(dev: torch.device) -> dict:
 
 # -- the families across processes (path 17) -----------------------------------
 
-# two ranks on the one card, each owning 4 of the mesh's 8 shards (0-3,
-# 4-7); each spawn under a time limit of its own
+# two ranks on the one card, each owning half of a mesh's shards: in
+# blocks (of 8: 0-3, 4-7) for the sequence programs, the pipeline and the
+# experts, interleaved (shard k on rank k % 2) for the DP×TP step, so
+# that every node row spans both ranks; each spawn under a time limit of
+# its own
 DIST_RANKS = 2
 DIST_ATTEMPT_S, DIST_RUN_S = 150, 480
 DIST_SEED = SEED + 30
+DIST_TRAIN_STEPS = 2  # DP×TP steps per dtype
+#: the calls of :func:`dist_rows` held bit-equal to one process
+DIST_ROW_CALLS = ("pipeline", "expert_explicit", "expert_top1", "dp_tp_bf16",
+                  "dp_tp_f32")
 
 
-def dist_mesh(dev: torch.device, ranks: int | None):
-    """The 8 shards of ``dev`` as a ``seq`` mesh: this process's
-    (``ranks=None``), or ``ranks`` ranks' in blocks."""
+def dist_mesh(dev: torch.device, ranks: int | None,
+              n: int = PARALLEL_SHARDS, axes=("seq",), shape=None,
+              interleaved: bool = False):
+    """n shards of ``dev`` as a mesh over ``axes``: this process's
+    (``ranks=None``), or ``ranks`` ranks' in blocks (shard k on rank
+    k · ranks // n) or ``interleaved`` (on rank k % ranks)."""
     from kepler_tpu_torch.parallel.mesh import Shard, make_mesh
 
-    n = PARALLEL_SHARDS
     shards = ([dev] * n if ranks is None else
-              [Shard(dev, k * ranks // n) for k in range(n)])
-    return make_mesh([n], ["seq"], devices=shards)
+              [Shard(dev, k % ranks if interleaved else k * ranks // n)
+               for k in range(n)])
+    return make_mesh(list(shape or [n]), list(axes), devices=shards)
 
 
 def digest(x: torch.Tensor) -> list[int]:
@@ -4455,8 +4469,10 @@ def dist_calls(dev: torch.device, ranks: int | None) -> dict:
     pallas ring at B = 4096, T = 1024 (as a :func:`digest`; on a rank, B3
     then held against its plain version on the diagonal block of the
     rank's first shard), the ring's serving program at f32 and bf16 on
-    the same B and T, and one sequence-parallel train step with remat at
-    B = 512 (loss, gradients, updated params)."""
+    the same B and T, one sequence-parallel train step with remat at
+    B = 512 (loss, gradients, updated params), then at the parallel
+    phase's width (:func:`dist_rows`) the pipelined deep, expert
+    parallelism and the DP×TP step."""
     from kepler_tpu_torch.models import train
     from kepler_tpu_torch.models.estimator import params_to
     from kepler_tpu_torch.ops import cuda_attention as cat
@@ -4525,6 +4541,72 @@ def dist_calls(dev: torch.device, ranks: int | None) -> dict:
     out["train_grads"] = {key: p.grad.cpu()
                           for key, p in state.params.items()}
     del hist, wv, tv, targets, state, params
+    torch.cuda.empty_cache()
+    out.update(dist_rows(dev, ranks, call))
+    return out
+
+
+def dist_rows(dev: torch.device, ranks: int | None, call) -> dict:
+    """The families over rows, as :func:`parallel_rows` and
+    :func:`parallel_trainer` run them, through ``call`` (which times
+    each and counts its bytes): the pipelined deep (4 stages in blocks, 4
+    microbatches, D = 128) and expert parallelism (8 experts on 8 shards
+    in blocks; explicit ids and learned top-1) over PARALLEL_ROWS rows,
+    then DIST_TRAIN_STEPS DP×TP steps per dtype on the 4 × 2 grid
+    interleaved, every node row across the ranks (features [N_NODES,
+    256, 7]) → each output, loss and gathered param, on the host."""
+    from kepler_tpu_torch.models import train
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.models.mlp import init_mlp
+    from kepler_tpu_torch.parallel import (gather_params,
+                                           make_distributed_train_step,
+                                           make_expert_parallel_moe,
+                                           make_pipelined_deep,
+                                           shard_train_state, top1_route)
+
+    out: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED + 3)
+    rows = PARALLEL_ROWS
+    feats = torch.rand((rows, 7), generator=gen, device=dev)
+    valid = torch.rand((rows,), generator=gen, device=dev) > 0.1
+    deep = params_to(single_tick_params("deep", DIST_SEED + 4), dev)
+    pipe = make_pipelined_deep(dist_mesh(dev, ranks, 4, ("stage",)),
+                               n_microbatches=4)
+    out["pipeline"] = call("pipeline", lambda: pipe(deep, feats,
+                                                    valid)).cpu()
+    moe = params_to(single_tick_params("moe", DIST_SEED + 5), dev)
+    ep = make_expert_parallel_moe(dist_mesh(dev, ranks, PARALLEL_SHARDS,
+                                            ("expert",)))
+    eid = torch.randint(0, 8, (rows,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for label, route in (("expert_explicit",
+                          (eid, torch.ones(rows, device=dev))),
+                         ("expert_top1", top1_route(moe, feats))):
+        out[label] = call(label, lambda: ep(moe, feats, *route)).cpu()
+    del feats, valid, deep, moe, eid
+    torch.cuda.empty_cache()
+
+    tfeats = torch.rand((N_NODES, 256, 7), generator=gen, device=dev) * 3
+    tvalid = torch.rand((N_NODES, 256), generator=gen, device=dev) > 0.2
+    targets = tfeats[..., :1] * torch.tensor([4.0, 2.0, 1.0, 0.5],
+                                             device=dev) * 10
+    mlp = init_mlp(len(ZONES), generator=torch.Generator().manual_seed(
+        DIST_SEED + 6), device=dev)
+    grid = dist_mesh(dev, ranks, PARALLEL_SHARDS, ("node", "model"), (4, 2),
+                     interleaved=True)
+    for cd, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        state = shard_train_state(train.create_train_state(
+            mlp, train.make_optimizer(float(TRAIN_LR))), grid)
+        step = make_distributed_train_step(grid, compute_dtype=dtype)
+        losses = []
+        for s in range(DIST_TRAIN_STEPS):
+            state, loss = call(f"dp_tp_{cd}_step{s}", lambda: step(
+                state, tfeats, tvalid, targets))
+            losses.append(loss.cpu())
+        out[f"dp_tp_{cd}"] = {"losses": torch.stack(losses),
+                              **{k: v.cpu() for k, v in
+                                 gather_params(state).items()}}
+    del tfeats, tvalid, targets, mlp, state
     torch.cuda.empty_cache()
     return out
 
@@ -4602,7 +4684,9 @@ def main_dist(dev: torch.device) -> dict:
     (:func:`dist_calls`) against the same mesh in one process: the ring
     and the f32 serving program and train step bit-equal, the bf16
     serving program within 1e-2 · max|watts|, B3 launched for each
-    rank's 4 shards (32 a rank) and held against its plain version."""
+    rank's 4 shards (32 a rank) and held against its plain version; the
+    pipelined deep, both expert routings and the DP×TP steps' losses and
+    gathered params bit-equal, with no kernel launched."""
     t_phase = time.perf_counter()
     one = dist_calls(dev, None)
     torch.cuda.empty_cache()
@@ -4642,6 +4726,14 @@ def main_dist(dev: torch.device) -> dict:
                       for f in ("train_params", "train_grads")
                       for key in one[f]),
               f"rank {r['rank']}'s train step differs from one process's")
+        for label in DIST_ROW_CALLS:
+            check(same_bits(r[label], one[label]) if torch.is_tensor(
+                one[label]) else all(same_bits(r[label][key], val)
+                                     for key, val in one[label].items()),
+                  f"rank {r['rank']}'s {label} differs from one process's")
+        for label, row in r["calls"].items():
+            check(label == "ring_b3" or not any(row["launches"].values()),
+                  f"rank {r['rank']}'s {label} launched a kernel")
     launches = {key: sum(r["calls"]["ring_b3"]["launches"][key]
                          for r in ranks)
                 for key in ranks[0]["calls"]["ring_b3"]["launches"]}
@@ -4657,7 +4749,17 @@ def main_dist(dev: torch.device) -> dict:
            "shapes": {"ring_and_serving": {"B": PARALLEL_B,
                                            "T": PARALLEL_T},
                       "train_step": {"B": PARALLEL_TRAIN_B,
-                                     "T": PARALLEL_T, "remat": True}},
+                                     "T": PARALLEL_T, "remat": True},
+                      "pipeline": {"rows": PARALLEL_ROWS, "stages": 4,
+                                   "microbatches": 4, "D": D_MODEL,
+                                   "layout": "blocks"},
+                      "experts": {"rows": PARALLEL_ROWS, "experts": 8,
+                                  "shards": PARALLEL_SHARDS,
+                                  "layout": "blocks"},
+                      "dp_tp": {"grid": [4, 2], "batch": [N_NODES, 256, 7],
+                                "steps_per_dtype": DIST_TRAIN_STEPS,
+                                "layout": "interleaved: every node row "
+                                          "across the ranks"}},
            "calls": {label: {"one_process_ms": one["calls"][label]["ms"],
                              "ms_by_rank": [r["calls"][label]["ms"]
                                             for r in ranks],

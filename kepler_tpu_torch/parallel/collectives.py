@@ -3,12 +3,14 @@ processes.
 
 The counterpart of the ``lax`` collectives that the JAX package's parallel
 families call inside ``shard_map`` (``ppermute``, ``all_to_all``,
-``all_gather``, ``psum``). A family holds one tensor per shard of an
-axis, in axis order, and each collective takes that list and the shards'
-devices and returns the list each shard receives, every result on its
-destination shard's device. Each reports its name to an active program
-recorder (``ops.recorder``), as a ``lax`` collective shows in a jaxpr,
-whichever way its tensors travel.
+``all_gather``, ``psum``), and ``broadcast``: one shard's tensor to
+every shard, where JAX masks every other shard's buffer and takes a
+``psum`` (the same values, without n slots of traffic). A family holds
+one tensor per shard of an axis, in axis order, and each collective
+takes that list and the shards' devices and returns the list each shard
+receives, every result on its destination shard's device. Each reports
+its name to an active program recorder (``ops.recorder``), as a ``lax``
+collective shows in a jaxpr, whichever way its tensors travel.
 
 **In one process** every result is a copy, also between two virtual
 shards of one device: a receiving shard never aliases a tensor its
@@ -36,6 +38,8 @@ path above; what crosses goes through ``torch.distributed``:
   for every x, a ``-0.0`` included), then the one-process sum in shard
   order: the result is bit-equal to the one-process result, at the cost
   of n slots of traffic.
+- ``broadcast``: a header, then one ``broadcast`` from the source
+  shard's rank over the axis' ranks.
 
 CPU tensors travel over gloo and CUDA tensors over NCCL, the two
 backends of the group ``initialize_multihost(device=...)`` joins. A CUDA
@@ -48,8 +52,9 @@ axis runs the same backward: a rank whose outputs feed no loss
 backpropagates a zero seed. Every rank calls an axis' collectives in the
 same order, with the same shapes and dtypes on every shard (SPMD, as JAX
 requires); otherwise they wait on each other until the group's timeout
-raises. :data:`CROSSING` counts the calls that crossed and the bytes
-each rank handed to ``torch.distributed``.
+raises. A rank that owns no shard of an axis does not call its
+collectives. :data:`CROSSING` counts the calls that crossed and the
+bytes each rank handed to ``torch.distributed`` to send.
 """
 
 from __future__ import annotations
@@ -69,7 +74,8 @@ Devices = Sequence[torch.device]
 #: rank handed to ``torch.distributed`` for them (headers included)
 CROSSING: dict[str, dict[str, int]] = {
     name: {"calls": 0, "bytes": 0}
-    for name in ("ppermute", "all_to_all", "all_gather", "psum")}
+    for name in ("ppermute", "all_to_all", "all_gather", "psum",
+                 "broadcast")}
 
 
 def reset_crossing() -> None:
@@ -111,14 +117,6 @@ def crosses(devices: Devices) -> bool:
     """True when shards of the axis belong to another rank."""
     me = process_index()
     return any(r != me for r in ranks_of(devices))
-
-
-def one_process(devices: Devices, family: str) -> None:
-    """Raise ValueError when the axis ``devices`` spans processes: for
-    a family whose body has no per-rank form yet."""
-    if crosses(devices):
-        raise ValueError(f"{family} runs over one process's shards; this "
-                         f"axis spans ranks {sorted(set(ranks_of(devices)))}")
 
 
 def _joined(mesh: Mesh) -> None:
@@ -454,6 +452,69 @@ def all_gather(xs: Tensors, devices: Devices, axis: int = 0
                          lambda s: _all_gather_wire(s, devices, axis),
                          transpose, xs)
     return [torch.cat([_put(x, d) for x in xs], dim=axis) for d in devices]
+
+
+def gather_whole(xs: Sequence[torch.Tensor | None], devices: Devices,
+                 axis: int = 0) -> torch.Tensor:
+    """The shards' tensors joined along ``axis`` in shard order, on this
+    rank's first shard's device: a ``cat`` in one process, an
+    :func:`all_gather` across ranks (JAX's replicated ``out_shardings``:
+    every rank gets the whole)."""
+    if not crosses(devices):
+        return torch.cat([x.to(devices[0]) for x in xs], dim=axis)
+    return all_gather(xs, devices, axis)[local_indices(devices)[0]]
+
+
+# -- broadcast ------------------------------------------------------------------
+
+
+def _broadcast_wire(xs: list, devices: Devices, src: int) -> list:
+    ranks, me = ranks_of(devices), process_index()
+    mine = local_indices(devices)
+    group = _group(ranks)
+    sender = ranks[src] == me
+    head = _header(xs[src]) if sender else torch.empty(_HEAD,
+                                                       dtype=torch.int64)
+    dist.broadcast(head, src=ranks[src], group=group)
+    if sender:
+        whole = xs[src]
+        wired = _wire(whole)
+        dist.broadcast(wired, src=ranks[src], group=group)
+        _count("broadcast", head, wired)
+    else:
+        dtype = _DTYPES[int(head[1])]
+        dev = devices[mine[0]]
+        wired = torch.empty(head[3:3 + int(head[2])].tolist(),
+                            dtype=_wire_dtype(dtype, dev), device=dev)
+        dist.broadcast(wired, src=ranks[src], group=group)
+        _count("broadcast")
+        whole = wired.to(dtype)
+    # the first shard of a receiving rank takes the received tensor itself
+    return local_map(devices, lambda j: whole if j == mine[0] and not sender
+                     else _put(whole, devices[j]))
+
+
+def broadcast(xs: Sequence[torch.Tensor | None], devices: Devices,
+              src: int) -> list[torch.Tensor]:
+    """Every shard receives shard ``src``'s tensor (the other slots are
+    not read and may be None)."""
+    recorder.collective("broadcast", len(xs))
+    if crosses(devices):
+        blank: list = []  # (shape, dtype) of what arrived, for the transpose
+
+        def run(slots):
+            out = _broadcast_wire(slots, devices, src)
+            got = out[local_indices(devices)[0]]
+            blank.append((got.shape, got.dtype))
+            return out
+
+        def transpose(grads):  # the summed gradients, back to ``src``
+            total = _psum_wire(grads, devices, blank[0])
+            return local_map(devices, lambda i: total[i] if i == src
+                             else None)
+
+        return _crossing("broadcast", run, transpose, xs)
+    return [_put(xs[src], d) for d in devices]
 
 
 # -- psum -----------------------------------------------------------------------

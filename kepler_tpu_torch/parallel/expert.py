@@ -21,6 +21,11 @@ its shard.
 Capacity is ``max(1, ceil(B_loc · capacity_factor))``; the default 1.0
 never drops a row. Rows past their expert's capacity, and rows whose
 expert id is outside ``[0, E)``, get zero watts.
+
+On a mesh of several processes each rank routes, dispatches and runs
+the experts of its own shards, the two all-to-alls cross ranks, and the
+rows come home sharded as JAX's ``out_specs=P(axis)``: one
+``all_gather`` of the row blocks gives every rank the whole output.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 
 from kepler_tpu_torch.models.moe import expert_forward, gate_logits
 from kepler_tpu_torch.parallel.collectives import (all_to_all, axis_devices,
-                                                   one_process)
+                                                   gather_whole, local_map)
 from kepler_tpu_torch.parallel.mesh import Mesh
 
 EXPERT_AXIS = "expert"
@@ -79,11 +84,11 @@ def make_expert_parallel_moe(
     :func:`top1_route`'s argmax) and ``gate_prob`` its combine weight
     (1.0 for explicit routing). ``rows_per_device`` is the JAX
     signature's and is not needed. The output lies on the first shard's
-    device. The mesh's shards are this process's.
+    device (on a mesh of several processes, every rank passes the same
+    whole inputs and gets the whole output on its first shard's device).
     """
     del rows_per_device
     devices = axis_devices(mesh, axis_name)
-    one_process(devices, "expert parallelism")
     n = len(devices)
 
     def fn(params, features, expert_id, gate_prob):
@@ -93,32 +98,35 @@ def make_expert_parallel_moe(
                              f"the '{axis_name}' mesh size ({n})")
         b_loc, e_loc = b // n, e // n
         c = max(1, math.ceil(b_loc * capacity_factor))
-        experts = [{k: params[k][i * e_loc:(i + 1) * e_loc].to(d)
-                    for k in EXPERT_KEYS} for i, d in enumerate(devices)]
         rows = [slice(i * b_loc, (i + 1) * b_loc) for i in range(n)]
-        routes = [_slots(expert_id[r].to(d), e, c)
-                  for r, d in zip(rows, devices)]
+        routes = local_map(devices, lambda i: _slots(
+            expert_id[rows[i]].to(devices[i]), e, c))
         # rows grouped per global expert: axis 0 = destination shard
-        ex_in = [_dispatch(features[r].to(d), slot, e * c).reshape(
-            n, e_loc, c, -1) for r, d, (slot, _) in zip(rows, devices,
-                                                        routes)]
+        ex_in = local_map(devices, lambda i: _dispatch(
+            features[rows[i]].to(devices[i]), routes[i][0], e * c).reshape(
+            n, e_loc, c, -1))
         ex_in = all_to_all(ex_in, devices, split_axis=0, concat_axis=0,
                            tiled=False)  # [n (source), E_loc, C, F]
-        ex_out = []
-        for p, x in zip(experts, ex_in):
-            x = x.transpose(0, 1).reshape(e_loc, n * c, -1)
+
+        def experts(i):
+            p = {k: params[k][i * e_loc:(i + 1) * e_loc].to(devices[i])
+                 for k in EXPERT_KEYS}
+            x = ex_in[i].transpose(0, 1).reshape(e_loc, n * c, -1)
             y = expert_forward(p, x, compute_dtype)  # [E_loc, n·C, Z]
-            ex_out.append(y.reshape(e_loc, n, c, -1).transpose(0, 1))
-        ex_out = all_to_all(ex_out, devices, split_axis=0, concat_axis=0,
+            return y.reshape(e_loc, n, c, -1).transpose(0, 1)
+
+        ex_out = all_to_all(local_map(devices, experts), devices,
+                            split_axis=0, concat_axis=0,
                             tiled=False)  # [n (expert shard), E_loc, C, Z]
-        out = []
-        for (slot, keep), y, r, d in zip(routes, ex_out, rows, devices):
-            y = y.reshape(e * c, -1)
-            picked = y[torch.clamp(slot, max=e * c - 1)]
-            gate = gate_prob[r].to(d).to(torch.float32)
-            out.append(torch.where(keep[:, None], gate[:, None] * picked,
-                                   0.0))
-        return torch.cat([o.to(devices[0]) for o in out])
+
+        def combine(i):
+            slot, keep = routes[i]
+            picked = ex_out[i].reshape(e * c, -1)[
+                torch.clamp(slot, max=e * c - 1)]
+            gate = gate_prob[rows[i]].to(devices[i]).to(torch.float32)
+            return torch.where(keep[:, None], gate[:, None] * picked, 0.0)
+
+        return gather_whole(local_map(devices, combine), devices)
 
     return fn
 

@@ -12,9 +12,15 @@ the last stage writes microbatch ``t − (n − 1)``.
 
 Where the JAX program computes every stage at every tick (the bubble
 computes on zeros or on a repeated microbatch and is masked at the
-write), one process drives the shards here and a shard computes only at
-the ticks whose result is read: the same outputs, without the bubble's
-work. Inference only, as in JAX.
+write), a shard computes here only at the ticks whose result is read:
+the same outputs, without the bubble's work. Inference only, as in JAX.
+
+On a mesh of several processes each rank runs the ticks for its own
+stages (stage 0's rank feeds the microbatches), the hops between two
+ranks' stages cross through ``torch.distributed``, and every rank still
+calls the hop at every tick. The last stage's rank then holds the whole
+output, and one ``collectives.broadcast`` hands it to every rank (JAX
+replicates it with a masked ``psum``, n slots of traffic).
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ from typing import Callable
 
 import torch
 
-from kepler_tpu_torch.parallel.collectives import (axis_devices, one_process,
-                                                   ppermute)
+from kepler_tpu_torch.parallel.collectives import (axis_devices, broadcast,
+                                                   crosses, local_indices,
+                                                   local_map, ppermute)
 from kepler_tpu_torch.parallel.mesh import Mesh
 
 STAGE_AXIS = "stage"
@@ -34,19 +41,22 @@ STAGE_AXIS = "stage"
 def stage_slices(stacked: dict[str, torch.Tensor],
                  devices: list[torch.device]) -> list[dict[str, torch.Tensor]]:
     """Stacked ``[S, ...]`` stage params → shard ``i``'s consecutive S/n
-    blocks on its device. Raises ValueError when S does not divide by n."""
+    blocks on its device (None at other ranks' shards). Raises
+    ValueError when S does not divide by n."""
     n = len(devices)
     s = next(iter(stacked.values())).shape[0]
     if s % n:
         raise ValueError(f"{s} stages do not divide over {n} shards")
     per = s // n
-    return [{k: v[i * per:(i + 1) * per].to(d) for k, v in stacked.items()}
-            for i, d in enumerate(devices)]
+    return local_map(devices, lambda i: {
+        k: v[i * per:(i + 1) * per].to(devices[i])
+        for k, v in stacked.items()})
 
 
 def _gpipe(shards, x_mb, *, devices, stage_fn):
     """The tick loop over microbatches ``x_mb [M, mB, ...]`` → the last
-    stage's outputs, microbatch by microbatch."""
+    stage's outputs, microbatch by microbatch (on the last stage's rank;
+    None on the others)."""
     n, m = len(devices), x_mb.shape[0]
 
     def apply_local(params, x):
@@ -59,14 +69,15 @@ def _gpipe(shards, x_mb, *, devices, stage_fn):
     out: list[torch.Tensor | None] = [None] * m
     for t in range(m + n - 1):
         ys: list[torch.Tensor | None] = [None] * n
-        for idx in range(n):
+        for idx in local_indices(devices):
             if not 0 <= t - idx < m:  # the bubble: nothing to read
                 continue
             x_in = x_mb[t].to(devices[0]) if idx == 0 else state[idx]
             ys[idx] = apply_local(shards[idx], x_in)
         if t >= n - 1:
             out[t - (n - 1)] = ys[n - 1]
-        # the last stage's hop back to stage 0 is never read
+        # every rank hops at every tick; the last stage's hop back to
+        # stage 0 is never read
         state = ppermute(ys[:n - 1] + [None], devices)
     return out
 
@@ -83,11 +94,12 @@ def make_pipeline(
     ``stacked_stage_params``: a dict of tensors with a leading stage axis
     S (divisible by the ``axis_name`` mesh size). ``B`` must divide by
     ``n_microbatches``. The output equals applying the S stages in
-    order; it lies on the first shard's device. The mesh's shards are
-    this process's.
+    order; it lies on the first shard's device (on a mesh of several
+    processes, every rank passes the same whole inputs and gets the
+    whole output on its first shard's device).
     """
     devices = axis_devices(mesh, axis_name)
-    one_process(devices, "the pipeline")
+    last = len(devices) - 1
 
     def fn(stage_params, x):
         b = x.shape[0]
@@ -97,7 +109,12 @@ def make_pipeline(
         x_mb = x.reshape(n_microbatches, b // n_microbatches, *x.shape[1:])
         out = _gpipe(stage_slices(stage_params, devices), x_mb,
                      devices=devices, stage_fn=stage_fn)
-        return torch.cat([o.to(devices[0]) for o in out]).reshape(x.shape)
+        if not crosses(devices):
+            return torch.cat([o.to(devices[0]) for o in out]).reshape(
+                x.shape)
+        whole = local_map(devices, lambda i: torch.cat(out).reshape(
+            x.shape) if i == last else None)
+        return broadcast(whole, devices, last)[local_indices(devices)[0]]
 
     return fn
 
@@ -113,8 +130,9 @@ def make_pipelined_deep(
     """→ ``(params, features [B, F], workload_valid [B]) → watts [B, Z]``.
 
     Embed and head run outside the pipeline on the first shard's device
-    (one small product each); the block stack streams through the stage
-    ring."""
+    (one small product each; across processes every rank runs both, so
+    every rank returns the whole watts); the block stack streams through
+    the stage ring."""
     from kepler_tpu_torch.models.deep import block_fn, embed, head
 
     pipeline = make_pipeline(

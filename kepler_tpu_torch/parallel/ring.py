@@ -21,9 +21,9 @@ shard's output block there. The sequence-parallel programs
 The whole-tensor forms (:func:`ring_attention_shardmap`,
 :func:`make_ring_attention`) cut whole ``[B, T, H, D]`` tensors into the
 blocks (:func:`split_blocks`), run the core and join the output on the
-first shard's device (:func:`join_blocks`; on a mesh of several
-processes every rank gets it, by an ``all_gather``, on its first
-shard's device: :func:`gather_blocks`). ``backend="pallas"``
+first shard's device (on a mesh of several processes every rank gets
+it, by an ``all_gather``, on its first shard's device:
+``collectives.gather_whole``). ``backend="pallas"``
 computes every block partial with kernel B3
 (``ops.cuda_attention.flash_block_pallas``, scalar block starts, the
 causal mask rebuilt inside the kernel): n² launches a call on CUDA
@@ -42,14 +42,15 @@ from kepler_tpu_torch.ops import cuda_attention
 from kepler_tpu_torch.ops.attention import (_NEG_INF, block_attn,
                                             full_attention, merge_blocks,
                                             stats_to_out)
-from kepler_tpu_torch.parallel.collectives import (all_gather, axis_devices,
-                                                   crosses, local_indices,
-                                                   local_map, ppermute)
+from kepler_tpu_torch.parallel.collectives import (axis_devices,
+                                                   gather_whole,
+                                                   local_indices, local_map,
+                                                   ppermute)
 from kepler_tpu_torch.parallel.mesh import Mesh
 
 SEQ_AXIS = "seq"
 
-__all__ = ["SEQ_AXIS", "full_attention", "gather_blocks", "join_blocks",
+__all__ = ["SEQ_AXIS", "full_attention", "join_blocks",
            "make_ring_attention", "ring_attention_shardmap", "ring_blocks",
            "split_blocks"]
 
@@ -76,16 +77,6 @@ def join_blocks(blocks: list[torch.Tensor], device: torch.device
     """Per-shard blocks ``[B, T/n, ...]`` → the whole ``[B, T, ...]`` on
     ``device``, in shard order."""
     return torch.cat([x.to(device) for x in blocks], dim=1)
-
-
-def gather_blocks(blocks: list, devices: list[torch.device]
-                  ) -> torch.Tensor:
-    """The whole ``[B, T, ...]`` of the shards' blocks on this rank's
-    first shard's device: :func:`join_blocks` in one process, an
-    ``all_gather`` of the blocks over several."""
-    if not crosses(devices):
-        return join_blocks(blocks, devices[0])
-    return all_gather(blocks, devices, axis=1)[local_indices(devices)[0]]
 
 
 def ring_blocks(qs: list[torch.Tensor], ks: list[torch.Tensor],
@@ -145,7 +136,7 @@ def _ring(q, k, v, t_valid, *, devices, causal, compute_dtype, backend):
     qs, ks, vs, vals = (split_blocks(x, devices) for x in (q, k, v, t_valid))
     out = ring_blocks(qs, ks, vs, vals, devices=devices, causal=causal,
                       compute_dtype=compute_dtype, backend=backend)
-    return gather_blocks(out, devices)
+    return gather_whole(out, devices, axis=1)
 
 
 def ring_attention_shardmap(

@@ -26,10 +26,10 @@ import torch
 
 from kepler_tpu_torch.ops.attention import full_attention
 from kepler_tpu_torch.parallel.collectives import (all_gather, all_to_all,
-                                                   axis_devices, local_map)
+                                                   axis_devices, gather_whole,
+                                                   local_map)
 from kepler_tpu_torch.parallel.mesh import Mesh
-from kepler_tpu_torch.parallel.ring import (SEQ_AXIS, Attention,
-                                           gather_blocks, split_blocks)
+from kepler_tpu_torch.parallel.ring import SEQ_AXIS, Attention, split_blocks
 from kepler_tpu_torch.parallel.sequence import make_sharded_temporal_program
 
 
@@ -77,10 +77,10 @@ def ulysses_attention_shardmap(
     def checked(q, k, v, t_valid):
         _heads_divide(q.shape[2], n, axis_name)
         blocks = (split_blocks(x, devices) for x in (q, k, v, t_valid))
-        return gather_blocks(ulysses_blocks(*blocks, devices=devices,
-                                            causal=causal,
-                                            compute_dtype=compute_dtype),
-                             devices)
+        return gather_whole(ulysses_blocks(*blocks, devices=devices,
+                                           causal=causal,
+                                           compute_dtype=compute_dtype),
+                            devices, axis=1)
 
     return checked
 

@@ -883,6 +883,34 @@ def test_parallel_families_on_the_card_match_the_cpu(cuda_device):
                                    msg=key)
 
 
+def dist_worker():
+    """``tests/torch_dist_worker.py``, loaded by path: the card's machine
+    may have another package named tests."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).with_name("torch_dist_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_dist_worker", path)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    return worker
+
+
+def nccl_spawn(worker, suite: str, layout: str, inputs, tmp_path
+               ) -> list[dict]:
+    """``suite`` on two NCCL ranks of the card: if NCCL refuses two ranks
+    on one device ("Duplicate GPU detected"), again with a host id each
+    (``NCCL_HOSTID``), which NCCL takes."""
+    ranks = worker.spawn(suite, layout, inputs, tmp_path)
+    if "error" in ranks[0]:
+        for out in ranks:
+            assert "Duplicate GPU" in str(out["error"]), str(out["error"])
+        ranks = worker.spawn(suite, layout, inputs, tmp_path, host_ids=True)
+    for out in ranks:
+        assert "error" not in out, str(out.get("error"))
+    return ranks
+
+
 @pytest.mark.cuda
 def test_ring_across_two_nccl_ranks_on_the_card(cuda_device, tmp_path):
     """Two ranks share the card (``tests/torch_dist_worker.py``, each
@@ -893,15 +921,7 @@ def test_ring_across_two_nccl_ranks_on_the_card(cuda_device, tmp_path):
     a host id each (``NCCL_HOSTID``), which NCCL takes. Either way, both
     ranks' outputs equal the one-process ring's on the card bit for bit,
     and each rank made 32 tensor-core launches."""
-    import importlib.util
-    import pathlib
-
-    # by path: the card's machine may have another package named tests
-    path = pathlib.Path(__file__).with_name("torch_dist_worker.py")
-    spec = importlib.util.spec_from_file_location("torch_dist_worker", path)
-    worker = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(worker)
-
+    worker = dist_worker()
     rng = np.random.default_rng(41)
     q, k, v = (rng.normal(size=(4, 128, 4, 32)).astype(np.float32)
                for _ in range(3))
@@ -909,15 +929,53 @@ def test_ring_across_two_nccl_ranks_on_the_card(cuda_device, tmp_path):
     arrays = {"ring/q": q, "ring/k": k, "ring/v": v, "ring/tv": valid}
     np.savez(tmp_path / "in.npz", **arrays)
     want = worker.run_ring_cuda(arrays, None)["ring"]
-    ranks = worker.spawn("ring_cuda", "blocks", tmp_path / "in.npz",
-                         tmp_path)
-    if "error" in ranks[0]:
-        for out in ranks:
-            assert "Duplicate GPU" in str(out["error"]), str(out["error"])
-        ranks = worker.spawn("ring_cuda", "blocks", tmp_path / "in.npz",
-                             tmp_path, host_ids=True)
-    for out in ranks:
-        assert "error" not in out, str(out.get("error"))
+    for out in nccl_spawn(worker, "ring_cuda", "blocks", tmp_path / "in.npz",
+                          tmp_path):
         assert int(out["launches/flash_block"]) == 32
         assert int(out["launches/flash_block_tc"]) == 32
         np.testing.assert_array_equal(out["ring"], want)
+
+
+@pytest.mark.cuda
+def test_pipeline_and_experts_across_two_nccl_ranks_on_the_card(
+        cuda_device, tmp_path):
+    """Two ranks share the card, shard k of each 8-shard mesh on rank
+    k % 2 (every pipeline hop crosses): the pipelined deep estimator (f32)
+    and expert parallelism (explicit ids, f32), the hops, the broadcast
+    of the last stage's output, the all-to-alls and the all-gather of the
+    row blocks over NCCL. Both ranks' outputs equal the one-process mesh's
+    on the card bit for bit."""
+    from kepler_tpu_torch.models.deep import init_deep
+    from kepler_tpu_torch.models.moe import init_moe
+
+    worker = dist_worker()
+    gen = torch.Generator().manual_seed(43)
+    rng = np.random.default_rng(43)
+    arrays = {}
+    for key, val in init_deep(2, n_stages=8, d_model=32,
+                              generator=gen).items():
+        if key == "blocks":
+            arrays.update({f"pp/blocks/{k}": v.numpy()
+                           for k, v in val.items()})
+        else:
+            arrays[f"pp/{key}"] = val.numpy()
+    arrays.update({f"ep/{k}": v.numpy() for k, v in init_moe(
+        2, n_experts=8, hidden=32, generator=gen).items()})
+    # non-zero heads: the initialisers zero them
+    for key, scale in (("pp/w_head", 0.2), ("pp/w_skip", 0.2),
+                       ("ep/w1", 0.3), ("ep/w_skip", 0.2)):
+        arrays[key] = rng.normal(0, scale, arrays[key].shape).astype(
+            np.float32)
+    arrays["pp_in/feats"] = rng.uniform(0, 2, (24, 7)).astype(np.float32)
+    arrays["pp_in/valid"] = np.arange(24) % 5 != 0
+    arrays["ep_in/feats"] = rng.uniform(0, 2, (64, 7)).astype(np.float32)
+    arrays["ep_in/eid"] = (np.arange(64) * 7 % 8).astype(np.int32)
+    np.savez(tmp_path / "in.npz", **arrays)
+    want = worker.run_stages_cuda(arrays, None)
+    assert np.abs(want["deep_f32"]).max() > 0
+    for out in nccl_spawn(worker, "stages_cuda", "interleaved",
+                          tmp_path / "in.npz", tmp_path):
+        for key in ("deep_f32", "expert_explicit_f32"):
+            np.testing.assert_array_equal(out[key], want[key], err_msg=key)
+        for name in ("ppermute", "broadcast", "all_to_all", "all_gather"):
+            assert int(out[f"crossing/{name}/calls"]) > 0, name

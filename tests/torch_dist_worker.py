@@ -13,17 +13,30 @@ computed to the ``.npz`` OUT:
   program, the sequence-parallel train step (with and without remat),
   Ulysses attention and its serving program, and the DP×TP train step;
   every rank writes the whole outputs;
+- ``stages``: the GPipe pipeline (8 stages; 4 stages of 2 blocks), the
+  pipelined deep estimator, expert parallelism (explicit and learned
+  routing, capacity overflow, ids outside the experts, a NaN row) and
+  the DP×TP train step with ``gather_params``, on meshes laid out as
+  LAYOUT says (under ``interleaved`` every node row of the trainer spans
+  both ranks), and what the device tier's recorder sees of the pipeline
+  and the experts;
+- ``indivisible``: the pipeline, the experts and the DP×TP step each
+  given a batch that does not divide, then one pipeline call that does
+  (each call's error and seconds, and the last call's output);
 - ``hang``: rank 0 runs the ring while rank 1 never calls it: the ring
   must raise within the group's timeout (``seconds``, ``error``);
 - ``alone``: rank 1 never starts, so rank 0's join fails within its
   timeout and a ring over both ranks' shards is refused (``error``);
 - ``ring_cuda``: the ranks join NCCL on the card and run the pallas ring
   (kernel B3 on each rank's shards); a refused join writes NCCL's words
-  (``error``).
+  (``error``);
+- ``stages_cuda``: the same join, then the pipelined deep and expert
+  parallelism on 8 shards of the card.
 
 The same functions run in one process with ``layout=None`` (what the
 tests compare with). ``tests/test_torch_dist_collectives.py`` and
-``tests/test_torch_dist_families.py`` spawn the ranks, each spawn under
+``tests/test_torch_dist_families.py`` and
+``tests/test_torch_dist_stages.py`` spawn the ranks, each spawn under
 its own time limit (:func:`spawn`). Imports no JAX.
 """
 
@@ -43,14 +56,18 @@ from kepler_tpu_torch.analysis.device.trace import OpRecorder
 from kepler_tpu_torch.models import train
 from kepler_tpu_torch.models.estimator import params_from_numpy
 from kepler_tpu_torch.ops import recorder
+from kepler_tpu_torch.models.deep import block_fn
 from kepler_tpu_torch.parallel import (gather_params,
                                        make_distributed_train_step,
-                                       make_mesh, make_ring_attention,
+                                       make_expert_parallel_moe,
+                                       make_mesh, make_pipeline,
+                                       make_pipelined_deep,
+                                       make_ring_attention,
                                        make_sequence_parallel_train_step,
                                        make_temporal_program,
                                        make_ulysses_attention,
                                        make_ulysses_temporal_program,
-                                       shard_train_state)
+                                       shard_train_state, top1_route)
 from kepler_tpu_torch.parallel import collectives as col
 from kepler_tpu_torch.parallel.mesh import Shard, initialize_multihost
 
@@ -65,12 +82,13 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 F32 = torch.float32
 
 
-def mesh(n: int, axes=("seq",), shape=None, layout: str | None = None):
-    """An n-shard ``cpu`` mesh: this process's (``layout=None``), or two
-    ranks' as ``LAYOUTS[layout]`` assigns them."""
-    cpu = torch.device("cpu")
-    devices = ([cpu] * n if layout is None else
-               [Shard(cpu, LAYOUTS[layout](k, n)) for k in range(n)])
+def mesh(n: int, axes=("seq",), shape=None, layout: str | None = None,
+         device: str = "cpu"):
+    """An n-shard mesh of ``device``: this process's (``layout=None``),
+    or two ranks' as ``LAYOUTS[layout]`` assigns them."""
+    dev = torch.device(device)
+    devices = ([dev] * n if layout is None else
+               [Shard(dev, LAYOUTS[layout](k, n)) for k in range(n)])
     return make_mesh(list(shape or [n]), list(axes), devices=devices)
 
 
@@ -81,6 +99,20 @@ def _t(a: dict, key: str) -> torch.Tensor:
 def _numpy(x: torch.Tensor) -> np.ndarray:
     return x.detach().to(F32 if x.dtype == torch.bfloat16 else x.dtype
                          ).numpy()
+
+
+def _params(a: dict, prefix: str, mode: str, device: str = "cpu") -> dict:
+    """The params stored under ``prefix`` (deep's ``blocks/`` nested), on
+    ``device``."""
+    flat: dict = {}
+    for key, val in a.items():
+        if key.startswith(prefix):
+            *outer, leaf = key[len(prefix):].split("/")
+            node = flat
+            for part in outer:
+                node = node.setdefault(part, {})
+            node[leaf] = val
+    return params_from_numpy(mode, flat, device)
 
 
 def _put(out: dict, case: str, slots: list) -> None:
@@ -146,6 +178,9 @@ def run_collectives(a: dict, layout: str | None) -> dict:
 
 def _run_trainer(a: dict, layout: str | None, out: dict) -> None:
     grid = mesh(8, ("node", "model"), (4, 2), layout)
+    out["dp_tp_rows_across_ranks"] = np.array(sum(
+        len(set(col.ranks_of(row))) > 1
+        for row in col.grid_devices(grid, ("node", "model"))))
     batches = [tuple(_t(a, f"dp/{k}{s}") for k in ("x", "valid", "y"))
                for s in range(3)]
     for cd in ("bf16", "f32"):
@@ -216,6 +251,129 @@ def run_families(a: dict, layout: str | None) -> dict:
     return out
 
 
+def _f32_stage(blk, h):
+    return block_fn(blk, h, F32)
+
+
+def _pipelines(a: dict, layout: str | None, device: str, out: dict,
+               dtypes=DTYPES) -> None:
+    """The pipelined deep on 8 stages at each of ``dtypes`` →
+    ``out[f"deep_{cd}"]``."""
+    deep = _params(a, "pp/", "deep", device)
+    feats, valid = (_t(a, f"pp_in/{k}").to(device) for k in ("feats", "valid"))
+    for cd, dtype in dtypes.items():
+        out[f"deep_{cd}"] = _numpy(make_pipelined_deep(
+            mesh(8, ("stage",), layout=layout, device=device),
+            n_microbatches=4, compute_dtype=dtype)(deep, feats,
+                                                   valid).cpu())
+
+
+def _experts(a: dict, layout: str | None, device: str, out: dict,
+             cases=None) -> None:
+    """Expert parallelism on 8 shards → ``out[f"expert_{case}"]``:
+    explicit ids at f32 and bf16, learned top-1, capacity overflow,
+    ids outside the experts and a NaN row."""
+    moe = _params(a, "ep/", "moe", device)
+    feats = _t(a, "ep_in/feats").to(device)
+    ones = torch.ones(feats.shape[0], device=device)
+    eid = _t(a, "ep_in/eid").to(device)
+    ep = make_expert_parallel_moe(mesh(8, ("expert",), layout=layout,
+                                       device=device), compute_dtype=F32)
+    runs = {
+        "explicit_f32": lambda: ep(moe, feats, eid, ones),
+        "explicit_bf16": lambda: make_expert_parallel_moe(
+            mesh(8, ("expert",), layout=layout, device=device))(
+            moe, feats, eid, ones),
+        "top1": lambda: ep(moe, feats, *top1_route(moe, feats)),
+        "overflow": lambda: make_expert_parallel_moe(
+            mesh(8, ("expert",), layout=layout, device=device),
+            capacity_factor=0.5, compute_dtype=F32)(
+            moe, feats, torch.zeros_like(eid), ones),
+        "outside": lambda: ep(moe, feats, _t(a, "ep_in/outside").to(device),
+                              ones),
+        "nan": lambda: ep(moe, _t(a, "ep_in/nan_feats").to(device), eid,
+                          ones)}
+    for case in cases or runs:
+        out[f"expert_{case}"] = _numpy(runs[case]().cpu())
+
+
+def _recorded(out: dict, label: str, fn, names: tuple) -> None:
+    """What the device tier's recorder sees of ``fn()``: the collectives
+    and the ``crossing:<name>`` ops of ``names``."""
+    rec = OpRecorder([])
+    with recorder.recording(rec), rec:
+        fn()
+    out[f"recorded_{label}/collectives"] = np.array(sorted(rec.collectives))
+    out[f"recorded_{label}/crossings"] = np.array(
+        [rec.ops.get(f"crossing:{c}", 0) for c in names])
+
+
+def run_stages(a: dict, layout: str | None) -> dict:
+    """The pipeline, the experts and the DP×TP step on meshes laid out
+    as ``layout`` says → their whole outputs (every rank computes them)."""
+    out: dict = {}
+    blocks = _params(a, "pp/", "deep")["blocks"]
+    x = _t(a, "pp_in/x")
+    for n in (8, 4):  # 8 stages of one block; 4 of two
+        out[f"pipeline_{n}"] = _numpy(make_pipeline(
+            mesh(n, ("stage",), layout=layout), _f32_stage,
+            n_microbatches=4)(blocks, x))
+    _pipelines(a, layout, "cpu", out)
+    _experts(a, layout, "cpu", out)
+    deep = _params(a, "pp/", "deep")
+    pp_in = (_t(a, "pp_in/feats"), _t(a, "pp_in/valid"))
+    _recorded(out, "pipeline", lambda: make_pipelined_deep(
+        mesh(8, ("stage",), layout=layout), compute_dtype=F32)(deep, *pp_in),
+        ("ppermute", "broadcast"))
+    moe = _params(a, "ep/", "moe")
+    feats = _t(a, "ep_in/feats")
+    _recorded(out, "expert", lambda: make_expert_parallel_moe(
+        mesh(8, ("expert",), layout=layout), compute_dtype=F32)(
+        moe, feats, _t(a, "ep_in/eid"), torch.ones(feats.shape[0])),
+        ("all_to_all", "all_gather"))
+    _run_trainer(a, layout, out)
+    out["layout"] = np.array(str(layout))
+    return out
+
+
+def run_indivisible(a: dict, layout: str | None) -> dict:
+    """Each family given a batch that does not divide (16 rows in 3
+    microbatches, 60 rows over 8 expert shards, 6 nodes over 4 node
+    rows) → each call's error and seconds; then one pipeline call that
+    divides, to show both ranks are still in step."""
+    blocks = _params(a, "pp/", "deep")["blocks"]
+    x = _t(a, "pp_in/x")
+    moe = _params(a, "ep/", "moe")
+    feats = _t(a, "ep_in/feats")[:60]
+    grid = mesh(8, ("node", "model"), (4, 2), layout)
+    state = shard_train_state(train.create_train_state(
+        _params(a, "mp/", "mlp"), train.make_optimizer(1e-2)), grid)
+    calls = {
+        "pipeline": lambda: make_pipeline(
+            mesh(8, ("stage",), layout=layout), _f32_stage,
+            n_microbatches=3)(blocks, x),
+        "expert": lambda: make_expert_parallel_moe(
+            mesh(8, ("expert",), layout=layout))(
+            moe, feats, torch.zeros(60, dtype=torch.int32),
+            torch.ones(60)),
+        "trainer": lambda: make_distributed_train_step(grid)(
+            state, *(_t(a, f"dp/{k}0")[:6] for k in ("x", "valid", "y")))}
+    out: dict = {}
+    for name, call in calls.items():
+        t0 = time.monotonic()
+        try:
+            call()
+            error = "no error"
+        except Exception as err:  # the test reads what was raised
+            error = f"{type(err).__name__}: {err}"[:400]
+        out[f"{name}/error"] = np.array(error)
+        out[f"{name}/seconds"] = np.array(time.monotonic() - t0)
+    out["after"] = _numpy(make_pipeline(
+        mesh(8, ("stage",), layout=layout), _f32_stage,
+        n_microbatches=4)(blocks, x))
+    return out
+
+
 def run_hang(a: dict, layout: str | None) -> dict:
     """Rank 0 runs the ring; rank 1 joined the group but never calls
     it. → how long rank 0 waited and what it raised."""
@@ -247,13 +405,9 @@ def run_ring_cuda(a: dict, layout: str | None) -> dict:
     """The pallas ring on 8 shards of the card → its output and the B3
     launches this rank made (each rank's shards' blocks)."""
     from kepler_tpu_torch.ops import cuda_attention as cat
-    from kepler_tpu_torch.parallel.mesh import make_mesh as mk
 
-    dev = torch.device("cuda", 0)
-    shards = [dev] * 8 if layout is None else [
-        Shard(dev, LAYOUTS[layout](k, 8)) for k in range(8)]
-    qkv = [_t(a, f"ring/{k}").to(dev) for k in ("q", "k", "v", "tv")]
-    ring = make_ring_attention(mk([8], ["seq"], devices=shards),
+    qkv = [_t(a, f"ring/{k}").to("cuda:0") for k in ("q", "k", "v", "tv")]
+    ring = make_ring_attention(mesh(8, layout=layout, device="cuda:0"),
                                backend="pallas")
     before = dict(cat.LAUNCHES)
     got = ring(*qkv)
@@ -263,16 +417,30 @@ def run_ring_cuda(a: dict, layout: str | None) -> dict:
                for k, v in cat.LAUNCHES.items()}}
 
 
+def run_stages_cuda(a: dict, layout: str | None) -> dict:
+    """The pipelined deep (f32) and expert parallelism (explicit ids at
+    f32) on 8 shards of the card → their outputs."""
+    out: dict = {}
+    _pipelines(a, layout, "cuda:0", out, dtypes={"f32": F32})
+    _experts(a, layout, "cuda:0", out, cases=("explicit_f32",))
+    torch.cuda.synchronize()
+    return out
+
+
 SUITES = {"collectives": run_collectives, "families": run_families,
-          "hang": run_hang, "alone": run_alone, "ring_cuda": run_ring_cuda}
+          "stages": run_stages, "indivisible": run_indivisible,
+          "hang": run_hang, "alone": run_alone, "ring_cuda": run_ring_cuda,
+          "stages_cuda": run_stages_cuda}
+#: suites with the short group timeout
+SHORT = ("hang", "alone", "indivisible")
 
 
 def spawn(suite: str, layout: str, inputs: pathlib.Path,
           tmp: pathlib.Path, world: int = 2,
           limit_s: float = SPAWN_LIMIT_S,
           host_ids: bool = False) -> list[dict]:
-    """Run ``suite`` on ``world`` ranks over gloo on 127.0.0.1 (``ring_cuda``:
-    gloo and NCCL) → each rank's outputs (suite ``alone``: rank 0 only).
+    """Run ``suite`` on ``world`` ranks over gloo on 127.0.0.1 (the
+    ``*_cuda`` suites: gloo and NCCL) → each rank's outputs (suite ``alone``: rank 0 only).
     ``host_ids`` gives each rank its own ``NCCL_HOSTID``, so that NCCL
     takes two ranks on one card. Every rank is killed at ``limit_s``; a
     rank that fails fails the spawn with its stderr."""
@@ -311,13 +479,13 @@ def spawn(suite: str, layout: str, inputs: pathlib.Path,
 def main(argv: list[str]) -> int:
     suite, layout = argv[0], argv[1]
     rank, world, addr = int(argv[2]), int(argv[3]), argv[4]
-    timeout = HANG_TIMEOUT_S if suite in ("hang", "alone") else GROUP_TIMEOUT_S
+    timeout = HANG_TIMEOUT_S if suite in SHORT else GROUP_TIMEOUT_S
     t0 = time.monotonic()
     try:
         joined = initialize_multihost(
             coordinator_address=addr, num_processes=world, process_id=rank,
             init_timeout=timeout,
-            device="cuda" if suite == "ring_cuda" else None)
+            device="cuda" if suite.endswith("_cuda") else None)
     except RuntimeError as err:  # NCCL refused: what it said is the result
         np.savez(argv[6], error=np.array(str(err)))
         return 0
@@ -338,7 +506,7 @@ def main(argv: list[str]) -> int:
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "kepler_tpu")), dtype=str)
     np.savez(argv[6], **out)
-    if suite in ("collectives", "families", "ring_cuda"):
+    if suite not in ("hang", "alone"):
         torch.distributed.destroy_process_group()
     return 0
 
