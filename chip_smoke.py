@@ -35,7 +35,11 @@ zones, buckets N = 1024, W = 256):
 5. the temporal model's full-sequence trunk on the same windows,
    ``predict_temporal(..., attention_fn=pallas_attention_fn())`` (d_model
    128, 4 heads of 32) — kernel B3 once per call over 262,144 sequences,
-   every launch its tensor-core variant;
+   every launch its tensor-core variant; then in accuracy mode (f32) on
+   the last window's 262,144 sequences — B3 once, on its KV-tiled
+   variant — against the fast path; and the trunk at d_model 512 (4
+   heads of 128) over 65,536 sequences at bf16 and f32 — B3 once a call,
+   tiled — against the fast path;
 6. the node agent on one fake host of 10,000 processes (half in
    docker/kubepods cgroups, four RAPL zones, under ``/dev/shm``): the
    native /proc reader, ``RaplPowerMeter`` and ``PowerMonitor(device=
@@ -89,6 +93,10 @@ zones, buckets N = 1024, W = 256):
    over 4096 sequences of T = 1024 (4 heads of 32, bf16) — kernel B3
    once per shard per KV rotation, 64 launches a call, all on tensor
    cores — against the einsum ring and dense attention on 64 sequences;
+   the same ring on 2 shards at bf16 (B3 on 512-row blocks, 4 launches)
+   and on 8 shards at f32 (64 launches), all on B3's KV-tiled variant,
+   against the einsum ring (on 256 sequences for the 512-row blocks) and
+   dense attention;
    the sequence-parallel program (8 shards) once under the op recorder
    at 512 sequences (no op returns an axis of the whole sequence: the
    trunk runs on each shard's 128-tick block), then at the ring's size,
@@ -136,7 +144,9 @@ Beside them, the serial rung's MLP program (``make_fleet_program(
 model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
 and B2 and B3 are timed in each of their forms: B2 per window (K = 1)
 and per flush (K = 4, one launch), B3's tensor-core variant against its
-SIMT variant at bf16 and f32. The delta update's row scatter
+KV-tiled variant at bf16, the tiled variant at f32 (accuracy mode), on
+the rings' blocks and at D = 128, each against the bound of its compute
+type. The delta update's row scatter
 (``kt_scatter_rows``, a repair kernel: the reference's update is XLA's
 scatter, not a Pallas kernel) is held bit-equal to its plain version at
 N = 16,384 and DB = 8, 512 and 1,024, pads and a duplicate index
@@ -199,6 +209,9 @@ TEMPORAL_WINDOWS = 20
 CPU_NODES = 32
 B3_SHAPES = ((N_NODES * 256, 16), (256 * 64, 128))
 D_MODEL, N_HEADS = 128, 4
+# path 5c: the trunk at d_model 512 (4 heads of 128: B3's tiled variant)
+# over as many sequences as keep q, k and v at 2.1 GB each
+TRUNK_WIDE_D, TRUNK_WIDE_B = 512, 65536
 # the accuracy-mode check's head scale: predictions of tens of watts
 ACC_SCALE = 40.0
 # training (path 10): AdamW steps of each family on the card, the steps
@@ -232,10 +245,11 @@ def f16_ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.abs(ia - ib)
 
 
-def time_ms(fn, reps: int = 25, batch: int = 20) -> float:
+def time_ms(fn, reps: int = 25, batch: int = 20, warm: int = 5) -> float:
     """Median over ``reps`` CUDA-event timings of ``batch`` back-to-back
-    calls, per call (warm: inputs stay resident in the 50 MB L2)."""
-    for _ in range(5):
+    calls, per call, after ``warm`` calls (warm: inputs stay resident in
+    the 50 MB L2)."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -1597,20 +1611,34 @@ def sdpa_ms(q, k, v, valid) -> tuple[float | None, float | None,
 def b3_variant_since(before: dict) -> str:
     """The B3 variant of the one launch made since ``before``."""
     now = read_launches()
-    grew = [v for v in ("tc", "simt")
+    grew = [v for v in ("tc", "tiled")
             if now[f"flash_block_{v}"] == before[f"flash_block_{v}"] + 1]
     check(now["flash_block"] == before["flash_block"] + 1 and len(grew) == 1,
           "B3 did not launch exactly once")
     return grew[0]
 
 
+def b3_plain(q, k, v, valid, q_start: int, kv_start: int,
+             cd: torch.dtype, chunk: int | None = None):
+    """B3's plain version on the same inputs, in chunks of ``chunk``
+    sequences where its [B, H, Tq, Tk] scores would not fit the card."""
+    from kepler_tpu_torch.ops import cuda_attention as cat
+
+    chunk = chunk or q.shape[0]
+    parts = [cat.flash_block_ref(q[i:i + chunk], k[i:i + chunk],
+                                 v[i:i + chunk], valid[i:i + chunk],
+                                 q_start, kv_start, compute_dtype=cd)
+             for i in range(0, q.shape[0], chunk)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
     """B3 against its plain version at ``b`` sequences of ``t`` ticks
     (causal, ragged KV mask): the tensor-core variant (bf16, what the
-    wrapper selects for the trunk), the SIMT variant at bf16 (PR 2's
-    kernel, through its plan) and at f32 (what the wrapper selects in
-    accuracy mode), timed beside the plain version and SDPA; at path 4's
-    shape also the block offsets."""
+    wrapper selects for the trunk), the KV-tiled variant at bf16 (through
+    its plan) and at f32 (what the wrapper selects in accuracy mode),
+    timed beside the plain version and SDPA, each against the bound of
+    its compute type; at path 5's shape also the block offsets."""
     from kepler_tpu_torch.ops import cuda_attention as cat
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1625,51 +1653,63 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
     want = cat.flash_block_ref(q, k, v, valid, 0, 0)
     sync()
     err = b3_check(got, want, v, bf16, f"B3 (tc) at B={b}, T={t}")
-    simt = cat.simt_plan(b, t, t, N_HEADS, d)
-    simt_bf16 = lambda: cat.flash_block_launch(  # noqa: E731
-        simt, q, k, v, valid, 0, 0)
-    got = simt_bf16()
-    simt_err = b3_check(got, want, v, bf16, f"B3 (simt) at B={b}, T={t}")
+    tiled = cat.tiled_plan(b, t, t, N_HEADS, d)
+    tiled_bf16 = lambda: cat.flash_block_launch(  # noqa: E731
+        tiled, q, k, v, valid, 0, 0)
+    before = read_launches()
+    got = tiled_bf16()
+    check(b3_variant_since(before) == "tiled",
+          f"B3's tiled plan at T={t}, bf16 did not launch the tiled variant")
+    tiled_err = b3_check(got, want, v, bf16, f"B3 (tiled) at B={b}, T={t}")
     del got, want
     before = read_launches()
     got = cat.flash_block_pallas(q, k, v, valid, 0, 0, compute_dtype=f32)
-    check(b3_variant_since(before) == "simt",
-          f"B3 at T={t}, f32 did not launch the SIMT variant")
+    check(b3_variant_since(before) == "tiled",
+          f"B3 at T={t}, f32 did not launch the tiled variant")
     f32_err = b3_check(got, cat.flash_block_ref(
         q, k, v, valid, 0, 0, compute_dtype=f32), v, f32,
-        f"B3 (simt) at f32, T={t}")
+        f"B3 (tiled) at f32, T={t}")
     del got
     bound, by = cat.flash_block_bound_ms(q, k, valid, 0, 0)
+    bound32, by32 = cat.flash_block_bound_ms(q, k, valid, 0, 0,
+                                             compute_dtype=f32)
     kern = lambda: cat.flash_block_pallas(q, k, v, valid, 0, 0)  # noqa: E731
     acc = lambda: cat.flash_block_pallas(  # noqa: E731
         q, k, v, valid, 0, 0, compute_dtype=f32)
     plain = lambda: cat.flash_block_ref(q, k, v, valid, 0, 0)  # noqa: E731
+    plain32 = lambda: cat.flash_block_ref(  # noqa: E731
+        q, k, v, valid, 0, 0, compute_dtype=f32)
     lib_ms, lib_device_ms, lib_err = sdpa_ms(q, k, v, valid)
     row = {
-        "name": "flash_block", "route": "cuda",
+        "name": "flash_block_tc", "route": "cuda",
         "source": "kepler_tpu_torch/ops/csrc/attention.cu",
         "replaces": "kepler_tpu/ops/pallas_attention.py:77",
         "shape": {"B": b, "Tq": t, "Tk": t, "H": N_HEADS, "D": d,
                   "causal": True, "compute": "bf16",
-                  "plan": plan._asdict(), "simt_plan": simt._asdict()},
+                  "plan": plan._asdict(), "tiled_plan": tiled._asdict()},
         "max_abs_err": err,
         "ms": time_ms(kern, reps=5, batch=4),
         "device_ms": device_ms(kern, calls=5),
-        "simt_bf16_ms": time_ms(simt_bf16, reps=5, batch=4),
-        "simt_bf16_device_ms": device_ms(simt_bf16, calls=5),
-        "simt_bf16_max_abs_err": simt_err,
+        "tiled_bf16_ms": time_ms(tiled_bf16, reps=5, batch=4),
+        "tiled_bf16_device_ms": device_ms(tiled_bf16, calls=5),
+        "tiled_bf16_max_abs_err": tiled_err,
         "f32_ms": time_ms(acc, reps=5, batch=4),
         "f32_device_ms": device_ms(acc, calls=5),
         "f32_max_abs_err": f32_err,
+        "f32_bound_ms": bound32, "f32_bound_by": by32,
         "plain_ms": time_ms(plain, reps=3, batch=2),
         "plain_device_ms": device_ms(plain, calls=2),
+        "f32_plain_ms": time_ms(plain32, reps=3, batch=2),
+        "f32_plain_device_ms": device_ms(plain32, calls=2),
         "library_ms": lib_ms, "library_device_ms": lib_device_ms,
         "library": "torch.nn.functional."
         "scaled_dot_product_attention (f32, causal & KV mask)",
         "bound_ms": bound, "bound_by": by,
         "compiled": {"tc": cat.flash_block_info("tc", t, d),
-                     "simt": cat.flash_block_info("simt", t, d)},
-        "parity": "m, l rtol 1e-5; pv <= 1e-2 max|v| (bf16)",
+                     "tiled_bf16": cat.flash_block_info("tiled", t, d, bf16),
+                     "tiled_f32": cat.flash_block_info("tiled", t, d, f32)},
+        "parity": "m, l rtol 1e-5; pv rtol 1e-5 (f32), <= 1e-2 max|v| "
+                  "(bf16)",
     }
     if lib_err is not None:
         row["library_error"] = lib_err
@@ -1686,6 +1726,62 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
             "B3 at offsets (16, 0)")
         del got
     emit({"phase": "kernel", **row})
+    del q, k, v, valid
+    torch.cuda.empty_cache()
+    return row
+
+
+def b3_launch(q, k, v, valid, start: int, cd: torch.dtype, what: str,
+              chunk: int | None = None) -> dict:
+    """One launch of B3 at a main path's shape (a diagonal block: q and KV
+    both from ``start``), on the variant its plan picks, against its
+    plain version (in chunks of ``chunk`` sequences), timed beside the
+    plain version and SDPA, with the bound of ``cd``."""
+    from kepler_tpu_torch.ops import cuda_attention as cat
+
+    b, tq, h, d = q.shape
+    plan = cat.flash_block_plan(b, tq, k.shape[1], h, d, cd)
+    kern = lambda: cat.flash_block_pallas(  # noqa: E731
+        q, k, v, valid, start, start, compute_dtype=cd)
+    plain = lambda: b3_plain(q, k, v, valid, start, start, cd,  # noqa: E731
+                             chunk)
+    before = read_launches()
+    got = kern()
+    check(b3_variant_since(before) == plan.variant,
+          f"{what}: B3 did not launch the {plan.variant} variant")
+    err = b3_check(got, plain(), v, cd, what)
+    del got
+    bound, by = cat.flash_block_bound_ms(q, k, valid, start, start,
+                                         compute_dtype=cd)
+    lib_ms, lib_device_ms, lib_err = sdpa_ms(q, k, v, valid)
+    row = {"B": b, "Tq": tq, "Tk": k.shape[1], "H": h, "D": d,
+           "q_start": start, "kv_start": start,
+           "compute": "bf16" if cd == torch.bfloat16 else "f32",
+           "plan": plan._asdict(), "max_abs_err": err,
+           "ms": time_ms(kern, reps=5, batch=4),
+           "device_ms": device_ms(kern, calls=5, match="flash_block"),
+           "plain_ms": time_ms(plain, reps=2, batch=1, warm=1),
+           "plain_device_ms": device_ms(plain, calls=1),
+           "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+           "bound_ms": bound, "bound_by": by,
+           "compiled": cat.flash_block_info(plan.variant, plan.tk, d, cd)}
+    if lib_err is not None:
+        row["library_error"] = lib_err
+    return row
+
+
+def kernel_b3_wide(dev: torch.device, cd: torch.dtype) -> dict:
+    """B3's tiled variant at path 5c's shape: TRUNK_WIDE_B sequences of
+    T = 16, 4 heads of 128 (the trunk at d_model 512)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    shape = (TRUNK_WIDE_B, HISTORY_T, N_HEADS, TRUNK_WIDE_D // N_HEADS)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    valid = ragged_lengths(gen, dev, TRUNK_WIDE_B, HISTORY_T)
+    row = b3_launch(q, k, v, valid, 0, cd, f"B3 at D = 128, {str(cd)[6:]}")
+    check(row["plan"]["variant"] == "tiled",
+          "B3 at D = 128 does not plan the tiled variant")
+    emit({"phase": "kernel", "name": "flash_block_tiled", **row})
     del q, k, v, valid
     torch.cuda.empty_cache()
     return row
@@ -1728,7 +1824,8 @@ def temporal_schedule() -> list[list]:
     return windows
 
 
-def temporal_params(scale: float = 1.0, t_max: int = 128) -> dict:
+def temporal_params(scale: float = 1.0, t_max: int = 128,
+                    d_model: int = D_MODEL) -> dict:
     """init_temporal at its default widths (d_model 128, 4 heads; t_max
     128 unless given) from the seed, with a non-zero head (init zeroes
     it); ``scale`` multiplies the head, the skip path and the bias (40
@@ -1736,7 +1833,8 @@ def temporal_params(scale: float = 1.0, t_max: int = 128) -> dict:
     from kepler_tpu_torch.models.temporal import init_temporal
 
     gen = torch.Generator().manual_seed(SEED)
-    params = init_temporal(len(ZONES), t_max=t_max, generator=gen)
+    params = init_temporal(len(ZONES), d_model=d_model, t_max=t_max,
+                           generator=gen)
     params["w_head"] = torch.randn(params["w_head"].shape,
                                    generator=gen) * 0.05 * scale
     params["w_skip"] = torch.randn(params["w_skip"].shape,
@@ -1997,7 +2095,7 @@ def main_temporal_trunk(dev: torch.device, saved: list,
           f"B3 launched {launches['flash_block']} times in {len(saved)} "
           "trunk calls")
     check(launches["flash_block_tc"] == len(saved)
-          and launches["flash_block_simt"] == 0,
+          and launches["flash_block_tiled"] == 0,
           "the trunk's B3 launches did not all go through tensor cores")
     check(launches["outer_product_attribution"] == 0,
           "the trunk path ran B1")
@@ -2028,18 +2126,30 @@ def main_temporal_trunk(dev: torch.device, saved: list,
                                     float(np.abs(a - b).max()))
         worst["vs_cpu_rel"] = max(worst["vs_cpu_rel"], float(
             (np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max()))
-    # f32: the full trunk through B3 equals the fast path (the JAX
-    # package's own equality, rtol 1e-4)
+    # path 5b, accuracy mode: the full trunk at f32 over the last
+    # window's 262,144 sequences, B3 once on its tiled variant, equals
+    # the fast path (the JAX package's own equality, rtol 1e-4)
     batch, hist, tv = saved[-1]
-    h, wv, tv_d = inputs(batch, hist, tv, CPU_NODES)
+    h, wv, tv_d = inputs(batch, hist, tv)
     f32 = torch.float32
-    full = predict_temporal(params_d, h, wv, tv_d, compute_dtype=f32,
-                            attention_fn=pallas_attention_fn(
-                                compute_dtype=f32))
+    acc_fn = pallas_attention_fn(compute_dtype=f32)
+    reset_launches()
+    full, acc_ms = timed_call(lambda: predict_temporal(
+        params_d, h, wv, tv_d, compute_dtype=f32, attention_fn=acc_fn))
+    acc_launches = read_launches()
+    check(acc_launches["flash_block"] == 1
+          and acc_launches["flash_block_tiled"] == 1,
+          f"the accuracy-mode trunk launched B3 {acc_launches['flash_block']}"
+          f" times ({acc_launches['flash_block_tiled']} tiled), not once")
     fast = predict_temporal(params_d, h, wv, tv_d, compute_dtype=f32)
+    check(bool(torch.isfinite(full).all()), "f32 trunk: non-finite watts")
     check(torch.allclose(full, fast, rtol=1e-4, atol=1e-5),
-          "f32 full trunk through B3 differs from the fast path")
+          "f32 full trunk through B3 differs from the fast path by "
+          f"{float((full - fast).abs().max())} W")
     worst["f32_vs_fast_path_abs_w"] = float((full - fast).abs().max())
+    accuracy = {"sequences": int(h.shape[0] * h.shape[1]),
+                "launches": acc_launches, "call_ms": acc_ms,
+                "max_abs_err_w_vs_fast_path": worst["f32_vs_fast_path_abs_w"]}
     del h, wv, tv_d, full, fast
 
     batch, hist, tv = saved[-1]
@@ -2053,10 +2163,73 @@ def main_temporal_trunk(dev: torch.device, saved: list,
     torch.cuda.empty_cache()
     row = {"phase": "main_temporal_trunk", "sequences": N_NODES * 256,
            "history_t": HISTORY_T, "calls": len(saved),
-           "launches": launches, "worst": worst,
+           "launches": launches, "worst": worst, "accuracy": accuracy,
            "call_ms_median": statistics.median(call_ms),
            "call_ms_first": call_ms[0], "peak_memory_gb": peak_gb,
            "profile": prof}
+    emit(row)
+    return row
+
+
+def main_trunk_wide(dev: torch.device) -> dict:
+    """Path 5c: the trunk at d_model = 512 (4 heads of 128) over
+    TRUNK_WIDE_B sequences of T = 16, at bf16 and f32, through
+    ``pallas_attention_fn`` — B3 once a call on its tiled variant —
+    against the same trunk through plain attention
+    (``ops.attention.full_attention``) and against the fast path: bf16
+    within 1e-2 · max|watts|, f32 the accuracy-mode bound (rtol 1e-4,
+    atol 1e-5 · max|watts|: predictions of tens of watts, f32 sums in
+    another order through 512-wide layers)."""
+    from kepler_tpu_torch.models.estimator import params_to
+    from kepler_tpu_torch.models.temporal import predict_temporal
+    from kepler_tpu_torch.ops.attention import full_attention
+    from kepler_tpu_torch.ops.cuda_attention import pallas_attention_fn
+
+    params = params_to(temporal_params(ACC_SCALE, d_model=TRUNK_WIDE_D),
+                       dev)
+    hist, wv, tv, _ = temporal_inputs(dev, TRUNK_WIDE_B, HISTORY_T,
+                                      SEED + 40)
+    row: dict = {"phase": "main_trunk_wide", "d_model": TRUNK_WIDE_D,
+                 "sequences": TRUNK_WIDE_B, "history_t": HISTORY_T}
+    for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        fn = pallas_attention_fn(compute_dtype=cd)
+        reset_launches()
+        out, ms = timed_call(lambda: predict_temporal(
+            params, hist, wv, tv, compute_dtype=cd, attention_fn=fn))
+        launches = read_launches()
+        check(launches["flash_block"] == 1
+              and launches["flash_block_tiled"] == 1,
+              f"the d_model {TRUNK_WIDE_D} trunk ({name}) launched B3 "
+              f"{launches['flash_block']} times "
+              f"({launches['flash_block_tiled']} tiled), not once")
+
+        def plain_attention(q, k, v, t_valid, cd=cd):
+            return full_attention(q, k, v, t_valid=t_valid,
+                                  compute_dtype=cd)
+
+        plain = predict_temporal(params, hist, wv, tv, compute_dtype=cd,
+                                 attention_fn=plain_attention)
+        fast = predict_temporal(params, hist, wv, tv, compute_dtype=cd)
+        a, p, f = (x.cpu().numpy() for x in (out, plain, fast))
+        check(np.isfinite(a).all(), f"wide trunk ({name}): non-finite")
+        if cd == torch.bfloat16:
+            ok_plain, ok_fast = bf16_close(a, p), bf16_close(a, f)
+        else:
+            atol = 1e-5 * float(np.abs(f).max())
+            ok_plain = np.allclose(a, p, rtol=1e-4, atol=atol)
+            ok_fast = np.allclose(a, f, rtol=1e-4, atol=atol)
+        check(ok_plain, f"wide trunk ({name}) off the trunk through plain "
+              f"attention by {float(np.abs(a - p).max())} W")
+        check(ok_fast, f"wide trunk ({name}) off the fast path by "
+              f"{float(np.abs(a - f).max())} W")
+        row[name] = {"launches": launches, "call_ms": ms,
+                     "max_abs_err_w_vs_plain_attention":
+                         float(np.abs(a - p).max()),
+                     "max_abs_err_w_vs_fast_path": float(np.abs(a - f).max()),
+                     "max_abs_w": float(np.abs(f).max())}
+        del out, plain, fast
+    del hist, wv, tv, params
+    torch.cuda.empty_cache()
     emit(row)
     return row
 
@@ -3972,55 +4145,79 @@ def timed_call(fn) -> tuple[object, float]:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def parallel_ring(dev: torch.device) -> dict:
-    """The ring with ``backend="pallas"``: 64 B3 launches per call, all
-    on tensor cores, against the einsum ring (B3's bound, 1e-2 · max|v|)
-    and dense ``full_attention`` on PARALLEL_DENSE_SEQS sequences; B3
-    timed at the per-launch shape beside its bound, its plain version
-    and SDPA."""
+# the rings of path 14, (shards, compute type): 8 shards at bf16 (B3 on
+# tensor cores at 128-row blocks), 2 at bf16 (512-row blocks) and 8 at
+# f32, both on B3's tiled variant. Where a shard's block exceeds 128
+# rows the einsum reference runs on the first PARALLEL_REF_SEQS
+# sequences (its [B, H, T/n, T/n] scores) and B3's plain version in
+# chunks of as many.
+PARALLEL_RINGS = ((8, torch.bfloat16), (2, torch.bfloat16),
+                  (8, torch.float32))
+PARALLEL_REF_SEQS = 256
+
+
+def parallel_ring(dev: torch.device, n: int, cd: torch.dtype) -> dict:
+    """The ring with ``backend="pallas"`` on ``n`` shards at compute type
+    ``cd``: n² B3 launches a call, all on the variant B3 plans for the
+    T/n-row blocks, against the einsum ring (f32: rtol = atol = 1e-5;
+    bf16: B3's bound, 1e-2 · max|v|) and dense ``full_attention`` on
+    PARALLEL_DENSE_SEQS sequences; B3 timed at one diagonal launch beside
+    its bound, its plain version and SDPA, and in the ring call beside
+    the call's bound."""
     from kepler_tpu_torch.ops import cuda_attention as cat
     from kepler_tpu_torch.ops.attention import full_attention
     from kepler_tpu_torch.parallel.ring import make_ring_attention
 
-    b, t, n = PARALLEL_B, PARALLEL_T, PARALLEL_SHARDS
+    b, t, d = PARALLEL_B, PARALLEL_T, D_MODEL // N_HEADS
     t_loc = t // n
-    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    shape = (b, t, N_HEADS, D_MODEL // N_HEADS)
+    f32 = cd == torch.float32
+    name = f"{n} shards, {'f32' if f32 else 'bf16'}"
+    variant = cat.flash_block_plan(b, t_loc, t_loc, N_HEADS, d, cd).variant
+    gen = torch.Generator(device=dev).manual_seed(
+        SEED + 14 + PARALLEL_RINGS.index((n, cd)))
+    shape = (b, t, N_HEADS, d)
     q, k, v = (torch.randn(shape, generator=gen, device=dev)
                for _ in range(3))
     valid = ragged_lengths(gen, dev, b, t)
     mesh = parallel_mesh(dev, n)
-    ring = make_ring_attention(mesh, backend="pallas")
-    einsum = make_ring_attention(mesh)
+    ring = make_ring_attention(mesh, backend="pallas", compute_dtype=cd)
+    einsum = make_ring_attention(mesh, compute_dtype=cd)
 
     reset_launches()
     out, first_ms = timed_call(lambda: ring(q, k, v, valid))
     launches = read_launches()
     check(launches["flash_block"] == n * n
-          and launches["flash_block_tc"] == n * n,
-          f"the ring launched B3 {launches['flash_block']} times "
-          f"({launches['flash_block_tc']} on tensor cores), not {n * n}")
+          and launches[f"flash_block_{variant}"] == n * n,
+          f"the ring ({name}) launched B3 {launches['flash_block']} times "
+          f"({launches[f'flash_block_{variant}']} {variant}), not {n * n}")
     check(launches["outer_product_attribution"] == 0
           and launches["fused_window_step"] == 0, "the ring ran B1 or B2")
-    check(bool(torch.isfinite(out).all()), "the ring's output is not finite")
+    check(bool(torch.isfinite(out).all()),
+          f"the ring's output ({name}) is not finite")
     empty = valid.sum(dim=1) == 0
     check(bool(torch.all(out[empty] == 0)),
-          "fully masked sequences are not exactly zero")
+          f"the ring ({name}): fully masked sequences are not exactly zero")
     bound_v = 1e-2 * float(v.abs().max())
-    ref = einsum(q, k, v, valid)
-    err_einsum = float((out - ref).abs().max())
-    check(err_einsum <= bound_v,
-          f"pallas ring off the einsum ring by {err_einsum} (> {bound_v})")
-    del ref
+
+    def close(got, want, against: str) -> float:
+        err = float((got - want).abs().max())
+        ok = (torch.allclose(got, want, rtol=1e-5, atol=1e-5) if f32
+              else err <= bound_v)
+        check(ok, f"pallas ring ({name}) off {against} by {err}")
+        return err
+
+    ref_n = b if t_loc <= 128 else PARALLEL_REF_SEQS
+    ref = lambda: einsum(q[:ref_n], k[:ref_n], v[:ref_n],  # noqa: E731
+                         valid[:ref_n])
+    err_einsum = close(out[:ref_n], ref(), "the einsum ring")
     sl = slice(0, PARALLEL_DENSE_SEQS)
-    dense = full_attention(q[sl], k[sl], v[sl], t_valid=valid[sl])
-    err_dense = float((out[sl] - dense).abs().max())
-    check(err_dense <= bound_v, f"pallas ring off dense attention on "
-          f"{PARALLEL_DENSE_SEQS} sequences by {err_dense} (> {bound_v})")
-    del dense, out
+    err_dense = close(out[sl], full_attention(
+        q[sl], k[sl], v[sl], t_valid=valid[sl], compute_dtype=cd),
+        f"dense attention on {PARALLEL_DENSE_SEQS} sequences")
+    del out
 
     ring_ms = time_ms(lambda: ring(q, k, v, valid), reps=3, batch=1)
-    einsum_ms = time_ms(lambda: einsum(q, k, v, valid), reps=3, batch=1)
+    einsum_ms = time_ms(ref, reps=3, batch=1)
     prof = profile_top(lambda: ring(q, k, v, valid), match="flash_block")
     ring_bound = 0.0
     for i in range(n):
@@ -4028,41 +4225,25 @@ def parallel_ring(dev: torch.device) -> dict:
         for src in range(n):
             kv = slice(src * t_loc, (src + 1) * t_loc)
             ring_bound += cat.flash_block_bound_ms(
-                qi, k[:, kv], valid[:, kv], i * t_loc, src * t_loc)[0]
-    # one launch at the per-launch shape: shard 3's diagonal block
-    blk = slice(3 * t_loc, 4 * t_loc)
+                qi, k[:, kv], valid[:, kv], i * t_loc, src * t_loc,
+                compute_dtype=cd)[0]
+    # one launch at the per-launch shape: a diagonal block (shard 3's on
+    # 8 shards)
+    start = min(3, n - 1) * t_loc
+    blk = slice(start, start + t_loc)
     qb, kb, vb = (x[:, blk].contiguous() for x in (q, k, v))
     vab = valid[:, blk].contiguous()
-    start = 3 * t_loc
-    kern = lambda: cat.flash_block_pallas(  # noqa: E731
-        qb, kb, vb, vab, start, start)
-    plain = lambda: cat.flash_block_ref(qb, kb, vb, vab, start, start)  # noqa: E731
-    got = kern()
-    err_blk = b3_check(got, plain(), vb, torch.bfloat16,
-                       f"B3 at the ring's block shape B={b}, T={t_loc}")
-    del got
-    bound, by = cat.flash_block_bound_ms(qb, kb, vab, start, start)
-    lib_ms, lib_device_ms, lib_err = sdpa_ms(qb, kb, vb, vab)
-    launch = {"B": b, "Tq": t_loc, "Tk": t_loc, "H": N_HEADS,
-              "D": D_MODEL // N_HEADS, "q_start": start, "kv_start": start,
-              "plan": cat.flash_block_plan(b, t_loc, t_loc, N_HEADS,
-                                           D_MODEL // N_HEADS)._asdict(),
-              "ms": time_ms(kern, reps=5, batch=4),
-              "device_ms": device_ms(kern, calls=5, match="flash_block"),
-              "plain_ms": time_ms(plain, reps=3, batch=2),
-              "plain_device_ms": device_ms(plain, calls=2),
-              "library_ms": lib_ms, "library_device_ms": lib_device_ms,
-              "bound_ms": bound, "bound_by": by, "max_abs_err": err_blk}
-    if lib_err is not None:
-        launch["library_error"] = lib_err
+    launch = b3_launch(qb, kb, vb, vab, start, cd,
+                       f"B3 at the ring's block ({name}), B={b}, "
+                       f"T={t_loc}", chunk=PARALLEL_REF_SEQS)
     del q, k, v, valid, qb, kb, vb, vab
     torch.cuda.empty_cache()
-    return {"shape": {"B": b, "T": t, "H": N_HEADS,
-                      "D": D_MODEL // N_HEADS, "shards": n,
-                      "compute": "bf16", "causal": True},
+    return {"shape": {"B": b, "T": t, "H": N_HEADS, "D": d, "shards": n,
+                      "compute": "f32" if f32 else "bf16", "causal": True},
             "launches": launches, "first_call_ms": first_ms,
             "call_ms": ring_ms, "einsum_call_ms": einsum_ms,
-            "profile": prof, "b3_ms_per_call": prof["flash_block_ms"],
+            "einsum_sequences": ref_n, "profile": prof,
+            "b3_ms_per_call": prof["flash_block_ms"],
             "b3_device_ms_per_launch": prof["flash_block_ms"] / (n * n),
             "b3_bound_ms_per_call": ring_bound,
             "max_abs_err_vs_einsum": err_einsum,
@@ -4405,10 +4586,14 @@ def parallel_trainer(dev: torch.device) -> dict:
 def main_parallel(dev: torch.device) -> dict:
     """Path 14: the parallel families on virtual shards of the card, each
     against its single-device form: the ring (B3 once per shard per KV
-    rotation), sequence parallelism (serving and training), Ulysses,
+    rotation; on 8 shards at bf16 through tensor cores, on 2 shards at
+    bf16 and on 8 at f32 through the tiled variant), sequence
+    parallelism (serving and training), Ulysses,
     the GPipe pipeline, expert parallelism and the DP×TP trainer."""
     t_phase = time.perf_counter()
-    row = {"phase": "main_parallel", "ring": parallel_ring(dev)}
+    row = {"phase": "main_parallel", "rings": {
+        f"{n}_shards_{str(cd)[6:]}": parallel_ring(dev, n, cd)
+        for n, cd in PARALLEL_RINGS}}
     row["per_shard"] = parallel_per_shard(dev)
     row.update(parallel_temporal(dev))
     row.update(parallel_rows(dev))
@@ -4990,11 +5175,14 @@ def main(argv: list[str] | None = None) -> int:
     b1 = b2_flush = None
     b2_rows: dict = {}
     b3_rows: list = []
+    b3_wide: dict = {}
     scatter_rows: dict = {}
     if "kernels" in on:
         b1 = kernel_b1(dev)
         b2_rows = {db: kernel_b2(dev, db) for db in (8, N_NODES)}
         b3_rows = [kernel_b3(dev, b, t) for b, t in B3_SHAPES]
+        b3_wide = {str(cd)[6:]: kernel_b3_wide(dev, cd)
+                   for cd in (torch.bfloat16, torch.float32)}
         scatter_rows = {db: kernel_scatter_rows(dev, db)
                         for db in SCATTER_DBS}
     lap("kernels")
@@ -5027,7 +5215,11 @@ def main(argv: list[str] | None = None) -> int:
         r["main_temporal_fleet"] = fleet
         r["main_temporal_trunk"] = main_temporal_trunk(dev, saved, params,
                                                        outs)
+        r["main_temporal_trunk_f32"] = r["main_temporal_trunk"]["accuracy"]
         del saved, outs
+        wide = main_trunk_wide(dev)
+        r["main_trunk_wide_bf16"] = wide["bf16"]
+        r["main_trunk_wide_f32"] = wide["f32"]
     lap("temporal")
     if "train" in on:
         r["main_train"] = main_train(dev)
@@ -5050,10 +5242,11 @@ def main(argv: list[str] | None = None) -> int:
     if "chaos" in on:
         r["main_chaos_pallas"] = main_chaos(dev)
     lap("chaos")
-    ring = None
+    rings: dict = {}
     if "parallel" in on:
-        ring = main_parallel(dev)["ring"]
-        r["main_parallel_ring"] = ring
+        rings = main_parallel(dev)["rings"]
+        for key, x in rings.items():
+            r[f"main_parallel_ring_{key}"] = x
     lap("parallel")
     if "dist" in on:
         r["main_dist"] = main_dist(dev)
@@ -5077,28 +5270,64 @@ def main(argv: list[str] | None = None) -> int:
         b2_extra["by_k"] = {str(x["shape"].get("K", 1)): {
             k: x[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
             for x in (b2_rows[main_db], b2_flush)}
-    b3_paths = launches_of({k: v for k, v in r.items() if k in (
-        "main_temporal_trunk", "main_parallel_ring", "main_dist")},
-        "flash_block")
-    b3_extra: dict = {"launches_by_variant": {
-        v: sum(r[p]["launches"][f"flash_block_{v}"] for p in b3_paths)
-        for v in ("tc", "simt")}}
+    tc_paths = launches_of(r, "flash_block_tc")
+    tiled_paths = launches_of(r, "flash_block_tiled")
+    ran_tiled_paths = {"temporal", "parallel"} & on
+    check(not ran_tiled_paths or sum(tiled_paths.values()) > 0,
+          f"B3's tiled variant launched no time on the main paths "
+          f"{sorted(ran_tiled_paths)}: {tiled_paths}")
+    tc_extra: dict = {}
+    tiled_row = None
+    tiled_extra: dict = {}
     if b3_rows:
-        b3_extra["by_shape"] = {f"B{x['shape']['B']}_T{x['shape']['Tq']}": {
-            k: x[k] for k in ("ms", "device_ms", "simt_bf16_device_ms",
-                              "f32_device_ms", "plain_ms", "bound_ms",
+        tc_extra["by_shape"] = {f"B{x['shape']['B']}_T{x['shape']['Tq']}": {
+            k: x[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "library_device_ms",
                               "max_abs_err")}
             for x in b3_rows}
-    if ring is not None:
-        b3_extra.setdefault("by_shape", {})[
-            "B{B}_T{Tq}_ring_block".format(**ring["per_launch"])] = {
-            **{k: ring["per_launch"][k] for k in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_device_ms", "max_abs_err")},
-            "ring_call_b3_device_ms": ring["b3_ms_per_call"],
-            "ring_b3_device_ms_per_launch": ring["b3_device_ms_per_launch"],
-            "ring_call_b3_bound_ms": ring["b3_bound_ms_per_call"]}
+        # the tiled variant's own row: accuracy mode at the serving shape
+        x = b3_rows[0]
+        tiled_row = {
+            "name": "flash_block_tiled", "route": "cuda",
+            "source": x["source"], "replaces": x["replaces"],
+            "max_abs_err": x["f32_max_abs_err"], "ms": x["f32_ms"],
+            "device_ms": x["f32_device_ms"], "plain_ms": x["f32_plain_ms"],
+            "plain_device_ms": x["f32_plain_device_ms"],
+            "bound_ms": x["f32_bound_ms"], "bound_by": x["f32_bound_by"],
+            "library_ms": x["library_ms"],
+            "library_device_ms": x["library_device_ms"],
+            "shape": {**x["shape"], "compute": "f32"}}
+        tiled_extra["by_shape"] = {
+            f"B{x['shape']['B']}_T{x['shape']['Tq']}_f32": {
+                "ms": x["f32_ms"], "device_ms": x["f32_device_ms"],
+                "plain_ms": x["f32_plain_ms"], "bound_ms": x["f32_bound_ms"],
+                "bound_by": x["f32_bound_by"],
+                "library_ms": x["library_ms"],
+                "library_device_ms": x["library_device_ms"],
+                "max_abs_err": x["f32_max_abs_err"]}
+            for x in b3_rows}
+        tiled_extra["by_shape"].update({
+            f"B{x['shape']['B']}_T{x['shape']['Tq']}_bf16_forced": {
+                "ms": x["tiled_bf16_ms"],
+                "device_ms": x["tiled_bf16_device_ms"],
+                "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+                "max_abs_err": x["tiled_bf16_max_abs_err"]}
+            for x in b3_rows})
+    launch_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms", "library_device_ms", "max_abs_err")
+    for cd_name, x in b3_wide.items():
+        tiled_extra.setdefault("by_shape", {})[
+            f"B{x['B']}_T{x['Tq']}_D{x['D']}_{cd_name}"] = {
+            k: x[k] for k in launch_keys}
+    for key, x in rings.items():
+        y = x["per_launch"]
+        extra = tc_extra if y["plan"]["variant"] == "tc" else tiled_extra
+        extra.setdefault("by_shape", {})[
+            f"B{y['B']}_T{y['Tq']}_ring_{key}_block"] = {
+            **{k: y[k] for k in launch_keys},
+            "ring_call_b3_device_ms": x["b3_ms_per_call"],
+            "ring_b3_device_ms_per_launch": x["b3_device_ms_per_launch"],
+            "ring_call_b3_bound_ms": x["b3_bound_ms_per_call"]}
     scatter_paths = launches_of(r, "scatter_rows")
     ran_scatter_paths = {"mixed", "aggregator", "sharded", "mesh",
                          "chaos"} & on
@@ -5117,8 +5346,10 @@ def main(argv: list[str] | None = None) -> int:
         kernel_line(b1, "outer_product_attribution", b1_paths),
         kernel_line(b2_flush, "fused_window_step",
                     launches_of(r, "fused_window_step"), **b2_extra),
-        kernel_line(b3_rows[0] if b3_rows else None, "flash_block",
-                    b3_paths, **b3_extra),
+        kernel_line(b3_rows[0] if b3_rows else None, "flash_block_tc",
+                    tc_paths, **tc_extra),
+        kernel_line(tiled_row, "flash_block_tiled", tiled_paths,
+                    **tiled_extra),
         kernel_line(scatter_rows.get(512), "scatter_rows", scatter_paths,
                     **scatter_extra)]
     emit({"phase": "total", "phases": phases,

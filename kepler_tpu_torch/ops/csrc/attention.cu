@@ -1,7 +1,7 @@
 // Attention partial kernel for Hopper (sm_90a), bound through a plain C
 // interface and loaded with ctypes by kepler_tpu_torch/ops/cuda_attention.py.
 //
-// B3  kt_flash_block
+// B3  kt_flash_block_tc, kt_flash_block_tiled
 //   Replaces kepler_tpu/ops/pallas_attention.py::flash_block_pallas (Pallas
 //   body _flash_kernel). One fused (q-block x kv-block) attention partial,
 //   the ops/attention.py block_attn contract:
@@ -11,7 +11,9 @@
 //     l  = rowsum(p),  pv = cd(p) . cd(v)   f32 accumulation
 //   cd is bf16 (round to nearest even, then multiply as f32: products of
 //   two bf16 values are exact in f32) or f32. A fully masked row gives
-//   m = -1e30, l = 0, pv = 0.
+//   m = -1e30, l = 0, pv = 0. The TPU kernel takes whole (Tq, D) and
+//   (Tk, D) blocks, one grid step per (sequence, head), so any Tq, Tk and
+//   D; so does the pair of variants here (D up to 256).
 //   In: q [B, Tq, H, D], k and v [B, Tk, H, D] f32, each with its own
 //   (b, t, h) strides and unit d stride; kv_valid u8 [B, Tk] contiguous.
 //   Out (contiguous): pv f32 [B, Tq, H, D], m and l f32 [B, H, Tq].
@@ -26,11 +28,10 @@
 //
 //   kt_flash_block_tc: bf16 compute with Tq == Tk = T a multiple of 16 up
 //   to 128 and D in {16, 32, 64} (the trunk's default). What held the
-//   first design (below) at 2.5-4.8x its bound: runtime div/mod in the
-//   staging loops, staging and compute serialised inside each block (2-3
-//   blocks an SM, so little memory traffic in flight while blocks
-//   computed), and every score computed twice on the FMA pipe, which made
-//   T = 128 bound by that pipe. This design:
+//   first design at 2.5-4.8x its bound: runtime div/mod in the staging
+//   loops, staging and compute serialised inside each block (2-3 blocks
+//   an SM, so little memory traffic in flight while blocks computed), and
+//   every score computed twice on the FMA pipe. This design:
 //   - Persistent blocks (as many as fit on each SM) walk over work items
 //     of g sequences x hb heads. Each item's q, k and v are staged in a
 //     ring of two shared-memory stages, loaded asynchronously, so the
@@ -65,24 +66,53 @@
 //     run time; pv is staged back through shared memory for coalesced
 //     16-byte stores; m and l are written from registers.
 //
-//   kt_flash_block (SIMT): f32 compute (accuracy mode) and the shapes the
-//   tensor-core variant does not take (D = 8, Tq != Tk, T not a multiple
-//   of 16, T > 128). A block stages the K and V tiles (rounded to cd) and
-//   the Q tile of g sequences x hb heads in shared memory, so each
-//   timestep row of hb*D f32 values is read once, coalesced, as float4
-//   where the strides allow. One thread owns one query row: it keeps q
-//   and its pv accumulator in registers, computes the row's scores twice
-//   (once for the max, once for exp and p.v) from shared memory, and
-//   never writes the [Tq, Tk] scores to device memory. pv is staged back
-//   through shared memory so its stores coalesce too. The TPU kernel's
-//   fold to [B*H, T, D] was a Mosaic tiling rule and has no counterpart
-//   here.
+//   kt_flash_block_tiled: every other call -- f32 compute (accuracy
+//   mode), Tq != Tk, T not a multiple of 16 or above 128 (the ring's
+//   512-row blocks), and any D from 1 to 256 (zero-padded in shared
+//   memory to DP: 16, 32, 64, 128 or 256; at least 32 for f32). Neither
+//   Tq nor Tk is bounded by threads or shared memory: a block holds one
+//   tile of each at a time. This design:
+//   - A work item is a tile of up to 128 query rows of one (sequence,
+//     head) (fewer where DP = 256), or, where a sequence's whole q and
+//     KV fit one tile (T = 16), the query rows of g sequences of one
+//     head. A warp owns 16 query rows of one sequence. Persistent blocks
+//     walk over the items; the tiles of one (sequence, head) run side by
+//     side and share its K and V in L2.
+//   - K and V stream through a ring of two shared-memory stages in tiles
+//     of TK keys (64 for DP <= 64, 32 for 128, 16 for 256), filled by
+//     16-byte cp.async copies (4-byte ones where strides or pointers are
+//     not 16-byte aligned) that zero-fill the padding columns and the
+//     rows past Tq or Tk, so a masked key meets a zero value row, never a
+//     stale one. The item's q tile rides in the group of its first load,
+//     in a slot of its own that lasts the item. Rows are padded by 4
+//     floats. m, l and pv are stored from the registers.
+//   - The plain version's math, in two passes over the key tiles: the
+//     first takes the row max over every tile from the scores alone, the
+//     second recomputes the scores, p = expf(s - m), l and P.V. No online
+//     rescaling: it would change the bf16 rounding of p against
+//     block_attn and JAX. Where one tile holds every key the item needs,
+//     the two passes share one load and the scores stay in registers.
+//     Tiles wholly past the sequence's last valid key or above the
+//     causal diagonal of the item's last row are neither loaded nor
+//     computed; within a tile, a warp skips 16-key groups past its own
+//     rows' last visible key, in both passes.
+//   - bf16: both products on the tensor cores with the tc variant's
+//     fragment scheme (mma.sync m16n8k16, operands rounded f32 -> bf16
+//     as fragments are formed, f32 accumulators, p rounded to bf16 as
+//     P.V's A operand), per 16-key group of a tile.
+//   - f32: products on the FMA pipe in f32 (no TF32) with register
+//     tiling: a lane holds a 4-row x 2-key micro-tile of scores of each
+//     16-key group and reads each q and k float4 from shared memory once
+//     per micro-tile; p goes through a per-warp transposed tile in shared
+//     memory so that a lane then accumulates a 4-row x 4-column micro-tile
+//     of pv per 32 columns.
+//   - Scores are an explicit fmaf chain (f32) or the same mma sequence
+//     (bf16) and the scale an explicit __fmul_rn in both passes, so the
+//     two passes cannot round a score differently.
 //
-// Numerics: expf (no fast math); the SIMT variant's score is an explicit
-// fmaf chain and its scale an explicit __fmul_rn, so nvcc cannot contract
-// them differently in the two passes over a row. Both variants differ
-// from the plain PyTorch version only in summation order. Build without
-// --use_fast_math.
+// Numerics: expf (no fast math); both variants differ from the plain
+// PyTorch version only in summation order. Build without --use_fast_math
+// or -ftz=true.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,226 +120,12 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kMaxThreads = 256;
 constexpr int kMaxSmem = 227 * 1024;
 constexpr float kNegInf = -1e30f;
-
-template <bool kBf16>
-__device__ __forceinline__ float round_cd(float x) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-// floats of one (sequence, head) unit's K (or V) tile in shared memory:
-// the +4 staggers neighbouring units by four banks and keeps float4
-// alignment
-__host__ __device__ inline int kv_unit_stride(int tk, int d) {
-  return tk * d + 4;
-}
-
-__host__ __device__ inline size_t smem_bytes(int g, int hb, int tq, int tk,
-                                             int d) {
-  const size_t units = (size_t)g * hb;
-  const size_t floats = units * (2 * (size_t)kv_unit_stride(tk, d) +
-                                 (size_t)tq * (d + 1));
-  return floats * sizeof(float) + (((size_t)g * tk + 15) / 16) * 16;
-}
-
-template <int D>
-__device__ __forceinline__ float row_score(const float* __restrict__ qr,
-                                           const float* __restrict__ kr,
-                                           float scale) {
-  float s = 0.0f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
-    s = fmaf(qr[d], k4.x, s);
-    s = fmaf(qr[d + 1], k4.y, s);
-    s = fmaf(qr[d + 2], k4.z, s);
-    s = fmaf(qr[d + 3], k4.w, s);
-  }
-  return __fmul_rn(s, scale);
-}
-
-template <int D, bool kBf16>
-__global__ void __launch_bounds__(kMaxThreads)
-flash_block_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const unsigned char* __restrict__ kv_valid,
-                   float* __restrict__ pv, float* __restrict__ m_out,
-                   float* __restrict__ l_out, int B, int Tq, int Tk, int H,
-                   int hb, int g, long long qsb, long long qst,
-                   long long qsh, long long ksb, long long kst,
-                   long long ksh, long long vsb, long long vst,
-                   long long vsh, int q_start, int kv_start, int causal,
-                   int vec, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int D4 = D / 4;
-  const int units = g * hb;
-  const int kvs = kv_unit_stride(Tk, D);
-  const int q_row = D + 1;  // odd row stride: one bank per query row
-  float* ks = smem;                    // [units][Tk][D] (+4)
-  float* vs = ks + units * kvs;        // [units][Tk][D] (+4)
-  float* qs = vs + units * kvs;        // [units][Tq][D + 1]
-  unsigned char* valid =
-      reinterpret_cast<unsigned char*>(qs + units * Tq * q_row);  // [g][Tk]
-
-  const int b0 = blockIdx.x * g;
-  const int h0 = blockIdx.y * hb;
-  const int nb = min(g, B - b0);
-
-  // -- stage K, V and Q: d fastest, then head, then time, then sequence,
-  //    so consecutive threads read consecutive addresses
-  const int kv_chunks = nb * Tk * hb * D4;
-  for (int e = threadIdx.x; e < kv_chunks; e += blockDim.x) {
-    const int d = (e % D4) * 4;
-    int r = e / D4;
-    const int hh = r % hb;
-    r /= hb;
-    const int j = r % Tk;
-    const int gi = r / Tk;
-    const long long b = b0 + gi;
-    const long long h = h0 + hh;
-    const float* ksrc = k + b * ksb + j * kst + h * ksh + d;
-    const float* vsrc = v + b * vsb + j * vst + h * vsh + d;
-    float4 k4, v4;
-    if (vec) {
-      k4 = *reinterpret_cast<const float4*>(ksrc);
-      v4 = *reinterpret_cast<const float4*>(vsrc);
-    } else {
-      k4 = make_float4(ksrc[0], ksrc[1], ksrc[2], ksrc[3]);
-      v4 = make_float4(vsrc[0], vsrc[1], vsrc[2], vsrc[3]);
-    }
-    const int at = (gi * hb + hh) * kvs + j * D + d;
-    *reinterpret_cast<float4*>(ks + at) =
-        make_float4(round_cd<kBf16>(k4.x), round_cd<kBf16>(k4.y),
-                    round_cd<kBf16>(k4.z), round_cd<kBf16>(k4.w));
-    *reinterpret_cast<float4*>(vs + at) =
-        make_float4(round_cd<kBf16>(v4.x), round_cd<kBf16>(v4.y),
-                    round_cd<kBf16>(v4.z), round_cd<kBf16>(v4.w));
-  }
-  const int q_chunks = nb * Tq * hb * D4;
-  for (int e = threadIdx.x; e < q_chunks; e += blockDim.x) {
-    const int d = (e % D4) * 4;
-    int r = e / D4;
-    const int hh = r % hb;
-    r /= hb;
-    const int i = r % Tq;
-    const int gi = r / Tq;
-    const float* src = q + (long long)(b0 + gi) * qsb + i * qst +
-                       (long long)(h0 + hh) * qsh + d;
-    float4 q4;
-    if (vec) {
-      q4 = *reinterpret_cast<const float4*>(src);
-    } else {
-      q4 = make_float4(src[0], src[1], src[2], src[3]);
-    }
-    float* dst = qs + ((gi * hb + hh) * Tq + i) * q_row + d;
-    dst[0] = round_cd<kBf16>(q4.x);
-    dst[1] = round_cd<kBf16>(q4.y);
-    dst[2] = round_cd<kBf16>(q4.z);
-    dst[3] = round_cd<kBf16>(q4.w);
-  }
-  for (int e = threadIdx.x; e < nb * Tk; e += blockDim.x) {
-    valid[e] = kv_valid[(size_t)b0 * Tk + e];
-  }
-  __syncthreads();
-
-  // -- one query row per thread
-  const int unit = threadIdx.x / Tq;
-  const int i = threadIdx.x - unit * Tq;
-  const int gi = unit / hb;
-  const int hh = unit - gi * hb;
-  float* qrow = qs + (unit * Tq + i) * q_row;
-  if (gi < nb) {
-    float qr[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = qrow[d];
-    const float* kb = ks + unit * kvs;
-    const float* vb = vs + unit * kvs;
-    const unsigned char* ok_kv = valid + gi * Tk;
-    const int qpos = q_start + i;
-
-    float m = -INFINITY;
-    for (int j = 0; j < Tk; ++j) {
-      const bool ok = ok_kv[j] && (!causal || qpos >= kv_start + j);
-      const float s = ok ? row_score<D>(qr, kb + j * D, scale)
-                         : kNegInf;
-      m = fmaxf(m, s);
-    }
-
-    float acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-    float l = 0.0f;
-    for (int j = 0; j < Tk; ++j) {
-      const bool ok = ok_kv[j] && (!causal || qpos >= kv_start + j);
-      if (!ok) continue;
-      const float p =
-          expf(row_score<D>(qr, kb + j * D, scale) - m);
-      l += p;
-      const float pc = round_cd<kBf16>(p);
-      const float* vr = vb + j * D;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(vr + d);
-        acc[d] = fmaf(pc, v4.x, acc[d]);
-        acc[d + 1] = fmaf(pc, v4.y, acc[d + 1]);
-        acc[d + 2] = fmaf(pc, v4.z, acc[d + 2]);
-        acc[d + 3] = fmaf(pc, v4.w, acc[d + 3]);
-      }
-    }
-    const size_t stat = ((size_t)(b0 + gi) * H + h0 + hh) * Tq + i;
-    m_out[stat] = m;
-    l_out[stat] = l;
-    // stage the pv row in this thread's own Q row (read only by it)
-#pragma unroll
-    for (int d = 0; d < D; ++d) qrow[d] = acc[d];
-  }
-  __syncthreads();
-
-  // -- coalesced pv store: [B, Tq, H, D], d fastest then head
-  for (int e = threadIdx.x; e < q_chunks; e += blockDim.x) {
-    const int d = (e % D4) * 4;
-    int r = e / D4;
-    const int hh2 = r % hb;
-    r /= hb;
-    const int i2 = r % Tq;
-    const int gi2 = r / Tq;
-    const float* src = qs + ((gi2 * hb + hh2) * Tq + i2) * q_row + d;
-    const size_t at =
-        (((size_t)(b0 + gi2) * Tq + i2) * H + h0 + hh2) * D + d;
-    *reinterpret_cast<float4*>(pv + at) =
-        make_float4(src[0], src[1], src[2], src[3]);
-  }
-}
-
-template <int D, bool kBf16>
-int launch(const float* q, const float* k, const float* v,
-           const unsigned char* kv_valid, float* pv, float* m, float* l,
-           int B, int Tq, int Tk, int H, int hb, int g, long long qsb,
-           long long qst, long long qsh, long long ksb, long long kst,
-           long long ksh, long long vsb, long long vst, long long vsh,
-           int q_start, int kv_start, int causal, int vec, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(g, hb, Tq, Tk, D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_block_kernel<D, kBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((B + g - 1) / g, H / hb);
-  flash_block_kernel<D, kBf16><<<grid, g * hb * Tq, smem, stream>>>(
-      q, k, v, kv_valid, pv, m, l, B, Tq, Tk, H, hb, g, qsb, qst, qsh, ksb,
-      kst, ksh, vsb, vst, vsh, q_start, kv_start, causal, vec, scale);
-  return (int)cudaGetLastError();
-}
 
 // -- tensor-core variant ------------------------------------------------------
 
@@ -439,13 +255,36 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// 16 (or 4) bytes into shared memory, the first n of them from src and
+// the rest zero (n = 0 reads nothing from src)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 uint32_t n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                uint32_t n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// every committed group but the newest kTcStages - 1 has landed
+// every committed group but the newest N has landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_oldest() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kTcStages - 1) : "memory");
+  cp_async_wait_group<kTcStages - 1>();
 }
 
 struct TcItem {
@@ -748,10 +587,11 @@ flash_block_tc_kernel(const TcArgs a) {
   if (!a.bulk) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int T, int D>
-int launch_tc(const TcArgs& a, int threads, size_t smem,
-              cudaStream_t stream) {
-  auto kern = flash_block_tc_kernel<T, D>;
+// Launch a persistent kernel: as many blocks as fit on every SM, at most
+// one per work item.
+template <class Args>
+int launch_persistent(void (*kern)(Args), const Args& a, int n_items,
+                      int threads, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -768,9 +608,655 @@ int launch_tc(const TcArgs& a, int threads, size_t smem,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const long long cap = (long long)per_sm * sms;
-  const int grid = (int)(a.n_items < cap ? a.n_items : cap);
+  const int grid = (int)(n_items < cap ? n_items : cap);
   kern<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int T, int D>
+int launch_tc(const TcArgs& a, int threads, size_t smem,
+              cudaStream_t stream) {
+  return launch_persistent(flash_block_tc_kernel<T, D>, a, a.n_items,
+                           threads, smem, stream);
+}
+
+// -- KV-tiled variant -----------------------------------------------------------
+
+constexpr int kTlStages = 2;
+constexpr int kTlMaxThreads = 256;
+constexpr int kTlPad = 4;     // floats padding each staged row
+constexpr int kTlQRows = 128;  // query rows of an item's tile at most
+constexpr int kTlPRow = 20;   // f32: floats of one key's row of a warp's p^T
+constexpr int kTlMaxD = 256;
+
+// keys a KV tile holds at most, by padded head dim: a lane's scores of a
+// tile stay at TK / 2 registers and its pv accumulators at DP / 2. Every
+// DP also has an instance for tiles of 16 keys (T <= 16: the trunk's
+// serving windows), which needs fewer registers.
+__host__ __device__ constexpr int tl_keys(int dp) {
+  return dp <= 64 ? 64 : dp == 128 ? 32 : 16;
+}
+
+// blocks an SM each instance is compiled for (registers: 128 a thread at
+// two, 255 at one, which the pv accumulators of DP >= 128 need)
+template <int DP>
+constexpr int tl_min_blocks() {
+  return DP <= 64 ? 2 : 1;
+}
+
+__host__ __device__ inline bool tl_dp_ok(int dp, bool bf16) {
+  return (bf16 && dp == 16) || dp == 32 || dp == 64 || dp == 128 ||
+         dp == kTlMaxD;
+}
+
+struct TlArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const unsigned char* kv_valid;
+  float* pv;
+  float* m;
+  float* l;
+  long long qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh;
+  int B, Tq, Tk, H, D;
+  int g, qr, tk;  // sequences an item, its query rows, keys of a KV tile
+  int nqt, nkt;   // query tiles of a (sequence, head), key tiles of Tk
+  int n_items, warps;
+  int q_start, kv_start, causal, vec;
+  float scale;
+};
+
+// Shared memory of one block: kTlStages q slots [g][qr][DP + pad], as many
+// K and V stages [g][tk][DP + pad], the f32 variant's p^T tiles
+// [warps][16][kTlPRow], and per q slot the item's tile count and last
+// valid key, then 8 ints of block reduction.
+__host__ __device__ inline size_t tl_smem_bytes(int g, int qr, int tk,
+                                                int dp, bool bf16) {
+  const size_t rs = (size_t)dp + kTlPad;
+  const size_t warps = (size_t)g * qr / 16;
+  return sizeof(float) *
+             ((size_t)kTlStages * g * rs * (qr + 2 * (size_t)tk) +
+              (bf16 ? 0 : warps * 16 * kTlPRow)) +
+         sizeof(int) * (2 * kTlStages + 8);
+}
+
+struct TlItem {
+  int b0, h, qt, nb;
+};
+
+// items: (sequence block, head, query tile), the query tile fastest, so
+// the tiles of one (sequence, head) run side by side and share its K
+// and V in L2
+__device__ __forceinline__ TlItem tl_item(const TlArgs& a, int item) {
+  const int qt = item % a.nqt;
+  const int r = item / a.nqt;
+  const int h = r % a.H;
+  const int b0 = (r / a.H) * a.g;
+  return {b0, h, qt, min(a.g, a.B - b0)};
+}
+
+// Start copies of `rows` rows t0 + r of head h of the item's nb
+// sequences of x into dst ([nb][rows][DP + pad]): rows at or past t_end
+// and columns at or past D are zero-filled.
+template <int DP>
+__device__ __forceinline__ void tl_rows(const TlArgs& a, float* dst,
+                                        const float* x, long long sb,
+                                        long long st, long long sh,
+                                        const TlItem& it, int t0, int rows,
+                                        int t_end) {
+  constexpr int rs = DP + kTlPad;
+  const float* base = x + it.b0 * sb + (long long)it.h * sh;
+  // rows is 16, 32, 48, 64, ...: a shift where it is a power of two
+  const bool pow2 = (rows & (rows - 1)) == 0;
+  const int lg = __ffs(rows) - 1;
+  if (a.vec) {
+    constexpr int C = DP / 4;
+    const int n = it.nb * rows * C;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int ra = e / C;  // C is a power of two
+      const int c = (e - ra * C) * 4;
+      const int gi = pow2 ? ra >> lg : ra / rows;
+      const int t = t0 + ra - gi * rows;
+      const int bytes = t < t_end ? 4 * min(max(a.D - c, 0), 4) : 0;
+      cp_async16_zfill(dst + ra * rs + c,
+                       bytes ? base + gi * sb + (long long)t * st + c : x,
+                       (uint32_t)bytes);
+    }
+  } else {
+    const int n = it.nb * rows * DP;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int ra = e / DP;
+      const int c = e - ra * DP;
+      const int gi = pow2 ? ra >> lg : ra / rows;
+      const int t = t0 + ra - gi * rows;
+      const int bytes = t < t_end && c < a.D ? 4 : 0;
+      cp_async4_zfill(dst + ra * rs + c,
+                      bytes ? base + gi * sb + (long long)t * st + c : x,
+                      (uint32_t)bytes);
+    }
+  }
+}
+
+// The item's tile count n (key tiles up to the last one any of its rows
+// can see: none past the sequence's last valid key, none wholly above the
+// causal diagonal of its last row; at least one) and the sequence's last
+// valid key, into the q slot's ints. Multi-tile items hold one sequence.
+// All threads take part (two barriers).
+__device__ int tl_tiles(const TlArgs& a, const TlItem& it, int* n_out,
+                        int* last_out, int* red) {
+  const unsigned char* valid = a.kv_valid + (size_t)it.b0 * a.Tk;
+  int last = -1;
+  for (int j = threadIdx.x; j < a.Tk; j += blockDim.x) {
+    if (valid[j]) last = j;
+  }
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = last;
+  __syncthreads();
+  last = -1;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) last = max(last, red[w]);
+  int kend = min(a.Tk, last + 1);
+  if (a.causal) {
+    const int i_last = min((it.qt + 1) * a.qr, a.Tq) - 1;
+    kend = min(kend, max(0, a.q_start + i_last - a.kv_start + 1));
+  }
+  const int n = max(1, (kend + a.tk - 1) / a.tk);
+  if (threadIdx.x == 0) {
+    *n_out = n;
+    *last_out = last;
+  }
+  __syncthreads();  // red is free again
+  return n;
+}
+
+// The stream of loads of one block: item after item (blockIdx.x, then
+// every gridDim.x-th), each one load where one KV tile serves both passes
+// (n == 1), else n loads of K (pass 1: the row max) then n of K and V
+// (pass 2); the q tile rides in the item's first load.
+struct TlCursor {
+  int item, j, n, load, count;  // count: items begun (their q slot)
+
+  __device__ int loads() const { return n == 1 ? 1 : 2 * n; }
+  __device__ void advance(int n_blocks) {
+    ++load;
+    if (++j == loads()) {
+      j = 0;
+      item += n_blocks;
+      ++count;
+    }
+  }
+};
+
+// Issue the cursor's next load (one cp.async group; an empty one past
+// the last item) and advance it.
+template <int DP>
+__device__ void tl_produce(const TlArgs& a, TlCursor& p, float* qbuf,
+                           float* kbuf, float* vbuf, int* ints) {
+  if (p.item >= a.n_items) {
+    cp_async_commit();
+    return;
+  }
+  constexpr int rs = DP + kTlPad;
+  const int q_tile = a.g * a.qr * rs;
+  const int kv_tile = a.g * a.tk * rs;
+  const TlItem it = tl_item(a, p.item);
+  const int slot = p.count % kTlStages;
+  if (p.j == 0) {
+    // the slot's previous item has been consumed in full by now
+    p.n = a.nkt > 1 ? tl_tiles(a, it, ints + slot, ints + kTlStages + slot,
+                               ints + 2 * kTlStages)
+                    : 1;
+    tl_rows<DP>(a, qbuf + slot * q_tile, a.q, a.qsb, a.qst, a.qsh, it,
+                it.qt * a.qr, a.qr, a.Tq);
+  }
+  const int kt = p.n == 1 ? 0 : p.j % p.n;
+  const int st = p.load % kTlStages;
+  tl_rows<DP>(a, kbuf + st * kv_tile, a.k, a.ksb, a.kst, a.ksh, it,
+              kt * a.tk, a.tk, a.Tk);
+  if (p.n == 1 || p.j >= p.n) {
+    tl_rows<DP>(a, vbuf + st * kv_tile, a.v, a.vsb, a.vst, a.vsh, it,
+                kt * a.tk, a.tk, a.Tk);
+  }
+  cp_async_commit();
+  p.advance(gridDim.x);
+}
+
+// -- one warp's 16 query rows against one KV tile, bf16 (tensor cores)
+
+template <int DP>
+struct TlBf16 {
+  float m0, m1, l0, l1;  // rows g, g + 8 of the lane
+  float o[DP / 8][4];
+
+  __device__ void init() {
+    m0 = m1 = kNegInf;
+    l0 = l1 = 0.0f;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+  }
+};
+
+// Scores of the tile's first gend 16-key groups (keys t0 + ...) of the
+// warp's rows (query i0 + r, r < 16; qs, ks, vs at its unit's row 0),
+// then as asked: fold them into the row max; reduce the max over the
+// lanes of a row; p, l and P.V against the reduced max.
+template <int DP, int TK>
+__device__ __forceinline__ void tl_tile_bf16(
+    const TlArgs& a, const float* qs, const float* ks, const float* vs,
+    TlBf16<DP>& st, int gend, int b, int i0, int t0, bool do_max,
+    bool reduce_max, bool do_pv) {
+  constexpr int NG = TK / 16;
+  constexpr int DK = DP / 16;
+  constexpr int DN = DP / 8;
+  constexpr int rs = DP + kTlPad;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // s[2kk + half]: lane (g, t4) holds keys 16kk + 4t4 + 2half + {0, 1}
+  // of rows g ([0..1]) and g + 8 ([2..3]), as in the tc variant
+  float s[2 * NG][4];
+  uint32_t ok0 = 0, ok1 = 0;  // bit 4kk + e: key 16kk + 4t4 + e visible
+  if (gend > 0) {
+#pragma unroll
+    for (int n = 0; n < 2 * NG; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int dc = 0; dc < DK; ++dc) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          qs + g * rs + 16 * dc + 4 * t4);
+      const float4 y = *reinterpret_cast<const float4*>(
+          qs + (g + 8) * rs + 16 * dc + 4 * t4);
+      const uint32_t a0 = pack_bf16(x.x, x.y);
+      const uint32_t a1 = pack_bf16(y.x, y.y);
+      const uint32_t a2 = pack_bf16(x.z, x.w);
+      const uint32_t a3 = pack_bf16(y.z, y.w);
+#pragma unroll
+      for (int kk = 0; kk < NG; ++kk) {
+        if (kk >= gend) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int key = 16 * kk + 2 * g - (g & 1) + 2 * half;
+          const float4 kv = *reinterpret_cast<const float4*>(
+              ks + key * rs + 16 * dc + 4 * t4);
+          mma_bf16(s[2 * kk + half], a0, a1, a2, a3, pack_bf16(kv.x, kv.y),
+                   pack_bf16(kv.z, kv.w));
+        }
+      }
+    }
+    const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
+    const int qpos = a.q_start + i0 + g;
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) {
+      if (kk >= gend) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = t0 + 16 * kk + 4 * t4 + e;
+        const bool vj = j < a.Tk && valid[j];
+        const int kpos = a.kv_start + j;
+        const bool o0 = vj && (!a.causal || qpos >= kpos);
+        const bool o1 = vj && (!a.causal || qpos + 8 >= kpos);
+        ok0 |= (uint32_t)o0 << (4 * kk + e);
+        ok1 |= (uint32_t)o1 << (4 * kk + e);
+        float& x0 = s[2 * kk + (e >> 1)][e & 1];
+        float& x1 = s[2 * kk + (e >> 1)][2 + (e & 1)];
+        x0 = o0 ? __fmul_rn(x0, a.scale) : kNegInf;
+        x1 = o1 ? __fmul_rn(x1, a.scale) : kNegInf;
+        if (do_max) {
+          st.m0 = fmaxf(st.m0, x0);
+          st.m1 = fmaxf(st.m1, x1);
+        }
+      }
+    }
+  }
+  if (reduce_max) {
+    st.m0 = fmaxf(st.m0, __shfl_xor_sync(0xffffffffu, st.m0, 1));
+    st.m0 = fmaxf(st.m0, __shfl_xor_sync(0xffffffffu, st.m0, 2));
+    st.m1 = fmaxf(st.m1, __shfl_xor_sync(0xffffffffu, st.m1, 1));
+    st.m1 = fmaxf(st.m1, __shfl_xor_sync(0xffffffffu, st.m1, 2));
+  }
+  if (!do_pv || gend == 0) return;
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) {
+    if (kk >= gend) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x0 = s[2 * kk + (e >> 1)][e & 1];
+      float& x1 = s[2 * kk + (e >> 1)][2 + (e & 1)];
+      x0 = (ok0 >> (4 * kk + e)) & 1u ? expf(x0 - st.m0) : 0.0f;
+      x1 = (ok1 >> (4 * kk + e)) & 1u ? expf(x1 - st.m1) : 0.0f;
+      st.l0 += x0;
+      st.l1 += x1;
+    }
+    // the group's score registers are P.V's A fragment; p rounds to bf16
+    const uint32_t p0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    const uint32_t p1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    const uint32_t p2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    const uint32_t p3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    const float* vr = vs + (16 * kk + 4 * t4) * rs + g;
+#pragma unroll
+    for (int dt = 0; dt < DN; ++dt) {
+      const float* vc = vr + 8 * dt;
+      mma_bf16(st.o[dt], p0, p1, p2, p3, pack_bf16(vc[0], vc[rs]),
+               pack_bf16(vc[2 * rs], vc[3 * rs]));
+    }
+  }
+}
+
+// l over the quad; m, l and pv to device memory from the registers (a
+// warp's store of one column tile covers 16 rows of 32 bytes)
+template <int DP>
+__device__ __forceinline__ void tl_finish_bf16(const TlArgs& a,
+                                               TlBf16<DP>& st, int b, int h,
+                                               int i0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 1);
+  st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 2);
+  st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 1);
+  st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + g + 8 * half;
+    if (i >= a.Tq) continue;
+    if (t4 == 0) {
+      const size_t stat = ((size_t)b * a.H + h) * a.Tq + i;
+      a.m[stat] = half ? st.m1 : st.m0;
+      a.l[stat] = half ? st.l1 : st.l0;
+    }
+    float* out = a.pv + (((size_t)b * a.Tq + i) * a.H + h) * a.D;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      const int c = 8 * dt + 2 * t4;
+      const float x = st.o[dt][2 * half], y = st.o[dt][2 * half + 1];
+      if ((a.D & 1) == 0) {
+        if (c < a.D) *reinterpret_cast<float2*>(out + c) = make_float2(x, y);
+      } else {
+        if (c < a.D) out[c] = x;
+        if (c + 1 < a.D) out[c + 1] = y;
+      }
+    }
+  }
+}
+
+// -- one warp's 16 query rows against one KV tile, f32 (FMA pipe)
+
+template <int DP>
+struct TlF32 {
+  float m[4], l[4];            // rows 4rg + r of the lane
+  // rows 4rg + r, columns 32c + 4kg + {0..3} (f32 takes DP >= 32)
+  float acc[4][DP / 32 > 0 ? DP / 32 : 1][4];
+
+  __device__ void init() {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < DP / 32; ++c) acc[r][c][0] = acc[r][c][1] = acc[r][c][2] = acc[r][c][3] = 0.0f;
+    }
+  }
+};
+
+// As tl_tile_bf16, in f32. Lane (rg, kg) = (lane / 8, lane % 8) holds the
+// scores of rows 4rg + r and keys 16kk + kg + 8c: each q and k float4
+// read from shared memory feeds 8 (or 16) fmaf. pt: the warp's p^T tile
+// [16 keys][kTlPRow].
+template <int DP, int TK>
+__device__ __forceinline__ void tl_tile_f32(
+    const TlArgs& a, const float* qs, const float* ks, const float* vs,
+    float* pt, TlF32<DP>& st, int gend, int b, int i0, int t0, bool do_max,
+    bool reduce_max, bool do_pv) {
+  constexpr int NG = TK / 16;
+  constexpr int DC = DP / 32;
+  constexpr int rs = DP + kTlPad;
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+  const int kg = lane & 7;
+  float s[NG][4][2];
+  uint32_t ok = 0;  // bit 8kk + 2r + c: key 16kk + kg + 8c of row 4rg + r
+  if (gend > 0) {
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[kk][r][0] = s[kk][r][1] = 0.0f;
+    }
+#pragma unroll 8
+    for (int d = 0; d < DP; d += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        qv[r] = *reinterpret_cast<const float4*>(qs + (4 * rg + r) * rs + d);
+      }
+#pragma unroll
+      for (int kk = 0; kk < NG; ++kk) {
+        if (kk >= gend) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              ks + (16 * kk + kg + 8 * c) * rs + d);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float x = s[kk][r][c];
+            x = fmaf(qv[r].x, kv.x, x);
+            x = fmaf(qv[r].y, kv.y, x);
+            x = fmaf(qv[r].z, kv.z, x);
+            x = fmaf(qv[r].w, kv.w, x);
+            s[kk][r][c] = x;
+          }
+        }
+      }
+    }
+    const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
+    const int qpos = a.q_start + i0 + 4 * rg;
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) {
+      if (kk >= gend) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = t0 + 16 * kk + kg + 8 * c;
+        const bool vj = j < a.Tk && valid[j];
+        const int kpos = a.kv_start + j;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const bool o = vj && (!a.causal || qpos + r >= kpos);
+          ok |= (uint32_t)o << (8 * kk + 2 * r + c);
+          float& x = s[kk][r][c];
+          x = o ? __fmul_rn(x, a.scale) : kNegInf;
+          if (do_max) st.m[r] = fmaxf(st.m[r], x);
+        }
+      }
+    }
+  }
+  if (reduce_max) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      st.m[r] = fmaxf(st.m[r], __shfl_xor_sync(0xffffffffu, st.m[r], 1));
+      st.m[r] = fmaxf(st.m[r], __shfl_xor_sync(0xffffffffu, st.m[r], 2));
+      st.m[r] = fmaxf(st.m[r], __shfl_xor_sync(0xffffffffu, st.m[r], 4));
+    }
+  }
+  if (!do_pv || gend == 0) return;
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) {
+    if (kk >= gend) continue;
+    float p[2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        p[c][r] = (ok >> (8 * kk + 2 * r + c)) & 1u
+                      ? expf(s[kk][r][c] - st.m[r]) : 0.0f;
+        st.l[r] += p[c][r];
+      }
+      *reinterpret_cast<float4*>(pt + (kg + 8 * c) * kTlPRow + 4 * rg) =
+          make_float4(p[c][0], p[c][1], p[c][2], p[c][3]);
+    }
+    __syncwarp();
+    // lane (rg, kg): pv rows 4rg + r, columns 32dc + 4kg + {0..3}
+    const float* vr = vs + 16 * kk * rs + 4 * kg;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const float4 pj = *reinterpret_cast<const float4*>(
+          pt + jj * kTlPRow + 4 * rg);
+      const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vr + jj * rs + 32 * dc);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float(&o)[4] = st.acc[r][dc];
+          o[0] = fmaf(pr[r], vv.x, o[0]);
+          o[1] = fmaf(pr[r], vv.y, o[1]);
+          o[2] = fmaf(pr[r], vv.z, o[2]);
+          o[3] = fmaf(pr[r], vv.w, o[3]);
+        }
+      }
+    }
+    __syncwarp();  // pt is free for the next group
+  }
+}
+
+// as tl_finish_bf16, for the f32 lane layout (a warp's store of one
+// column tile covers 4 rows of 128 bytes)
+template <int DP>
+__device__ __forceinline__ void tl_finish_f32(const TlArgs& a,
+                                              TlF32<DP>& st, int b, int h,
+                                              int i0) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+  const int kg = lane & 7;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 4);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + 4 * rg + r;
+    if (i >= a.Tq) continue;
+    if (kg == 0) {
+      const size_t stat = ((size_t)b * a.H + h) * a.Tq + i;
+      a.m[stat] = st.m[r];
+      a.l[stat] = st.l[r];
+    }
+    float* out = a.pv + (((size_t)b * a.Tq + i) * a.H + h) * a.D;
+#pragma unroll
+    for (int dc = 0; dc < DP / 32; ++dc) {
+      const int c = 32 * dc + 4 * kg;
+      const float(&o)[4] = st.acc[r][dc];
+      if ((a.D & 3) == 0) {
+        if (c < a.D) {
+          *reinterpret_cast<float4*>(out + c) =
+              make_float4(o[0], o[1], o[2], o[3]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < a.D) out[c + e] = o[e];
+        }
+      }
+    }
+  }
+}
+
+// last valid key of sequence b, by one warp (a single-tile item: Tk <= 64)
+__device__ __forceinline__ int tl_warp_last(const TlArgs& a, int b) {
+  const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
+  int last = -1;
+  for (int j = threadIdx.x & 31; j < a.Tk; j += 32) {
+    if (valid[j]) last = j;
+  }
+  return __reduce_max_sync(0xffffffffu, last);
+}
+
+template <int DP, int TK, bool kBf16>
+__global__ void __launch_bounds__(kTlMaxThreads, tl_min_blocks<DP>())
+flash_block_tiled_kernel(const TlArgs a) {
+  extern __shared__ __align__(128) float smem[];
+  constexpr int rs = DP + kTlPad;
+  const int q_tile = a.g * a.qr * rs;
+  const int kv_tile = a.g * a.tk * rs;
+  float* qbuf = smem;                       // [stages][g][qr][rs]
+  float* kbuf = qbuf + kTlStages * q_tile;  // [stages][g][tk][rs]
+  float* vbuf = kbuf + kTlStages * kv_tile;
+  float* pbuf = vbuf + kTlStages * kv_tile;  // f32: [warps][16][kTlPRow]
+  int* ints = reinterpret_cast<int*>(pbuf + (kBf16 ? 0 : a.warps * 16 * kTlPRow));
+  // this warp's sequence of the item and its 16 rows of the query tile
+  const int warp = threadIdx.x >> 5;
+  const int wpu = a.qr >> 4;
+  const int gi = warp / wpu;
+  const int wq = warp - gi * wpu;
+  const bool multi = a.nkt > 1;
+
+  TlCursor p{(int)blockIdx.x, 0, 1, 0, 0};
+  for (int s = 0; s < kTlStages; ++s) {
+    tl_produce<DP>(a, p, qbuf, kbuf, vbuf, ints);
+  }
+  TlCursor c{(int)blockIdx.x, 0, 1, 0, 0};
+  std::conditional_t<kBf16, TlBf16<DP>, TlF32<DP>> st;
+  int kend = 0;  // keys [0, kend) are all that the warp's rows can see
+  while (c.item < a.n_items) {
+    cp_async_wait_group<kTlStages - 1>();
+    __syncthreads();
+    const int slot = c.count % kTlStages;
+    const int stage = c.load % kTlStages;
+    const TlItem it = tl_item(a, c.item);
+    if (c.j == 0) c.n = multi ? ints[slot] : 1;
+    const int kt = c.n == 1 ? 0 : c.j % c.n;
+    const bool single = c.n == 1;
+    const bool last = c.j == c.loads() - 1;
+    const int i0 = it.qt * a.qr + 16 * wq;
+    const float* qs = qbuf + slot * q_tile + (gi * a.qr + 16 * wq) * rs;
+    if (gi < it.nb && i0 < a.Tq) {
+      const int b = it.b0 + gi;
+      if (c.j == 0) {
+        st.init();
+        const int lastv = multi ? ints[kTlStages + slot] : tl_warp_last(a, b);
+        kend = min(a.Tk, lastv + 1);
+        if (a.causal) {
+          const int i_last = min(i0 + 15, a.Tq - 1);
+          kend = min(kend, max(0, a.q_start + i_last - a.kv_start + 1));
+        }
+      }
+      const int t0 = kt * a.tk;
+      const int gend = kend <= t0 ? 0 : min((kend - t0 + 15) >> 4, a.tk >> 4);
+      const float* ks = kbuf + stage * kv_tile + gi * a.tk * rs;
+      const float* vs = vbuf + stage * kv_tile + gi * a.tk * rs;
+      const bool do_max = single || c.j < c.n;
+      const bool reduce_max = single || c.j == c.n - 1;
+      const bool do_pv = single || c.j >= c.n;
+      if constexpr (kBf16) {
+        tl_tile_bf16<DP, TK>(a, qs, ks, vs, st, gend, b, i0, t0, do_max,
+                             reduce_max, do_pv);
+        if (last) tl_finish_bf16<DP>(a, st, b, it.h, i0);
+      } else {
+        tl_tile_f32<DP, TK>(a, qs, ks, vs, pbuf + warp * 16 * kTlPRow, st,
+                            gend, b, i0, t0, do_max, reduce_max, do_pv);
+        if (last) tl_finish_f32<DP>(a, st, b, it.h, i0);
+      }
+    }
+    __syncthreads();
+    tl_produce<DP>(a, p, qbuf, kbuf, vbuf, ints);
+    c.advance(gridDim.x);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the instance for tiles of up to 16 keys where a.tk is 16, else the one
+// for tl_keys(DP)
+template <int DP, bool kBf16>
+int launch_tiled(const TlArgs& a, int threads, size_t smem,
+                 cudaStream_t stream) {
+  constexpr int TK = tl_keys(DP);
+  if constexpr (TK > 16) {
+    if (a.tk == 16) {
+      return launch_persistent(flash_block_tiled_kernel<DP, 16, kBf16>, a,
+                               a.n_items, threads, smem, stream);
+    }
+  }
+  return launch_persistent(flash_block_tiled_kernel<DP, TK, kBf16>, a,
+                           a.n_items, threads, smem, stream);
 }
 
 // cudaFuncAttributes of one instance → {registers, static shared bytes,
@@ -789,45 +1275,6 @@ int func_info(const void* fn, int* out) {
 }  // namespace
 
 extern "C" {
-
-// → cudaGetLastError() after the launch (0 = launched). g sequences and hb
-// heads per block (hb divides H, g * hb * Tq <= 256 threads); D in
-// {8, 16, 32, 64}; vec = every q/k/v pointer 16-byte aligned and every
-// stride a multiple of 4 floats.
-int kt_flash_block(const float* q, const float* k, const float* v,
-                   const unsigned char* kv_valid, float* pv, float* m,
-                   float* l, int B, int Tq, int Tk, int H, int D, int hb,
-                   int g, long long qsb, long long qst, long long qsh,
-                   long long ksb, long long kst, long long ksh,
-                   long long vsb, long long vst, long long vsh, int q_start,
-                   int kv_start, int causal, int bf16, int vec, float scale,
-                   void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || hb <= 0 || g <= 0 ||
-      H % hb != 0 || g * hb * Tq > kMaxThreads ||
-      smem_bytes(g, hb, Tq, Tk, D) > (size_t)kMaxSmem) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define KT_FLASH_CASE(DIM)                                                   \
-  case DIM:                                                                  \
-    return bf16 ? launch<DIM, true>(q, k, v, kv_valid, pv, m, l, B, Tq, Tk,  \
-                                    H, hb, g, qsb, qst, qsh, ksb, kst, ksh,  \
-                                    vsb, vst, vsh, q_start, kv_start,        \
-                                    causal, vec, scale, s)                   \
-                : launch<DIM, false>(q, k, v, kv_valid, pv, m, l, B, Tq, Tk, \
-                                     H, hb, g, qsb, qst, qsh, ksb, kst, ksh, \
-                                     vsb, vst, vsh, q_start, kv_start,       \
-                                     causal, vec, scale, s);
-  switch (D) {
-    KT_FLASH_CASE(8)
-    KT_FLASH_CASE(16)
-    KT_FLASH_CASE(32)
-    KT_FLASH_CASE(64)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef KT_FLASH_CASE
-}
 
 // → cudaGetLastError() after the launch (0 = launched). The tensor-core
 // variant: bf16 compute, Tq == Tk == T with T % 16 == 0 and T <= 128,
@@ -874,18 +1321,94 @@ int kt_flash_block_tc(const float* q, const float* k, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Compiled resources of one instance: tc = 1 the tensor-core variant at
-// (T, D), tc = 0 the SIMT one at D (bf16 staging) → out = {registers,
-// static shared bytes, local (spill) bytes, max threads per block}.
-int kt_flash_block_info(int tc, int T, int D, int* out) {
-  if (!tc) {
-    switch (D) {
-      case 8: return func_info((const void*)flash_block_kernel<8, true>, out);
-      case 16: return func_info((const void*)flash_block_kernel<16, true>, out);
-      case 32: return func_info((const void*)flash_block_kernel<32, true>, out);
-      case 64: return func_info((const void*)flash_block_kernel<64, true>, out);
-      default: return (int)cudaErrorInvalidValue;
+// → cudaGetLastError() after the launch (0 = launched). The KV-tiled
+// variant: bf16 (bf16 = 1) or f32 compute, any B, Tq, Tk, H >= 1 and
+// 1 <= D <= dp, dp the padded head dim (16 (bf16 only), 32, 64, 128 or
+// 256); items of g sequences x one head x qr query rows (qr a multiple of
+// 16 up to 64), KV tiles of tk keys (a multiple of 16 up to 64, 32 or 16
+// for dp <= 64, 128, 256); g > 1 only where one query tile and one KV tile
+// hold whole sequences; g * qr / 16 warps, at most 8; vec = every q/k/v
+// pointer 16-byte aligned and every stride a multiple of 4 floats.
+// Persistent grid: as many blocks as fit on every SM.
+int kt_flash_block_tiled(const float* q, const float* k, const float* v,
+                         const unsigned char* kv_valid, float* pv, float* m,
+                         float* l, int B, int Tq, int Tk, int H, int D,
+                         int dp, int g, int qr, int tk, long long qsb,
+                         long long qst, long long qsh, long long ksb,
+                         long long kst, long long ksh, long long vsb,
+                         long long vst, long long vsh, int q_start,
+                         int kv_start, int causal, int bf16, int vec,
+                         float scale, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || g <= 0 || qr < 16 ||
+      tk < 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nqt = (Tq + qr - 1) / qr;
+  const int nkt = (Tk + tk - 1) / tk;
+  const int warps = g * (qr / 16);
+  const bool ok_shape =
+      D >= 1 && D <= dp && tl_dp_ok(dp, bf16 != 0) && qr <= kTlQRows &&
+      qr % 16 == 0 && tk % 16 == 0 && tk <= tl_keys(dp) &&
+      (g == 1 || (nqt == 1 && nkt == 1)) && warps * 32 <= kTlMaxThreads &&
+      tl_smem_bytes(g, qr, tk, dp, bf16 != 0) <= (size_t)kMaxSmem;
+  if (!ok_shape) return (int)cudaErrorInvalidValue;
+  TlArgs a;
+  a.q = q; a.k = k; a.v = v; a.kv_valid = kv_valid;
+  a.pv = pv; a.m = m; a.l = l;
+  a.qsb = qsb; a.qst = qst; a.qsh = qsh;
+  a.ksb = ksb; a.kst = kst; a.ksh = ksh;
+  a.vsb = vsb; a.vst = vst; a.vsh = vsh;
+  a.B = B; a.Tq = Tq; a.Tk = Tk; a.H = H; a.D = D;
+  a.g = g; a.qr = qr; a.tk = tk; a.nqt = nqt; a.nkt = nkt;
+  const long long items = (long long)((B + g - 1) / g) * H * nqt;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  a.n_items = (int)items;
+  a.warps = warps;
+  a.q_start = q_start; a.kv_start = kv_start; a.causal = causal;
+  a.vec = vec;
+  a.scale = scale;
+  const size_t smem = tl_smem_bytes(g, qr, tk, dp, bf16 != 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = warps * 32;
+  if (bf16) {
+    switch (dp) {
+      case 16: return launch_tiled<16, true>(a, threads, smem, s);
+      case 32: return launch_tiled<32, true>(a, threads, smem, s);
+      case 64: return launch_tiled<64, true>(a, threads, smem, s);
+      case 128: return launch_tiled<128, true>(a, threads, smem, s);
+      case 256: return launch_tiled<256, true>(a, threads, smem, s);
     }
+  } else {
+    switch (dp) {
+      case 32: return launch_tiled<32, false>(a, threads, smem, s);
+      case 64: return launch_tiled<64, false>(a, threads, smem, s);
+      case 128: return launch_tiled<128, false>(a, threads, smem, s);
+      case 256: return launch_tiled<256, false>(a, threads, smem, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Compiled resources of one instance: tc = 1 the tensor-core variant at
+// (T, D), tc = 0 the tiled one at padded head dim D for bf16 or f32
+// compute, its instance for T (the keys of a tile: 16 or fewer, or more)
+// → out = {registers, static shared bytes, local (spill) bytes, max
+// threads per block}.
+int kt_flash_block_info(int tc, int T, int D, int bf16, int* out) {
+  if (!tc) {
+    const bool short_tile = T <= 16 && tl_keys(D) > 16;
+#define KT_TL_INFO(DD, BF)                                                   \
+  if (D == DD && bf16 == BF)                                                 \
+    return func_info(                                                        \
+        short_tile                                                           \
+            ? (const void*)flash_block_tiled_kernel<DD, 16, BF != 0>         \
+            : (const void*)flash_block_tiled_kernel<DD, tl_keys(DD), BF != 0>, \
+        out);
+    KT_TL_INFO(16, 1) KT_TL_INFO(32, 1) KT_TL_INFO(64, 1)
+    KT_TL_INFO(128, 1) KT_TL_INFO(256, 1)
+    KT_TL_INFO(32, 0) KT_TL_INFO(64, 0) KT_TL_INFO(128, 0) KT_TL_INFO(256, 0)
+#undef KT_TL_INFO
+    return (int)cudaErrorInvalidValue;
   }
 #define KT_TC_INFO(TT, DD)                                                   \
   if (T == TT && D == DD)                                                    \

@@ -7,8 +7,9 @@ through a plain C interface (``ops/build.py`` compiles and loads the
 library at first launch). It has two variants, chosen from the compute
 type and the shape alone (:func:`flash_block_plan`): a tensor-core one
 (bf16 compute, Tq == Tk a multiple of 16 up to 128, D in {16, 32, 64} —
-the temporal trunk's default) and a SIMT one for f32 compute and every
-other shape.
+the temporal trunk's default) and a KV-tiled one for f32 compute and
+every other shape: any Tq and Tk, and D up to 256, as the TPU kernel
+takes them.
 
 - **B3** :func:`flash_block_pallas` — one fused (q-block × kv-block)
   attention partial ``(pv [B,Tq,H,D], m [B,H,Tq], l [B,H,Tq])``, the
@@ -45,20 +46,17 @@ from kepler_tpu_torch.ops.cuda_attribution import (F32_OPS_PER_S, _raise_on,
 # kernel launches since import (or since the caller last zeroed them):
 # "flash_block" counts every B3 launch, the other two each variant's
 LAUNCHES: dict[str, int] = {"flash_block": 0, "flash_block_tc": 0,
-                            "flash_block_simt": 0}
+                            "flash_block_tiled": 0}
 
 # NVIDIA H100 SXM data sheet: the dense bf16 tensor-core rate, the peak a
 # bf16-operand contraction's bound is taken against (f32 operands use
 # cuda_attribution.F32_OPS_PER_S)
 BF16_OPS_PER_S = 989e12
 
-# what the kernels take (csrc/attention.cu). SIMT: head dims it is
-# instantiated for, threads per block, and shared memory per block (all
-# of it, and the size below which a second block shares the SM).
-KERNEL_HEAD_DIMS = (8, 16, 32, 64)
+# what the kernels take (csrc/attention.cu): threads and shared memory a
+# block may have.
 MAX_THREADS = 256
 MAX_SMEM = 227 * 1024
-TARGET_SMEM = 96 * 1024
 # Tensor cores: bf16 compute, Tq == Tk a multiple of 16 up to TC_MAX_T,
 # these head dims; a two-stage ring of items of g sequences × hb heads,
 # each stage ≤ TC_STAGE_BYTES of q, k, v where one unit allows it; rows
@@ -68,6 +66,24 @@ TC_MAX_T = 128
 TC_STAGES = 2
 TC_STAGE_BYTES = 56 * 1024
 TC_PAD = 4
+# KV-tiled: D up to TILED_MAX_D, zero-padded to the first of the padded
+# head dims (bf16: all; f32 from 32) that holds it; items of up to
+# TILED_Q_ROWS query rows (16 a warp; fewer where a block would not fit
+# MAX_SMEM), KV tiles of up to TILED_KEYS[dp] keys in a two-stage ring;
+# rows padded by TILED_PAD floats, f32 p^T rows of TILED_P_ROW floats.
+# Where an item packs several sequences (dp <= 64) its block stays within
+# TILED_BLOCK_SMEM, so that several small blocks share an SM and their
+# barriers fall at different times (2 sequences an item at the f32
+# serving shape).
+TILED_MAX_D = 256
+TILED_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
+              torch.float32: (32, 64, 128, 256)}
+TILED_KEYS = {16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
+TILED_Q_ROWS = 128
+TILED_STAGES = 2
+TILED_PAD = 4
+TILED_P_ROW = 20
+TILED_BLOCK_SMEM = 32 * 1024
 
 _SOURCE = "attention"
 _c_void_p = ctypes.c_void_p
@@ -78,26 +94,27 @@ _c_ll = ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if not getattr(lib, "_kt_bound", False):
-        lib.kt_flash_block.argtypes = (
-            [_c_void_p] * 7 + [_c_int] * 7 + [_c_ll] * 9
+        lib.kt_flash_block_tiled.argtypes = (
+            [_c_void_p] * 7 + [_c_int] * 9 + [_c_ll] * 9
             + [_c_int] * 5 + [ctypes.c_float, _c_void_p])
-        lib.kt_flash_block.restype = _c_int
+        lib.kt_flash_block_tiled.restype = _c_int
         lib.kt_flash_block_tc.argtypes = (
             [_c_void_p] * 7 + [_c_int] * 6 + [_c_ll] * 9
             + [_c_int] * 5 + [ctypes.c_float, _c_void_p])
         lib.kt_flash_block_tc.restype = _c_int
-        lib.kt_flash_block_info.argtypes = [_c_int, _c_int, _c_int,
-                                            ctypes.POINTER(_c_int)]
+        lib.kt_flash_block_info.argtypes = [_c_int] * 4 + [
+            ctypes.POINTER(_c_int)]
         lib.kt_flash_block_info.restype = _c_int
         lib._kt_bound = True
     return lib
 
 
 class FlashPlan(NamedTuple):
-    """How B3 runs one call: ``variant`` "tc" (tensor cores) or "simt";
-    items (tc) or blocks (simt) of ``g`` sequences × ``hb`` heads,
-    ``threads`` per block, ``smem`` bytes of shared memory per block, and
-    (tc) whether each item's rows arrive as bulk copies."""
+    """How B3 runs one call: ``variant`` "tc" (tensor cores) or "tiled";
+    items of ``g`` sequences × ``hb`` heads, ``threads`` per block,
+    ``smem`` bytes of shared memory per block, (tc) whether each item's
+    rows arrive as bulk copies, and (tiled) the padded head dim ``dp``,
+    an item's query rows ``qr`` and a KV tile's keys ``tk``."""
 
     variant: str
     g: int
@@ -105,6 +122,9 @@ class FlashPlan(NamedTuple):
     threads: int
     smem: int
     bulk: bool
+    dp: int = 0
+    qr: int = 0
+    tk: int = 0
 
 
 def takes_tensor_cores(tq: int, tk: int, d: int,
@@ -115,20 +135,25 @@ def takes_tensor_cores(tq: int, tk: int, d: int,
             and 16 <= tq <= TC_MAX_T and d in TC_HEAD_DIMS)
 
 
-def smem_bytes(g: int, hb: int, tq: int, tk: int, d: int,
-               variant: str = "simt", bulk: bool = False) -> int:
-    """Shared memory of one B3 block of ``g`` sequences × ``hb`` heads, as
-    ``csrc/attention.cu`` lays it out. simt: K and V tiles (each unit
-    padded by 4 floats), the Q tile (rows padded to D+1) and the
-    sequences' KV-validity bytes. tc: ``TC_STAGES`` stages of the q, k
-    and v tiles (f32; rows of hb·D floats as ``bulk`` copies land them,
-    else of D + ``TC_PAD``) and one mbarrier each."""
-    if variant == "tc":
-        row = hb * d if bulk else d + TC_PAD
-        return TC_STAGES * (3 * 4 * g * tq * row + 8)
-    units = g * hb
-    floats = units * (2 * (tk * d + 4) + tq * (d + 1))
-    return 4 * floats + (g * tk + 15) // 16 * 16
+def tc_smem_bytes(g: int, hb: int, t: int, d: int, bulk: bool) -> int:
+    """Shared memory of one tensor-core block, as ``csrc/attention.cu``
+    lays it out: ``TC_STAGES`` stages of the q, k and v tiles of ``g``
+    sequences × ``hb`` heads (f32; rows of hb·D floats as ``bulk`` copies
+    land them, else of D + ``TC_PAD``) and one mbarrier each."""
+    row = hb * d if bulk else d + TC_PAD
+    return TC_STAGES * (3 * 4 * g * t * row + 8)
+
+
+def tiled_smem_bytes(g: int, qr: int, tk: int, dp: int,
+                     compute_dtype: torch.dtype) -> int:
+    """Shared memory of one KV-tiled block, as ``csrc/attention.cu`` lays
+    it out: ``TILED_STAGES`` q slots of ``g`` × ``qr`` rows and as many K
+    and V stages of ``g`` × ``tk`` rows (f32 rows of dp + ``TILED_PAD``
+    floats), at f32 compute each warp's p^T tile (16 ×
+    ``TILED_P_ROW``), and 2·``TILED_STAGES`` + 8 ints."""
+    rows = TILED_STAGES * g * (qr + 2 * tk) * (dp + TILED_PAD)
+    pt = 0 if compute_dtype == torch.bfloat16 else g * qr * TILED_P_ROW
+    return 4 * (rows + pt) + 4 * (2 * TILED_STAGES + 8)
 
 
 def _tc_plan(b: int, t: int, h: int, d: int, contiguous: bool) -> FlashPlan:
@@ -147,7 +172,47 @@ def _tc_plan(b: int, t: int, h: int, d: int, contiguous: bool) -> FlashPlan:
            and (g + 1) * hb * warps * 32 <= MAX_THREADS):
         g += 1
     return FlashPlan("tc", g, hb, g * hb * warps * 32,
-                     smem_bytes(g, hb, t, t, d, "tc", bulk), bulk)
+                     tc_smem_bytes(g, hb, t, d, bulk), bulk, d, t, t)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def tiled_plan(b: int, tq: int, tk: int, h: int, d: int,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               contiguous: bool = True) -> FlashPlan:
+    """The KV-tiled variant's blocking for this call. Items hold one head
+    and query tiles of up to ``TILED_Q_ROWS`` rows (as many as fit
+    ``MAX_SMEM``), KV tiles up to ``TILED_KEYS[dp]`` keys. Where one query
+    tile and one KV tile hold whole sequences, an item packs as many
+    sequences as keep the block within ``MAX_THREADS`` threads (one warp a
+    16 query rows) and its shared memory within ``TILED_BLOCK_SMEM`` (dp
+    <= 64) or ``MAX_SMEM``. It copies rows with cp.async whatever their
+    layout, so ``contiguous`` does not change the plan. Raises ValueError
+    for D outside 1..``TILED_MAX_D``, the one limit of B3's shapes."""
+    del contiguous, h  # the plan is the same for every layout and H
+    if not 1 <= d <= TILED_MAX_D:
+        raise ValueError(f"B3 takes head dims 1 to {TILED_MAX_D}, got {d}")
+    if tq < 1 or tk < 1:
+        raise ValueError(f"B3 needs Tq, Tk >= 1, got Tq={tq}, Tk={tk}")
+    if compute_dtype not in TILED_DIMS:
+        raise TypeError(f"B3 computes in bf16 or f32, not {compute_dtype}")
+    dp = next(x for x in TILED_DIMS[compute_dtype] if x >= d)
+    kt = min(_round16(tk), TILED_KEYS[dp])
+    qr = min(_round16(tq), TILED_Q_ROWS)
+    while tiled_smem_bytes(1, qr, kt, dp, compute_dtype) > MAX_SMEM:
+        qr -= 16
+    budget = TILED_BLOCK_SMEM if dp <= 64 else MAX_SMEM
+    g = 1
+    if tq <= qr and tk <= kt:
+        while (g < b and (g + 1) * qr // 16 * 32 <= MAX_THREADS
+               and tiled_smem_bytes(g + 1, qr, kt, dp, compute_dtype)
+               <= budget):
+            g += 1
+    return FlashPlan("tiled", g, 1, g * qr // 16 * 32,
+                     tiled_smem_bytes(g, qr, kt, dp, compute_dtype), False,
+                     dp, qr, kt)
 
 
 def flash_block_plan(b: int, tq: int, tk: int, h: int, d: int,
@@ -157,46 +222,28 @@ def flash_block_plan(b: int, tq: int, tk: int, h: int, d: int,
     type and the shape alone (``contiguous``: q, k, v are contiguous
     ``[B, T, H, D]`` with 16-byte aligned data).
 
-    Tensor cores where :func:`takes_tensor_cores`; else the SIMT kernel,
-    with as many heads per block as fit (a timestep row of hb·D f32 values
-    is then one contiguous read), then as many sequences as keep the block
-    within ``MAX_THREADS`` threads (one per query row) and
-    ``TARGET_SMEM``. Raises ValueError for a shape neither takes."""
+    Tensor cores where :func:`takes_tensor_cores`, else the KV-tiled
+    kernel (:func:`tiled_plan`). Raises ValueError for D above
+    ``TILED_MAX_D``."""
     if takes_tensor_cores(tq, tk, d, compute_dtype):
         return _tc_plan(b, tq, h, d, contiguous)
-    return simt_plan(b, tq, tk, h, d)
+    return tiled_plan(b, tq, tk, h, d, compute_dtype, contiguous)
 
 
-def simt_plan(b: int, tq: int, tk: int, h: int, d: int) -> FlashPlan:
-    """The SIMT variant's blocking for this shape (see
-    :func:`flash_block_plan`). Raises ValueError for a shape it does not
-    take."""
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"B3 takes head dims {KERNEL_HEAD_DIMS}, got {d}")
-    for hb in range(h, 0, -1):
-        if (h % hb == 0 and hb * tq <= MAX_THREADS
-                and smem_bytes(1, hb, tq, tk, d) <= MAX_SMEM):
-            break
-    else:
-        raise ValueError(
-            f"B3 does not take Tq={tq}, Tk={tk}, D={d}: one head of one "
-            f"sequence needs {tq} threads (at most {MAX_THREADS}) and "
-            f"{smem_bytes(1, 1, tq, tk, d)} B of shared memory (at most "
-            f"{MAX_SMEM})")
-    g = 1
-    while (g < b and (g + 1) * hb * tq <= MAX_THREADS
-           and smem_bytes(g + 1, hb, tq, tk, d) <= TARGET_SMEM):
-        g += 1
-    return FlashPlan("simt", g, hb, g * hb * tq, smem_bytes(g, hb, tq, tk, d),
-                     False)
-
-
-def flash_block_info(variant: str, t: int, d: int) -> dict[str, int]:
+def flash_block_info(variant: str, t: int, d: int,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> dict[str, int]:
     """Compiled resources of one B3 instance on the card (variant "tc" at
-    T = Tq = Tk, or "simt" with bf16 staging): registers per thread,
-    static shared bytes, local (spill) bytes, max threads per block."""
+    T = Tq = Tk and D, bf16; or "tiled" at the padded head dim of D for
+    ``compute_dtype``, any T): registers per thread, static shared bytes,
+    local (spill) bytes, max threads per block."""
+    if variant == "tc":
+        key, bf16 = d, 1
+    else:
+        key = next(x for x in TILED_DIMS[compute_dtype] if x >= d)
+        bf16 = int(compute_dtype == torch.bfloat16)
     out = (_c_int * 4)()
-    rc = _lib().kt_flash_block_info(int(variant == "tc"), t, d, out)
+    rc = _lib().kt_flash_block_info(int(variant == "tc"), t, key, bf16, out)
     _raise_on(rc, "flash_block_info")
     return dict(zip(("registers", "static_smem", "local_bytes",
                      "max_threads"), list(out)))
@@ -351,8 +398,9 @@ def flash_block_launch(
     """Launch B3 on CUDA tensors as ``plan`` says (the checks of
     :func:`flash_block_pallas` done). :func:`flash_block_pallas` passes
     :func:`flash_block_plan`'s plan; a measurement may pass
-    :func:`simt_plan`'s to time the SIMT variant at bf16. The kernel
-    refuses a plan it does not take (the call raises)."""
+    :func:`tiled_plan`'s to time the tiled variant where the tensor-core
+    one would run. The kernel refuses a plan it does not take (the call
+    raises)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     dev = q.device
@@ -386,9 +434,9 @@ def flash_block_launch(
                 int(q_start), int(kv_start), int(causal), int(plan.bulk),
                 int(vec), scale, stream)
         else:
-            rc = lib.kt_flash_block(
-                *ptrs, b, tq, tk, h, d, plan.hb, plan.g, *strides,
-                int(q_start), int(kv_start), int(causal),
+            rc = lib.kt_flash_block_tiled(
+                *ptrs, b, tq, tk, h, d, plan.dp, plan.g, plan.qr, plan.tk,
+                *strides, int(q_start), int(kv_start), int(causal),
                 int(compute_dtype == torch.bfloat16), int(vec), scale,
                 stream)
     _raise_on(rc, f"flash_block ({plan.variant})")

@@ -10,9 +10,13 @@ port's wrappers take their plain versions for CPU tensors. Tolerances:
   attention outputs within 1e-2 · max|v| (one bf16 rounding of ``p`` may
   flip between the two).
 
-The block plan (which variant, tensor-core or SIMT, and its blocking)
-and cost model that the CUDA wrapper uses are checked here too; the
-kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+The block plan (which variant, tensor-core or KV-tiled, and its
+blocking) and cost model that the CUDA wrapper uses are checked here too;
+the kernels themselves run only on the card
+(``tests/test_torch_cuda.py``). The plan takes every block JAX's kernel
+takes (any Tq, Tk, and D up to 256), and at the blocks the card's first
+kernels refused (Tq > 256, Tk of a thousand, D of 12 or 128) the port
+still agrees with JAX's interpret-mode kernel.
 """
 
 from __future__ import annotations
@@ -221,40 +225,127 @@ BF16, F32 = torch.bfloat16, torch.float32
     (9, 16, 16, 4, 32, BF16, False, ("tc", 8, 1, 256, False)),
     (2, 16, 16, 4, 32, BF16, True, ("tc", 2, 4, 256, True)),
     (1, 16, 16, 4, 32, BF16, True, ("tc", 1, 4, 128, True)),
-    # f32 compute and the shapes tensor cores do not take: SIMT
-    (262144, 16, 16, 4, 32, F32, True, ("simt", 3, 4, 192, False)),
-    (16384, 128, 128, 4, 32, F32, True, ("simt", 1, 2, 256, False)),
-    (5, 9, 13, 4, 16, BF16, True, ("simt", 5, 4, 180, False)),
-    (4, 32, 20, 2, 64, BF16, True, ("simt", 2, 2, 128, False)),
-    (2, 256, 256, 4, 8, BF16, True, ("simt", 1, 1, 256, False)),
-    (1, 1, 1, 1, 8, BF16, True, ("simt", 1, 1, 1, False)),
-    (2, 144, 144, 4, 32, BF16, True, ("simt", 1, 1, 144, False)),
+    # f32 compute and the shapes tensor cores do not take: KV-tiled,
+    # (variant, g, hb, threads, bulk, padded D, query rows, KV tile keys)
+    (262144, 16, 16, 4, 32, F32, True,
+     ("tiled", 2, 1, 64, False, 32, 16, 16)),
+    (16384, 128, 128, 4, 32, F32, True,
+     ("tiled", 1, 1, 256, False, 32, 128, 64)),
+    (5, 9, 13, 4, 16, BF16, True, ("tiled", 4, 1, 128, False, 16, 16, 16)),
+    (4, 32, 20, 2, 64, BF16, True, ("tiled", 1, 1, 64, False, 64, 32, 32)),
+    (2, 256, 256, 4, 8, BF16, True,
+     ("tiled", 1, 1, 256, False, 16, 128, 64)),
+    (1, 1, 1, 1, 8, BF16, True, ("tiled", 1, 1, 32, False, 16, 16, 16)),
+    (2, 144, 144, 4, 32, BF16, True,
+     ("tiled", 1, 1, 256, False, 32, 128, 64)),
 ])
 def test_flash_block_plan_fits_the_kernel(b, tq, tk, h, d, cd, contiguous,
                                           want):
     plan = tcat.flash_block_plan(b, tq, tk, h, d, cd, contiguous)
-    assert (plan.variant, plan.g, plan.hb, plan.threads, plan.bulk) == want
+    got = (plan.variant, plan.g, plan.hb, plan.threads, plan.bulk, plan.dp,
+           plan.qr, plan.tk)
+    assert got[:len(want)] == want
     assert h % plan.hb == 0 and plan.threads <= tcat.MAX_THREADS
-    assert plan.smem == tcat.smem_bytes(plan.g, plan.hb, tq, tk, d,
-                                        plan.variant, plan.bulk)
     assert plan.smem <= tcat.MAX_SMEM
     assert tcat.takes_tensor_cores(tq, tk, d, cd) == (plan.variant == "tc")
     if plan.variant == "tc":
         # a stage holds q, k, v of g sequences × hb heads, rows padded
         # by 4 floats unless bulk copies land them; two stages
+        assert plan.smem == tcat.tc_smem_bytes(plan.g, plan.hb, tq, d,
+                                               plan.bulk)
         row = plan.hb * d if plan.bulk else d + 4
         assert plan.smem == 2 * (3 * 4 * plan.g * tq * row + 8)
         assert plan.threads == 32 * plan.g * plan.hb * tq // 16
         assert not plan.bulk or plan.hb == h
     else:
-        assert plan.threads == plan.g * plan.hb * tq
+        # two q slots and two K and V stages of rows padded by 4 floats,
+        # f32's p^T tiles, and the ints; one warp a 16 query rows; D
+        # zero-padded; several sequences an item only where one tile
+        # holds each
+        assert plan.smem == tcat.tiled_smem_bytes(plan.g, plan.qr, plan.tk,
+                                                  plan.dp, cd)
+        pt = 0 if cd == BF16 else plan.g * plan.qr * 20
+        assert plan.smem == 4 * (2 * plan.g * (plan.qr + 2 * plan.tk)
+                                 * (plan.dp + 4) + pt) + 4 * 12
+        assert plan.threads == 32 * plan.g * plan.qr // 16
+        assert d <= plan.dp and plan.dp in tcat.TILED_DIMS[cd]
+        assert plan.qr % 16 == 0 and plan.qr <= tcat.TILED_Q_ROWS
+        assert plan.tk % 16 == 0 and plan.tk <= tcat.TILED_KEYS[plan.dp]
+        assert plan.g == 1 or (tq <= plan.qr and tk <= plan.tk)
+        assert not plan.bulk and plan.hb == 1
 
 
+def _jax_parity(b, tq, tk, h, d, cd, causal, q_start, kv_start, seed,
+                masked_row=False):
+    """The port's B3 (its plain version on the CPU) against JAX's Pallas
+    kernel in interpret mode on seeded inputs with half the keys (or,
+    ``masked_row``, every key of sequence 0 too) masked."""
+    q, k, v = qkv(seed, b, tq, tk, h=h, d=d)
+    rng = np.random.default_rng(seed + 1)
+    valid = rng.random((b, tk)) > 0.5
+    if masked_row:
+        valid[0] = False
+    jcd, tcd = DTYPES[cd]
+    want = jpal.flash_block_pallas(
+        *(jnp.asarray(x) for x in (q, k, v, valid)), q_start, kv_start,
+        causal=causal, compute_dtype=jcd, interpret=True)
+    got = tcat.flash_block_pallas(*to_t(q, k, v, valid), q_start, kv_start,
+                                  causal=causal, compute_dtype=tcd)
+    pv, m, l = (x.numpy() for x in got)
+    pv_r, m_r, l_r = (np.asarray(x) for x in want)
+    np.testing.assert_allclose(m, m_r, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l, l_r, rtol=1e-5, atol=1e-5)
+    bound = (1e-5 if cd == "f32" else 1e-2) * np.abs(v).max()
+    np.testing.assert_allclose(pv, pv_r, rtol=0, atol=bound)
+    return pv, m, l
+
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
 @pytest.mark.parametrize("tq,tk,d", [(8, 8, 12), (300, 8, 32),
                                      (8, 1000, 64), (256, 256, 12)])
-def test_flash_block_plan_rejects_what_the_kernel_does_not_take(tq, tk, d):
-    with pytest.raises(ValueError, match="B3"):
-        tcat.flash_block_plan(4, tq, tk, 4, d)
+def test_flash_block_plan_takes_what_jax_takes(tq, tk, d, cd):
+    """Blocks the card's first B3 kernels refused (D = 12, Tq = 300, Tk =
+    1000): the plan takes them, on the tiled variant, and the port agrees
+    with JAX's kernel there."""
+    tcd = DTYPES[cd][1]
+    plan = tcat.flash_block_plan(4, tq, tk, 4, d, tcd)
+    assert plan.variant == "tiled" and d <= plan.dp
+    assert plan.smem <= tcat.MAX_SMEM and plan.threads <= tcat.MAX_THREADS
+    _jax_parity(2, tq, tk, 2, d, cd, True, 0, 0, tq + tk + d)
+
+
+def test_flash_block_plan_refuses_head_dims_past_256():
+    """D = 257: the one shape B3 does not take, named in the error."""
+    for cd in (BF16, F32):
+        with pytest.raises(ValueError, match="B3 takes head dims 1 to 256"):
+            tcat.flash_block_plan(4, 16, 16, 4, 257, cd)
+    assert tcat.flash_block_plan(4, 16, 16, 4, 256, F32).dp == 256
+
+
+PARITY_CASES = {
+    # (b, tq, tk, h, d, q_start, kv_start, masked_row)
+    "t300_d12": (2, 300, 300, 2, 12, 0, 0, False),
+    "t512_d128": (2, 512, 512, 1, 128, 0, 0, False),
+    "tq64_tk640_offsets": (2, 64, 640, 2, 32, 512, 100, False),
+    "fully_masked_row": (3, 40, 72, 2, 24, 8, 0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(PARITY_CASES))
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_block_matches_jax_at_every_block_it_takes(case, cd, causal):
+    """Long, ragged and wide blocks against JAX's interpret-mode kernel:
+    m and l rtol 1e-5, pv within 1e-5 · max|v| (f32) or 1e-2 · max|v|
+    (bf16); a sequence with no valid key gives m = -1e30, l = 0, pv = 0."""
+    b, tq, tk, h, d, q_start, kv_start, masked = PARITY_CASES[case]
+    plan = tcat.flash_block_plan(b, tq, tk, h, d, DTYPES[cd][1])
+    assert plan.variant == "tiled"
+    pv, m, l = _jax_parity(b, tq, tk, h, d, cd, causal, q_start, kv_start,
+                           tq * 7 + tk + d, masked_row=masked)
+    if masked:
+        assert np.all(m[0] == np.float32(-1e30)) and np.all(l[0] == 0)
+        assert np.all(pv[0] == 0)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -303,4 +394,4 @@ def test_flash_block_launch_refuses_a_plan_its_inputs_do_not_fit():
     strided = torch.zeros((2, 16, 5, 32))[:, :, 1:]
     with pytest.raises(ValueError, match="contiguous"):
         tcat.flash_block_launch(plan, strided, k, v, valid, 0, 0)
-    assert tcat.simt_plan(2, 16, 16, 4, 32).variant == "simt"
+    assert tcat.tiled_plan(2, 16, 16, 4, 32).variant == "tiled"

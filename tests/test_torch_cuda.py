@@ -11,7 +11,7 @@ B1 must equal its plain version exactly; B2's resident block must equal
 it exactly and its f16 planes within one f16 ulp (none is expected: the
 kernel runs the plain version's f32 operations in the same order, with
 IEEE division and round-to-nearest conversion), for one step and for K
-steps in one launch, and per node block of a mesh bit for bit. B3's two variants (tensor cores, SIMT) differ from
+steps in one launch, and per node block of a mesh bit for bit. B3's two variants (tensor cores, KV-tiled) differ from
 the plain version only in summation order: at f32 compute within rtol =
 atol = 1e-5; at bf16 compute ``m`` and ``l`` within rtol 1e-5 and ``pv``
 within 1e-2 · max|v| (products of bf16 values are exact and sums are f32;
@@ -271,11 +271,11 @@ def assert_b3_close(got, want, v: torch.Tensor, cd: torch.dtype) -> None:
 
 def launched_variant(before: dict) -> str:
     """The one B3 variant launched since ``before`` (a LAUNCHES copy)."""
-    grew = [name for name in ("flash_block_tc", "flash_block_simt")
+    grew = [name for name in ("flash_block_tc", "flash_block_tiled")
             if cat.LAUNCHES[name] == before[name] + 1]
     assert cat.LAUNCHES["flash_block"] == before["flash_block"] + 1
     assert len(grew) == 1 and sum(cat.LAUNCHES[n] - before[n] for n in (
-        "flash_block_tc", "flash_block_simt")) == 1
+        "flash_block_tc", "flash_block_tiled")) == 1
     return grew[0].removeprefix("flash_block_")
 
 
@@ -290,7 +290,7 @@ def test_flash_block_kernel_matches_plain(cuda_device, b, tq, tk, h, d, cd,
                                           causal):
     """Both variants against the plain version; the tensor-core one takes
     every bf16 shape with Tq == Tk a multiple of 16 (up to 128) and D in
-    {16, 32, 64}, the SIMT one the rest."""
+    {16, 32, 64}, the KV-tiled one the rest."""
     q, k, v, valid = attention_inputs(b + tq + d, b, tq, tk, h, d,
                                       cuda_device)
     before = dict(cat.LAUNCHES)
@@ -300,7 +300,7 @@ def test_flash_block_kernel_matches_plain(cuda_device, b, tq, tk, h, d, cd,
                                compute_dtype=cd)
     torch.cuda.synchronize()
     tc = cat.takes_tensor_cores(tq, tk, d, cd)
-    assert launched_variant(before) == ("tc" if tc else "simt")
+    assert launched_variant(before) == ("tc" if tc else "tiled")
     assert_b3_close(got, want, v, cd)
     # the fully masked sequence: m = -1e30, l = 0, pv = 0
     assert torch.all(got[1][0] == -1e30) and torch.all(got[2][0] == 0)
@@ -314,8 +314,9 @@ def test_flash_block_kernel_offsets_and_strides(cuda_device, cd):
     before q: nothing masked), and q/k/v views with other strides give
     the same partials: strides that are multiples of 4 floats (16-byte
     copies) and strides that are not (4-byte copies). At bf16 every call
-    runs on tensor cores, the views through cp.async, at f32 on SIMT."""
-    variant = "tc" if cd == torch.bfloat16 else "simt"
+    runs on tensor cores, the views through cp.async, at f32 on the
+    KV-tiled variant."""
+    variant = "tc" if cd == torch.bfloat16 else "tiled"
     q, k, v, _ = attention_inputs(1, 6, 16, 16, 4, 32, cuda_device)
     valid = torch.ones((6, 16), dtype=torch.bool, device=cuda_device)
     before = dict(cat.LAUNCHES)
@@ -341,6 +342,81 @@ def test_flash_block_kernel_offsets_and_strides(cuda_device, cd):
         want = cat.flash_block_ref(q, view, view, valid, 3, 1,
                                    compute_dtype=cd)
         assert_b3_close(got, want, view, cd)
+
+
+TILED_CASES = {
+    # (b, tq, tk, h, d, q_start, kv_start): blocks only the tiled variant
+    # takes -- T = 300 with a D that is padded to 16 (bf16) or 32 (f32),
+    # the ring's 512-row block at D = 128, a short q block against a long
+    # KV block at offsets, and D = 5 (4-byte copies, scalar stores)
+    "t300_d12": (3, 300, 300, 2, 12, 0, 0),
+    "t512_d128": (2, 512, 512, 2, 128, 0, 0),
+    "tq64_tk640_offsets": (3, 64, 640, 2, 32, 512, 100),
+    "t20_tk33_d5": (4, 20, 33, 3, 5, 3, 0),
+    "t48_d256": (2, 48, 40, 2, 256, 0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILED_CASES))
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_kernel_matches_plain_at_every_block(cuda_device, case, cd,
+                                                   causal):
+    """The KV-tiled variant against the plain version at blocks the
+    tensor-core one does not take; sequence 0 has no valid key (m =
+    -1e30, l = 0, pv = 0). The launch counter shows "flash_block_tiled"
+    and no other variant key."""
+    b, tq, tk, h, d, q_start, kv_start = TILED_CASES[case]
+    q, k, v, valid = attention_inputs(b + tq + d, b, tq, tk, h, d,
+                                      cuda_device)
+    assert set(cat.LAUNCHES) == {"flash_block", "flash_block_tc",
+                                 "flash_block_tiled"}
+    before = dict(cat.LAUNCHES)
+    got = cat.flash_block_pallas(q, k, v, valid, q_start, kv_start,
+                                 causal=causal, compute_dtype=cd)
+    want = cat.flash_block_ref(q, k, v, valid, q_start, kv_start,
+                               causal=causal, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert launched_variant(before) == "tiled"
+    assert_b3_close(got, want, v, cd)
+    assert torch.all(got[1][0] == -1e30) and torch.all(got[2][0] == 0)
+    assert torch.all(got[0][0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_tiled_kernel_takes_strided_views_and_forced_plans(cuda_device, cd):
+    """Strided q/k/v views (4-byte copies where strides are not multiples
+    of 4 floats, 16-byte ones where they are) at a padded D and a long
+    block, and the tiled variant forced where tensor cores would run (the
+    ring's 128-row block at bf16), all against the plain version."""
+    q, k, v, valid = attention_inputs(5, 3, 144, 144, 4, 24, cuda_device)
+    wide = torch.randn((3, 144, 5, 25), device=cuda_device)
+    odd = wide[:, :, 1:, 1:]  # strides not multiples of 4 floats
+    aligned = torch.randn((3, 144, 6, 28), device=cuda_device)[:, :, 1:5, 4:]
+    for view in (odd, aligned):
+        before = dict(cat.LAUNCHES)
+        got = cat.flash_block_pallas(view, k, v, valid, 0, 0,
+                                     compute_dtype=cd)
+        assert launched_variant(before) == "tiled"
+        assert_b3_close(got, cat.flash_block_ref(
+            view, k, v, valid, 0, 0, compute_dtype=cd), v, cd)
+        got = cat.flash_block_pallas(q, view, view, valid, 7, 3,
+                                     compute_dtype=cd)
+        assert_b3_close(got, cat.flash_block_ref(
+            q, view, view, valid, 7, 3, compute_dtype=cd), view, cd)
+    q, k, v, valid = attention_inputs(6, 8, 128, 128, 4, 32, cuda_device)
+    plan = cat.tiled_plan(8, 128, 128, 4, 32, cd)
+    before = dict(cat.LAUNCHES)
+    got = cat.flash_block_launch(plan, q, k, v, valid, 256, 128,
+                                 compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert launched_variant(before) == "tiled"
+    assert_b3_close(got, cat.flash_block_ref(
+        q, k, v, valid, 256, 128, compute_dtype=cd), v, cd)
+    info = cat.flash_block_info("tiled", 16, 32, cd)
+    assert info["local_bytes"] == 0 and info["max_threads"] >= 256
 
 
 @pytest.mark.cuda
@@ -381,9 +457,9 @@ def test_fused_window_steps_kernel_equals_plain(cuda_device, k, db_kind):
 @pytest.mark.cuda
 def test_flash_block_wrapper_rejects_what_the_kernel_does_not_take(
         cuda_device):
-    q = torch.randn((2, 8, 2, 12), device=cuda_device)
+    q = torch.randn((2, 8, 2, 257), device=cuda_device)
     valid = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         cat.flash_block_pallas(q, q, q, valid, 0, 0)
     q = torch.randn((2, 8, 2, 32), device=cuda_device)
     with pytest.raises(TypeError, match="float32"):
@@ -776,11 +852,40 @@ def test_pallas_ring_launches_b3_tc_n_squared_times(cuda_device, n):
     torch.cuda.synchronize()
     assert cat.LAUNCHES["flash_block_tc"] - before["flash_block_tc"] == n * n
     assert cat.LAUNCHES["flash_block"] - before["flash_block"] == n * n
-    assert cat.LAUNCHES["flash_block_simt"] == before["flash_block_simt"]
+    assert cat.LAUNCHES["flash_block_tiled"] == before["flash_block_tiled"]
     want = make_ring_attention(card_mesh(cuda_device, n))(q, k, v, valid)
     atol = 1e-2 * float(v.abs().max())
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
     assert torch.all(got[0] == 0)  # attention_inputs masks sequence 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cd", [(2, torch.bfloat16), (8, torch.float32)])
+def test_pallas_ring_runs_long_and_f32_blocks_on_the_tiled_variant(
+        cuda_device, n, cd):
+    """The ring at T = 1024: 512-row blocks on 2 shards at bf16 and
+    128-row blocks on 8 shards at f32 — n² launches of the tiled variant,
+    none of the tensor-core one — against the einsum ring (f32: 1e-5;
+    bf16: 1e-2 · max|v|)."""
+    from kepler_tpu_torch.parallel.ring import make_ring_attention
+
+    q, k, v, valid = attention_inputs(n + 40, 6, 1024, 1024, 4, 32,
+                                      cuda_device)
+    mesh = card_mesh(cuda_device, n)
+    before = dict(cat.LAUNCHES)
+    got = make_ring_attention(mesh, backend="pallas", compute_dtype=cd)(
+        q, k, v, valid)
+    torch.cuda.synchronize()
+    assert cat.LAUNCHES["flash_block_tiled"] - before["flash_block_tiled"] \
+        == n * n
+    assert cat.LAUNCHES["flash_block_tc"] == before["flash_block_tc"]
+    want = make_ring_attention(mesh, compute_dtype=cd)(q, k, v, valid)
+    if cd == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-2 * float(v.abs().max()))
+    assert torch.all(got[0] == 0)
 
 
 @pytest.mark.cuda

@@ -132,6 +132,31 @@ def test_pallas_ring_reaches_b3_n_squared_times(monkeypatch, n):
         q, k, v, tv))).numpy(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_pallas_ring_on_two_shards_takes_512_row_blocks(cd):
+    """The ring on 2 shards at T = 1024: B3 meets 512-row blocks (Tq = Tk
+    = 512, block starts 0 and 512), which the tiled variant plans on the
+    card, against JAX's ring on 2 CPU devices (its Pallas kernel in
+    interpret mode) and dense attention."""
+    b, t, h, d = 2, 1024, 2, 8
+    q, k, v = qkv(61, b=b, t=t, h=h, d=d)
+    tv = valid_of([700, 1024], t=t)
+    jcd, tcd = DTYPES[cd]
+    assert cat.flash_block_plan(b, t // 2, t // 2, h, d, tcd).variant == \
+        "tiled"
+    jmesh = jmake_mesh([2], ["seq"], devices=jax.devices()[:2])
+    want = np.asarray(jring(jmesh, compute_dtype=jcd, backend="pallas")(
+        *(jnp.asarray(x) for x in (q, k, v, tv))))
+    got = make_ring_attention(seq_mesh(2), compute_dtype=tcd,
+                              backend="pallas")(*(t_(x) for x in
+                                                  (q, k, v, tv)))
+    assert got.shape == q.shape
+    assert_out(got.numpy(), want, cd)
+    dense = full_attention(*(t_(x) for x in (q, k, v)), t_valid=t_(tv),
+                           compute_dtype=tcd)
+    assert_out(got.numpy(), dense.numpy(), cd)
+
+
 def test_ring_rejects_what_it_does_not_take():
     q, k, v = qkv(4, t=12)
     tv = np.ones((3, 12), bool)
