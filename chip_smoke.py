@@ -145,13 +145,14 @@ model_mode="mlp")``) is held against the CPU at bf16 and in accuracy mode,
 and B2 and B3 are timed in each of their forms: B2 per window (K = 1)
 and per flush (K = 4, one launch), B3's tensor-core variant against its
 KV-tiled variant at bf16, the tiled variant at f32 (accuracy mode), on
-the rings' blocks and at D = 128, each against the bound of its compute
-type. The delta update's row scatter
-(``kt_scatter_rows``, a repair kernel: the reference's update is XLA's
-scatter, not a Pallas kernel) is held bit-equal to its plain version at
-N = 16,384 and DB = 8, 512 and 1,024, pads and a duplicate index
-included, and timed beside ``index_put_``; every packed window's update
-on paths 2, 3, 9, 11 and 13 launches it.
+the rings' blocks (one score pass on the 128-row blocks, K and V
+resident on the 512-row ones), at D = 128 and at D = 512 (the wide
+path), each against the bound of its compute type. The delta update's
+row scatter (``kt_scatter_rows``, a repair kernel: the reference's
+update is XLA's scatter, not a Pallas kernel) is held bit-equal to its
+plain version at N = 16,384 and DB = 8, 512 and 1,024, pads and a
+duplicate index included, and timed beside ``index_put_``; every packed
+window's update on paths 2, 3, 9, 11 and 13 launches it.
 
 ``--phases a,b`` runs only the named phases (of ``PHASES``: ``kernels``,
 ``ratio``, ``mixed``, ``serial_mlp``, ``aggregator``, ``temporal``,
@@ -212,6 +213,12 @@ D_MODEL, N_HEADS = 128, 4
 # path 5c: the trunk at d_model 512 (4 heads of 128: B3's tiled variant)
 # over as many sequences as keep q, k and v at 2.1 GB each
 TRUNK_WIDE_D, TRUNK_WIDE_B = 512, 65536
+# B3's wide path: 4 heads of D = 512 (no main path runs it), over as many
+# sequences of T = 16 as keep q, k and v at 0.5 GB each
+B3_WIDE_D, B3_WIDE_B = 512, 4096
+# profiler traces taken before a kernel row reports its device ms as not
+# whole
+DEVICE_MS_TRIES = 10
 # the accuracy-mode check's head scale: predictions of tens of watts
 ACC_SCALE = 40.0
 # training (path 10): AdamW steps of each family on the card, the steps
@@ -283,20 +290,21 @@ def kernel_times_us(prof) -> list[tuple[float, str, int]]:
 
 
 def device_ms(fn, calls: int = 20, tries: int = 3,
-              match: str | None = None) -> float | None:
+              match: str | None = None) -> tuple[float | None, int]:
     """Device time of ``fn`` per call from ``torch.profiler``: the sum of
     the CUDA kernels' own time over ``calls`` calls, divided by ``calls``
     (no host time, no gaps). A trace is whole when it holds every kernel
     a multiple of ``calls`` times (each call launches the same kernels);
-    one that dropped events is taken again, up to ``tries`` times. None
-    when no trace was whole. Given ``match``, only the kernels whose name
-    holds it count: work that another thread of the process launched
-    inside the window neither adds to the time nor spoils the trace."""
+    one that dropped events is taken again, up to ``tries`` times. → (ms,
+    traces taken), ms None when no trace was whole. Given ``match``, only
+    the kernels whose name holds it count: work that another thread of
+    the process launched inside the window neither adds to the time nor
+    spoils the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for n in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -305,8 +313,8 @@ def device_ms(fn, calls: int = 20, tries: int = 3,
         rows = [r for r in kernel_times_us(prof)
                 if match is None or match in r[1]]
         if rows and all(count % calls == 0 for _, _, count in rows):
-            return sum(us for us, _, _ in rows) / calls / 1e3
-    return None
+            return sum(us for us, _, _ in rows) / calls / 1e3, n
+    return None, tries
 
 
 def provenance() -> str:
@@ -353,9 +361,9 @@ def kernel_b1(dev: torch.device) -> dict:
         "ms": time_ms(lambda: ca.outer_product_attribution(
             ratio, active, power)),
         "device_ms": device_ms(lambda: ca.outer_product_attribution(
-            ratio, active, power)),
+            ratio, active, power))[0],
         "plain_device_ms": device_ms(lambda: ca.outer_product_attribution_ref(
-            ratio, active, power)),
+            ratio, active, power))[0],
         "plain_ms": time_ms(lambda: ca.outer_product_attribution_ref(
             ratio, active, power)),
         "library_ms": time_ms(lambda: (
@@ -363,7 +371,7 @@ def kernel_b1(dev: torch.device) -> dict:
             torch.einsum("nw,nz->nwz", ratio, power))),
         "library_device_ms": device_ms(lambda: (
             torch.einsum("nw,nz->nwz", ratio, active),
-            torch.einsum("nw,nz->nwz", ratio, power))),
+            torch.einsum("nw,nz->nwz", ratio, power)))[0],
         "bound_ms": bound, "bound_by": by, "bound_us": bound * 1e3,
         "bytes": nbytes, "parity": "exact",
     }
@@ -432,9 +440,9 @@ def kernel_b2(dev: torch.device, db: int) -> dict:
         "ms": time_ms(lambda: ca.fused_window_step(resident, delta, idx,
                                                    lay)),
         "device_ms": device_ms(lambda: ca.fused_window_step(
-            resident, delta, idx, lay)),
+            resident, delta, idx, lay))[0],
         "plain_device_ms": device_ms(lambda: ca.fused_window_step_ref(
-            resident, delta, idx, lay)),
+            resident, delta, idx, lay))[0],
         "plain_ms": time_ms(lambda: ca.fused_window_step_ref(
             resident, delta, idx, lay)),
         "library_ms": None,
@@ -494,8 +502,8 @@ def kernel_b2_flush(dev: torch.device, k: int, db: int) -> dict:
         "shape": {"N": n, "W": w, "Z": z, "DB": db, "K": k, "hits": hits,
                   "dirty": dirty},
         "max_abs_err": err, "ulp_mismatches": int((ulps > 0).sum()),
-        "ms": time_ms(kern), "device_ms": device_ms(kern),
-        "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain),
+        "ms": time_ms(kern), "device_ms": device_ms(kern)[0],
+        "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain)[0],
         "library_ms": None,
         "bound_ms": bound, "bound_by": by, "bound_us": bound * 1e3,
         "bytes": nbytes, "parity": "resident exact, 0 f16 mismatches",
@@ -568,9 +576,9 @@ def kernel_scatter_rows(dev: torch.device, db: int) -> dict:
                     "resident.at[idx].set(rows, mode='drop'); no TPU kernel)",
         "shape": {"N": n, "width": width, "DB": db, "lands": lands},
         "max_abs_err": err, "parity": "bit-equal, pads and a duplicate",
-        "ms": time_ms(kern), "device_ms": device_ms(kern),
-        "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain),
-        "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
+        "ms": time_ms(kern), "device_ms": device_ms(kern)[0],
+        "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain)[0],
+        "library_ms": time_ms(lib), "library_device_ms": device_ms(lib)[0],
         "library": "index_put_ of the landing rows (chosen off the clock)",
         "bound_ms": bound, "bound_by": by, "bound_us": bound * 1e3,
         "bytes": nbytes,
@@ -1585,12 +1593,13 @@ def b3_check(got, want, v: torch.Tensor, cd: torch.dtype,
     return max(errs)
 
 
-def sdpa_ms(q, k, v, valid) -> tuple[float | None, float | None,
-                                       str | None]:
+def sdpa_ms(q, k, v, valid, tries: int = 3
+            ) -> tuple[float | None, float | None, int, str | None]:
     """``scaled_dot_product_attention`` on the same f32 inputs (causal
     and KV-validity mask) — the yardstick for ``full_attention_pallas``;
-    the port never calls it. → (ms, device ms, None) or (None, None, why
-    it did not run)."""
+    the port never calls it. → (ms, device ms, traces taken, None) or
+    (None, None, 0, why it did not run); the device ms from up to
+    ``tries`` traces (None where none was whole)."""
     import torch.nn.functional as F
 
     t = q.shape[1]
@@ -1602,10 +1611,10 @@ def sdpa_ms(q, k, v, valid) -> tuple[float | None, float | None,
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
     try:
-        return (time_ms(call, reps=5, batch=4), device_ms(call, calls=4),
-                None)
+        return (time_ms(call, reps=5, batch=4),
+                *device_ms(call, calls=4, tries=tries), None)
     except RuntimeError as err:  # a yardstick only: record why
-        return None, None, str(err).splitlines()[0][:200]
+        return None, None, 0, str(err).splitlines()[0][:200]
 
 
 def b3_variant_since(before: dict) -> str:
@@ -1679,7 +1688,7 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
     plain = lambda: cat.flash_block_ref(q, k, v, valid, 0, 0)  # noqa: E731
     plain32 = lambda: cat.flash_block_ref(  # noqa: E731
         q, k, v, valid, 0, 0, compute_dtype=f32)
-    lib_ms, lib_device_ms, lib_err = sdpa_ms(q, k, v, valid)
+    lib_ms, lib_device_ms, _, lib_err = sdpa_ms(q, k, v, valid)
     row = {
         "name": "flash_block_tc", "route": "cuda",
         "source": "kepler_tpu_torch/ops/csrc/attention.cu",
@@ -1689,18 +1698,18 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
                   "plan": plan._asdict(), "tiled_plan": tiled._asdict()},
         "max_abs_err": err,
         "ms": time_ms(kern, reps=5, batch=4),
-        "device_ms": device_ms(kern, calls=5),
+        "device_ms": device_ms(kern, calls=5)[0],
         "tiled_bf16_ms": time_ms(tiled_bf16, reps=5, batch=4),
-        "tiled_bf16_device_ms": device_ms(tiled_bf16, calls=5),
+        "tiled_bf16_device_ms": device_ms(tiled_bf16, calls=5)[0],
         "tiled_bf16_max_abs_err": tiled_err,
         "f32_ms": time_ms(acc, reps=5, batch=4),
-        "f32_device_ms": device_ms(acc, calls=5),
+        "f32_device_ms": device_ms(acc, calls=5)[0],
         "f32_max_abs_err": f32_err,
         "f32_bound_ms": bound32, "f32_bound_by": by32,
         "plain_ms": time_ms(plain, reps=3, batch=2),
-        "plain_device_ms": device_ms(plain, calls=2),
+        "plain_device_ms": device_ms(plain, calls=2)[0],
         "f32_plain_ms": time_ms(plain32, reps=3, batch=2),
-        "f32_plain_device_ms": device_ms(plain32, calls=2),
+        "f32_plain_device_ms": device_ms(plain32, calls=2)[0],
         "library_ms": lib_ms, "library_device_ms": lib_device_ms,
         "library": "torch.nn.functional."
         "scaled_dot_product_attention (f32, causal & KV mask)",
@@ -1753,18 +1762,24 @@ def b3_launch(q, k, v, valid, start: int, cd: torch.dtype, what: str,
     del got
     bound, by = cat.flash_block_bound_ms(q, k, valid, start, start,
                                          compute_dtype=cd)
-    lib_ms, lib_device_ms, lib_err = sdpa_ms(q, k, v, valid)
+    kern_ms, kern_traces = device_ms(kern, calls=5, match="flash_block",
+                                     tries=DEVICE_MS_TRIES)
+    lib_ms, lib_device_ms, lib_traces, lib_err = sdpa_ms(
+        q, k, v, valid, tries=DEVICE_MS_TRIES)
     row = {"B": b, "Tq": tq, "Tk": k.shape[1], "H": h, "D": d,
            "q_start": start, "kv_start": start,
            "compute": "bf16" if cd == torch.bfloat16 else "f32",
            "plan": plan._asdict(), "max_abs_err": err,
            "ms": time_ms(kern, reps=5, batch=4),
-           "device_ms": device_ms(kern, calls=5, match="flash_block"),
+           "device_ms": kern_ms, "device_ms_traces": kern_traces,
            "plain_ms": time_ms(plain, reps=2, batch=1, warm=1),
-           "plain_device_ms": device_ms(plain, calls=1),
+           "plain_device_ms": device_ms(plain, calls=1)[0],
            "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+           "library_device_ms_traces": lib_traces,
            "bound_ms": bound, "bound_by": by,
-           "compiled": cat.flash_block_info(plan.variant, plan.tk, d, cd)}
+           "compiled": cat.flash_block_info(
+               plan.variant, k.shape[1] if plan.variant == "tiled" else tq,
+               d, cd, path=plan.path)}
     if lib_err is not None:
         row["library_error"] = lib_err
     return row
@@ -1781,6 +1796,28 @@ def kernel_b3_wide(dev: torch.device, cd: torch.dtype) -> dict:
     row = b3_launch(q, k, v, valid, 0, cd, f"B3 at D = 128, {str(cd)[6:]}")
     check(row["plan"]["variant"] == "tiled",
           "B3 at D = 128 does not plan the tiled variant")
+    emit({"phase": "kernel", "name": "flash_block_tiled", **row})
+    del q, k, v, valid
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_b3_d512(dev: torch.device, cd: torch.dtype) -> dict:
+    """B3's wide path (D above 256, in chunks of 128 columns): B3_WIDE_B
+    sequences of T = 16, 4 heads of B3_WIDE_D, causal with a ragged mask,
+    against its plain version. No main path has such heads; the row shows
+    that the kernel takes them."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    shape = (B3_WIDE_B, HISTORY_T, N_HEADS, B3_WIDE_D)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    valid = ragged_lengths(gen, dev, B3_WIDE_B, HISTORY_T)
+    row = b3_launch(q, k, v, valid, 0, cd,
+                    f"B3 at D = {B3_WIDE_D}, {str(cd)[6:]}")
+    check(row["plan"]["variant"] == "tiled"
+          and row["plan"]["path"] == "wide",
+          f"B3 at D = {B3_WIDE_D} does not plan the tiled variant's wide "
+          f"path: {row['plan']}")
     emit({"phase": "kernel", "name": "flash_block_tiled", **row})
     del q, k, v, valid
     torch.cuda.empty_cache()
@@ -1871,16 +1908,20 @@ def reset_launches() -> None:
     from kepler_tpu_torch.ops import cuda_attention as cat
     from kepler_tpu_torch.ops import cuda_attribution as ca
 
-    for table in (ca.LAUNCHES, cat.LAUNCHES):
+    for table in (ca.LAUNCHES, cat.LAUNCHES, cat.TILED_PATH_LAUNCHES):
         for name in table:
             table[name] = 0
 
 
 def read_launches() -> dict:
+    """Every kernel's launch count, and B3's tiled variant's by path as
+    ``flash_block_tiled_<path>``."""
     from kepler_tpu_torch.ops import cuda_attention as cat
     from kepler_tpu_torch.ops import cuda_attribution as ca
 
-    return {**ca.LAUNCHES, **cat.LAUNCHES}
+    return {**ca.LAUNCHES, **cat.LAUNCHES,
+            **{f"flash_block_tiled_{path}": n
+               for path, n in cat.TILED_PATH_LAUNCHES.items()}}
 
 
 def profile_top(fn, k: int = 8, match: str | None = None) -> dict:
@@ -2138,9 +2179,10 @@ def main_temporal_trunk(dev: torch.device, saved: list,
         params_d, h, wv, tv_d, compute_dtype=f32, attention_fn=acc_fn))
     acc_launches = read_launches()
     check(acc_launches["flash_block"] == 1
-          and acc_launches["flash_block_tiled"] == 1,
+          and acc_launches["flash_block_tiled_one-pass"] == 1,
           f"the accuracy-mode trunk launched B3 {acc_launches['flash_block']}"
-          f" times ({acc_launches['flash_block_tiled']} tiled), not once")
+          f" times ({acc_launches['flash_block_tiled_one-pass']} on the "
+          f"tiled variant's one-pass path), not once")
     fast = predict_temporal(params_d, h, wv, tv_d, compute_dtype=f32)
     check(bool(torch.isfinite(full).all()), "f32 trunk: non-finite watts")
     check(torch.allclose(full, fast, rtol=1e-4, atol=1e-5),
@@ -2198,10 +2240,11 @@ def main_trunk_wide(dev: torch.device) -> dict:
             params, hist, wv, tv, compute_dtype=cd, attention_fn=fn))
         launches = read_launches()
         check(launches["flash_block"] == 1
-              and launches["flash_block_tiled"] == 1,
+              and launches["flash_block_tiled_one-pass"] == 1,
               f"the d_model {TRUNK_WIDE_D} trunk ({name}) launched B3 "
               f"{launches['flash_block']} times "
-              f"({launches['flash_block_tiled']} tiled), not once")
+              f"({launches['flash_block_tiled_one-pass']} on the tiled "
+              f"variant's one-pass path), not once")
 
         def plain_attention(q, k, v, t_valid, cd=cd):
             return full_attention(q, k, v, t_valid=t_valid,
@@ -3292,7 +3335,7 @@ def main_sharded(dev: torch.device, phases: list) -> tuple[dict, dict]:
                     lambda: eng.dispatch_window(plan), reps=10, batch=5)
                 if mode is None:
                     device_per_window[key] = device_ms(
-                        lambda: eng.dispatch_window(plan))
+                        lambda: eng.dispatch_window(plan))[0]
     eng = engines["pallas", "ratio"]
     row = {"phase": "main_sharded", "nodes": N_NODES,
            "workloads": N_WORKLOADS, "zones": len(ZONES), "shards": SHARDS,
@@ -3668,7 +3711,7 @@ def mesh_fused(dev: torch.device) -> dict:
         flush = flushes[-1][0][1]  # (engine, flush, stage_ms)
         timing = {
             "flush_device_ms": device_ms(
-                lambda: flush.program(*flush.args)),
+                lambda: flush.program(*flush.args))[0],
             "flush_call_ms": time_ms(lambda: flush.program(*flush.args),
                                      reps=5, batch=5),
             "flush_host_ms": [legs[i]["last_dispatch_ms"]
@@ -4153,6 +4196,12 @@ def timed_call(fn) -> tuple[object, float]:
 # chunks of as many.
 PARALLEL_RINGS = ((8, torch.bfloat16), (2, torch.bfloat16),
                   (8, torch.float32))
+# where each ring's B3 blocks must run: tensor cores (128-row bf16 blocks),
+# the tiled variant with K and V resident (512-row bf16 blocks) or in one
+# score pass (128-row f32 blocks)
+PARALLEL_RING_PATHS = {(8, torch.bfloat16): "tc",
+                       (2, torch.bfloat16): "tiled_resident",
+                       (8, torch.float32): "tiled_one-pass"}
 PARALLEL_REF_SEQS = 256
 
 
@@ -4172,7 +4221,10 @@ def parallel_ring(dev: torch.device, n: int, cd: torch.dtype) -> dict:
     t_loc = t // n
     f32 = cd == torch.float32
     name = f"{n} shards, {'f32' if f32 else 'bf16'}"
-    variant = cat.flash_block_plan(b, t_loc, t_loc, N_HEADS, d, cd).variant
+    plan = cat.flash_block_plan(b, t_loc, t_loc, N_HEADS, d, cd)
+    variant, path = plan.variant, PARALLEL_RING_PATHS[n, cd]
+    check(path == "_".join(filter(None, (variant, plan.path))),
+          f"the ring ({name}) plans B3 {plan}, not {path}")
     gen = torch.Generator(device=dev).manual_seed(
         SEED + 14 + PARALLEL_RINGS.index((n, cd)))
     shape = (b, t, N_HEADS, d)
@@ -4187,9 +4239,10 @@ def parallel_ring(dev: torch.device, n: int, cd: torch.dtype) -> dict:
     out, first_ms = timed_call(lambda: ring(q, k, v, valid))
     launches = read_launches()
     check(launches["flash_block"] == n * n
-          and launches[f"flash_block_{variant}"] == n * n,
+          and launches[f"flash_block_{variant}"] == n * n
+          and launches[f"flash_block_{path}"] == n * n,
           f"the ring ({name}) launched B3 {launches['flash_block']} times "
-          f"({launches[f'flash_block_{variant}']} {variant}), not {n * n}")
+          f"({launches[f'flash_block_{path}']} {path}), not {n * n}")
     check(launches["outer_product_attribution"] == 0
           and launches["fused_window_step"] == 0, "the ring ran B1 or B2")
     check(bool(torch.isfinite(out).all()),
@@ -5131,7 +5184,8 @@ def kernel_line(row: dict | None, name: str, by_path: dict,
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "device_ms",
             "plain_device_ms", "shape", "by_db", "by_k", "by_shape",
-            "launches_by_path", "launches_by_variant")
+            "launches_by_path", "launches_by_variant",
+            "launches_by_kernel_path")
     out = dict(row or {"name": name}, **extra)
     out["launches_by_path"] = by_path
     out["launches"] = sum(by_path.values())
@@ -5149,6 +5203,7 @@ def main(argv: list[str] | None = None) -> int:
         sys.path.insert(0, here)
     from kepler_tpu_torch.device import resolve_device
     from kepler_tpu_torch.ops import build
+    from kepler_tpu_torch.ops import cuda_attention as cat
 
     dev = resolve_device("cuda")
     t_script = time.perf_counter()
@@ -5176,12 +5231,15 @@ def main(argv: list[str] | None = None) -> int:
     b2_rows: dict = {}
     b3_rows: list = []
     b3_wide: dict = {}
+    b3_d512: dict = {}
     scatter_rows: dict = {}
     if "kernels" in on:
         b1 = kernel_b1(dev)
         b2_rows = {db: kernel_b2(dev, db) for db in (8, N_NODES)}
         b3_rows = [kernel_b3(dev, b, t) for b, t in B3_SHAPES]
         b3_wide = {str(cd)[6:]: kernel_b3_wide(dev, cd)
+                   for cd in (torch.bfloat16, torch.float32)}
+        b3_d512 = {str(cd)[6:]: kernel_b3_d512(dev, cd)
                    for cd in (torch.bfloat16, torch.float32)}
         scatter_rows = {db: kernel_scatter_rows(dev, db)
                         for db in SCATTER_DBS}
@@ -5276,9 +5334,15 @@ def main(argv: list[str] | None = None) -> int:
     check(not ran_tiled_paths or sum(tiled_paths.values()) > 0,
           f"B3's tiled variant launched no time on the main paths "
           f"{sorted(ran_tiled_paths)}: {tiled_paths}")
+    by_kernel_path = {path: sum(launches_of(
+        r, f"flash_block_tiled_{path}").values())
+        for path in cat.TILED_PATH_LAUNCHES}
+    check(sum(by_kernel_path.values()) == sum(tiled_paths.values()),
+          f"B3's tiled launches {tiled_paths} do not add up by path: "
+          f"{by_kernel_path}")
     tc_extra: dict = {}
     tiled_row = None
-    tiled_extra: dict = {}
+    tiled_extra: dict = {"launches_by_kernel_path": by_kernel_path}
     if b3_rows:
         tc_extra["by_shape"] = {f"B{x['shape']['B']}_T{x['shape']['Tq']}": {
             k: x[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
@@ -5315,7 +5379,7 @@ def main(argv: list[str] | None = None) -> int:
             for x in b3_rows})
     launch_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "max_abs_err")
-    for cd_name, x in b3_wide.items():
+    for cd_name, x in [*b3_wide.items(), *b3_d512.items()]:
         tiled_extra.setdefault("by_shape", {})[
             f"B{x['B']}_T{x['Tq']}_D{x['D']}_{cd_name}"] = {
             k: x[k] for k in launch_keys}

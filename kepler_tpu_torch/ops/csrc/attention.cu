@@ -13,7 +13,7 @@
 //   two bf16 values are exact in f32) or f32. A fully masked row gives
 //   m = -1e30, l = 0, pv = 0. The TPU kernel takes whole (Tq, D) and
 //   (Tk, D) blocks, one grid step per (sequence, head), so any Tq, Tk and
-//   D; so does the pair of variants here (D up to 256).
+//   D; so does the pair of variants here.
 //   In: q [B, Tq, H, D], k and v [B, Tk, H, D] f32, each with its own
 //   (b, t, h) strides and unit d stride; kv_valid u8 [B, Tk] contiguous.
 //   Out (contiguous): pv f32 [B, Tq, H, D], m and l f32 [B, H, Tq].
@@ -68,48 +68,83 @@
 //
 //   kt_flash_block_tiled: every other call -- f32 compute (accuracy
 //   mode), Tq != Tk, T not a multiple of 16 or above 128 (the ring's
-//   512-row blocks), and any D from 1 to 256 (zero-padded in shared
-//   memory to DP: 16, 32, 64, 128 or 256; at least 32 for f32). Neither
-//   Tq nor Tk is bounded by threads or shared memory: a block holds one
-//   tile of each at a time. This design:
-//   - A work item is a tile of up to 128 query rows of one (sequence,
-//     head) (fewer where DP = 256), or, where a sequence's whole q and
-//     KV fit one tile (T = 16), the query rows of g sequences of one
-//     head. A warp owns 16 query rows of one sequence. Persistent blocks
-//     walk over the items; the tiles of one (sequence, head) run side by
-//     side and share its K and V in L2.
-//   - K and V stream through a ring of two shared-memory stages in tiles
-//     of TK keys (64 for DP <= 64, 32 for 128, 16 for 256), filled by
-//     16-byte cp.async copies (4-byte ones where strides or pointers are
-//     not 16-byte aligned) that zero-fill the padding columns and the
-//     rows past Tq or Tk, so a masked key meets a zero value row, never a
-//     stale one. The item's q tile rides in the group of its first load,
-//     in a slot of its own that lasts the item. Rows are padded by 4
-//     floats. m, l and pv are stored from the registers.
-//   - The plain version's math, in two passes over the key tiles: the
-//     first takes the row max over every tile from the scores alone, the
-//     second recomputes the scores, p = expf(s - m), l and P.V. No online
-//     rescaling: it would change the bf16 rounding of p against
-//     block_attn and JAX. Where one tile holds every key the item needs,
-//     the two passes share one load and the scores stay in registers.
-//     Tiles wholly past the sequence's last valid key or above the
-//     causal diagonal of the item's last row are neither loaded nor
-//     computed; within a tile, a warp skips 16-key groups past its own
-//     rows' last visible key, in both passes.
-//   - bf16: both products on the tensor cores with the tc variant's
-//     fragment scheme (mma.sync m16n8k16, operands rounded f32 -> bf16
-//     as fragments are formed, f32 accumulators, p rounded to bf16 as
-//     P.V's A operand), per 16-key group of a tile.
-//   - f32: products on the FMA pipe in f32 (no TF32) with register
-//     tiling: a lane holds a 4-row x 2-key micro-tile of scores of each
-//     16-key group and reads each q and k float4 from shared memory once
-//     per micro-tile; p goes through a per-warp transposed tile in shared
-//     memory so that a lane then accumulates a 4-row x 4-column micro-tile
-//     of pv per 32 columns.
-//   - Scores are an explicit fmaf chain (f32) or the same mma sequence
-//     (bf16) and the scale an explicit __fmul_rn in both passes, so the
-//     two passes cannot round a score differently.
+//   512-row blocks), and any D. Neither Tq, Tk nor D is bounded by
+//   threads or shared memory. The plain version's math on every path:
+//   the exact row max before any expf, no online rescaling (it would
+//   change the bf16 rounding of p against block_attn and JAX, and f32 by
+//   more than summation order), p = expf(s - m), l summed from the
+//   unrounded p, p rounded to bf16 as P.V's operand at bf16, scores an
+//   explicit fmaf chain (f32) or mma.sync (bf16) scaled by an explicit
+//   __fmul_rn, so two passes over a key cannot round it differently. The
+//   wrapper's plan (ops/cuda_attention.py tiled_plan) picks one of three
+//   paths from the compute type and the shape:
+//   - The ring (path 0). A work item is a tile of up to 128 query rows of
+//     one (sequence, head), or, where a sequence's whole q and KV fit one
+//     tile (T = 16), the query rows of g sequences of one head (one at
+//     bf16 above DP = 64, where a warp's math is a fraction of its loads
+//     and one-warp blocks overlap them best); a warp owns 16 query rows.
+//     Persistent blocks walk the items; q, K and V
+//     arrive by 16-byte cp.async copies (4-byte ones where strides or
+//     pointers are not 16-byte aligned) that zero-fill padding columns
+//     and rows past Tq or Tk, so a masked key meets a zero value row,
+//     never a stale one; rows are padded by 4 floats, D to DP (16, 32,
+//     64, 128 or 256; at least 32 for f32); the item's KV-validity bytes
+//     ride with each K tile. One score pass where a warp's 16 rows x
+//     its keys fit its registers: up to DP = 64 one tile holds a KV row
+//     of up to 128 keys (64 scores a lane, as in the tc variant at T =
+//     128), so the item loads q, K and V once and computes each score
+//     once: the f32 ring's 128-row blocks, accuracy mode at T = 16 and
+//     the D = 128 trunk. Longer rows stream through two stages in tiles
+//     of 64, 32 or 16 keys (by DP): pass 1 takes the row max over every
+//     needed tile from the scores alone, pass 2 recomputes them for p,
+//     l and P.V. bf16 runs both products on the tensor cores with the
+//     tc variant's fragment scheme (operands rounded f32 -> bf16 as the
+//     fragments form); f32 runs them on the FMA pipe with 4x2 score and
+//     4x4 pv micro-tiles a lane, p going through a per-warp p^T tile (a
+//     one-pass warp's own q rows, read in full by then). The 128-key
+//     instances take single-tile items only and are compiled for two
+//     blocks an SM (at most 128 registers) up to DP = 32.
+//   - Resident (path 1): bf16 where a KV row is longer than one tile and
+//     K and V fit shared memory whole (D up to 64: the 2-shard ring's
+//     512-row blocks). One (sequence, head) an item: the block converts
+//     K and V to bf16 once, as they land (rows of DP + 8 values, 16 loads
+//     in flight a thread), builds the sequence's visibility bits, and
+//     its 8 warps walk their 16-row blocks of q (each loaded one block
+//     ahead, straight into A fragments; not loaded where no row of the
+//     block sees a key) against them with no further
+//     barrier: pass 1 the row max, pass 2 p, l and P.V, K and V read as
+//     B fragments by ldmatrix (.trans for V). The next item's validity
+//     bytes arrive by cp.async while this one computes.
+//   - Wide (path 2): D above 256. Items of (sequence, head, 16 query
+//     rows) on blocks of up to 4 warps; two passes over 16-key tiles.
+//     Each warp sums a tile's scores over its own 128-column chunks of D
+//     (q and K chunks staged in its own shared memory), the block adds
+//     the warps' partial sums in warp order, and warp w then takes pv's
+//     column chunk w (in rounds beyond 4 chunks), so neither shared
+//     memory nor registers grow with D. On the FMA pipe at both compute
+//     types (bf16 operands rounded as they are staged, p as it meets V,
+//     so the products are the tensor cores' ones). Built to be right; no
+//     main path has such heads.
+//   On every path: key tiles (16-key groups on the resident path) past
+//   the sequence's last valid key or above the causal diagonal of the
+//   rows that need them are neither loaded nor computed -- an item that
+//   the causal mask hides whole loads nothing and writes m = -1e30, l =
+//   0, pv = 0 -- and a warp tests validity bits in registers or shared
+//   memory, built once per tile from the staged bytes by ballots, never
+//   bytes in device memory per score; a 16-key group that is valid and
+//   below the causal diagonal of every row of the warp skips the
+//   per-score mask. Causal work is evened out across warps: in an
+//   8-warp ring item warps w and w + 4 (which share one of the SM's four
+//   schedulers) take row blocks w and 7 - w; on the resident path row
+//   blocks go to warps in rounds, reversed every other round.
 //
+//   What bounds it: bytes, as above, where T = 16; at T = 128 f32 the
+//   FMA pipe's share of the work (~0.9 ms at the f32 peak for B =
+//   16,384, H = 4, D = 32) plus its shared-memory traffic (each lane
+//   reads q, k, p and v as float4, whole quarter-warps on one address)
+//   with only 16 warps an SM to hide the latency, since a 128-key row
+//   takes 64 of a lane's 128 registers.
+
 // Numerics: expf (no fast math); both variants differ from the plain
 // PyTorch version only in summation order. Build without --use_fast_math
 // or -ftz=true.
@@ -624,29 +659,39 @@ int launch_tc(const TcArgs& a, int threads, size_t smem,
 
 constexpr int kTlStages = 2;
 constexpr int kTlMaxThreads = 256;
-constexpr int kTlPad = 4;     // floats padding each staged row
+constexpr int kTlPad = 4;      // floats padding each staged f32 row
 constexpr int kTlQRows = 128;  // query rows of an item's tile at most
-constexpr int kTlPRow = 20;   // f32: floats of one key's row of a warp's p^T
-constexpr int kTlMaxD = 256;
+constexpr int kTlPRow = 20;    // f32: floats of one key's row of a warp's p^T
+constexpr int kTlMaxDP = 256;  // widest padded head dim of the ring path
+constexpr int kTlBPad = 8;     // bf16 elements padding each resident row
+constexpr int kTlChunk = 128;  // wide path: columns of a D chunk
 
-// keys a KV tile holds at most, by padded head dim: a lane's scores of a
-// tile stay at TK / 2 registers and its pv accumulators at DP / 2. Every
-// DP also has an instance for tiles of 16 keys (T <= 16: the trunk's
-// serving windows), which needs fewer registers.
+// the three paths of the variant, as the wrapper's plan names them
+enum TlPath { kTlRing = 0, kTlResident = 1, kTlWide = 2 };
+
+// keys a KV tile holds at most, by padded head dim: where one tile holds
+// the whole KV row, up to DP = 64 a 128-key row (one score pass: the
+// ring's 128-row blocks); where an item streams several tiles, tiles that
+// keep a lane's scores and pv accumulators within its registers. Every DP
+// also has an instance for tiles of 16 keys (T <= 16: the trunk's serving
+// windows), which needs fewer registers.
 __host__ __device__ constexpr int tl_keys(int dp) {
-  return dp <= 64 ? 64 : dp == 128 ? 32 : 16;
+  return dp <= 64 ? 128 : dp == 128 ? 32 : 16;
+}
+__host__ __device__ constexpr int tl_stream_keys(int dp) {
+  return dp <= 64 ? 64 : tl_keys(dp);
 }
 
 // blocks an SM each instance is compiled for (registers: 128 a thread at
-// two, 255 at one, which the pv accumulators of DP >= 128 need)
-template <int DP>
+// two, 255 at one, which 128-key rows at DP = 64 and DP >= 128 need)
+template <int DP, int TK>
 constexpr int tl_min_blocks() {
-  return DP <= 64 ? 2 : 1;
+  return DP <= 32 || (DP == 64 && TK <= 64) ? 2 : 1;
 }
 
 __host__ __device__ inline bool tl_dp_ok(int dp, bool bf16) {
   return (bf16 && dp == 16) || dp == 32 || dp == 64 || dp == 128 ||
-         dp == kTlMaxD;
+         dp == kTlMaxDP;
 }
 
 struct TlArgs {
@@ -661,23 +706,35 @@ struct TlArgs {
   int B, Tq, Tk, H, D;
   int g, qr, tk;  // sequences an item, its query rows, keys of a KV tile
   int nqt, nkt;   // query tiles of a (sequence, head), key tiles of Tk
+  int nch;        // wide path: column chunks of D
   int n_items, warps;
-  int q_start, kv_start, causal, vec;
+  int q_start, kv_start, causal, vec, valid4;
   float scale;
 };
 
-// Shared memory of one block: kTlStages q slots [g][qr][DP + pad], as many
-// K and V stages [g][tk][DP + pad], the f32 variant's p^T tiles
-// [warps][16][kTlPRow], and per q slot the item's tile count and last
-// valid key, then 8 ints of block reduction.
+// Keys [0, end) that query row i may see under the causal mask (all of
+// Tk without it), at least 0.
+__device__ __forceinline__ int tl_causal_end(const TlArgs& a, int i) {
+  if (!a.causal) return a.Tk;
+  return max(0, min(a.Tk, a.q_start + i - a.kv_start + 1));
+}
+
+// Shared memory of one ring block: kTlStages q slots [g][qr][DP + pad], as
+// many K and V stages [g][tk][DP + pad], where an item streams several KV
+// tiles (multi) the f32 variant's p^T tiles [warps][16][kTlPRow] (a
+// single-tile item's warp keeps its p^T in its own q rows, which it has
+// read in full by then), the stages' KV-validity bytes [g][tk], and per q
+// slot the item's tile count and last valid key, then 8 ints of block
+// reduction.
 __host__ __device__ inline size_t tl_smem_bytes(int g, int qr, int tk,
-                                                int dp, bool bf16) {
+                                                int dp, bool bf16,
+                                                bool multi) {
   const size_t rs = (size_t)dp + kTlPad;
   const size_t warps = (size_t)g * qr / 16;
   return sizeof(float) *
              ((size_t)kTlStages * g * rs * (qr + 2 * (size_t)tk) +
-              (bf16 ? 0 : warps * 16 * kTlPRow)) +
-         sizeof(int) * (2 * kTlStages + 8);
+              (bf16 || !multi ? 0 : warps * 16 * kTlPRow)) +
+         (size_t)kTlStages * g * tk + sizeof(int) * (2 * kTlStages + 8);
 }
 
 struct TlItem {
@@ -696,15 +753,16 @@ __device__ __forceinline__ TlItem tl_item(const TlArgs& a, int item) {
 }
 
 // Start copies of `rows` rows t0 + r of head h of the item's nb
-// sequences of x into dst ([nb][rows][DP + pad]): rows at or past t_end
-// and columns at or past D are zero-filled.
+// sequences of x into dst ([nb][slot_rows][DP + pad], slot_rows >= rows):
+// rows at or past t_end and columns at or past D are zero-filled.
 template <int DP>
 __device__ __forceinline__ void tl_rows(const TlArgs& a, float* dst,
                                         const float* x, long long sb,
                                         long long st, long long sh,
                                         const TlItem& it, int t0, int rows,
-                                        int t_end) {
+                                        int slot_rows, int t_end) {
   constexpr int rs = DP + kTlPad;
+  if (rows <= 0) return;
   const float* base = x + it.b0 * sb + (long long)it.h * sh;
   // rows is 16, 32, 48, 64, ...: a shift where it is a power of two
   const bool pow2 = (rows & (rows - 1)) == 0;
@@ -716,9 +774,10 @@ __device__ __forceinline__ void tl_rows(const TlArgs& a, float* dst,
       const int ra = e / C;  // C is a power of two
       const int c = (e - ra * C) * 4;
       const int gi = pow2 ? ra >> lg : ra / rows;
-      const int t = t0 + ra - gi * rows;
+      const int r = ra - gi * rows;
+      const int t = t0 + r;
       const int bytes = t < t_end ? 4 * min(max(a.D - c, 0), 4) : 0;
-      cp_async16_zfill(dst + ra * rs + c,
+      cp_async16_zfill(dst + (gi * slot_rows + r) * rs + c,
                        bytes ? base + gi * sb + (long long)t * st + c : x,
                        (uint32_t)bytes);
     }
@@ -728,11 +787,38 @@ __device__ __forceinline__ void tl_rows(const TlArgs& a, float* dst,
       const int ra = e / DP;
       const int c = e - ra * DP;
       const int gi = pow2 ? ra >> lg : ra / rows;
-      const int t = t0 + ra - gi * rows;
+      const int r = ra - gi * rows;
+      const int t = t0 + r;
       const int bytes = t < t_end && c < a.D ? 4 : 0;
-      cp_async4_zfill(dst + ra * rs + c,
+      cp_async4_zfill(dst + (gi * slot_rows + r) * rs + c,
                       bytes ? base + gi * sb + (long long)t * st + c : x,
                       (uint32_t)bytes);
+    }
+  }
+}
+
+// The KV-validity bytes of keys t0 .. t0 + tk - 1 of the item's sequences
+// into dst ([nb][tk]; zero past Tk): 4-byte cp.async copies where every
+// row of kv_valid is 4-byte aligned (Tk % 4 == 0), else plain copies
+// (visible to the consumer after the barrier that precedes it).
+__device__ __forceinline__ void tl_bytes(const TlArgs& a, unsigned char* dst,
+                                         const TlItem& it, int t0) {
+  const unsigned char* src = a.kv_valid + (size_t)it.b0 * a.Tk + t0;
+  if (a.valid4) {
+    const int w = a.tk >> 2;
+    for (int e = threadIdx.x; e < it.nb * w; e += blockDim.x) {
+      const int gi = e / w;
+      const int j = (e - gi * w) * 4;
+      const int bytes = t0 + j < a.Tk ? 4 : 0;
+      cp_async4_zfill(dst + gi * a.tk + j,
+                      bytes ? src + (size_t)gi * a.Tk + j : a.kv_valid,
+                      (uint32_t)bytes);
+    }
+  } else {
+    for (int e = threadIdx.x; e < it.nb * a.tk; e += blockDim.x) {
+      const int gi = e / a.tk;
+      const int j = e - gi * a.tk;
+      dst[gi * a.tk + j] = t0 + j < a.Tk ? src[(size_t)gi * a.Tk + j] : 0;
     }
   }
 }
@@ -754,11 +840,8 @@ __device__ int tl_tiles(const TlArgs& a, const TlItem& it, int* n_out,
   __syncthreads();
   last = -1;
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) last = max(last, red[w]);
-  int kend = min(a.Tk, last + 1);
-  if (a.causal) {
-    const int i_last = min((it.qt + 1) * a.qr, a.Tq) - 1;
-    kend = min(kend, max(0, a.q_start + i_last - a.kv_start + 1));
-  }
+  const int kend =
+      min(last + 1, tl_causal_end(a, min((it.qt + 1) * a.qr, a.Tq) - 1));
   const int n = max(1, (kend + a.tk - 1) / a.tk);
   if (threadIdx.x == 0) {
     *n_out = n;
@@ -787,10 +870,13 @@ struct TlCursor {
 };
 
 // Issue the cursor's next load (one cp.async group; an empty one past
-// the last item) and advance it.
+// the last item) and advance it. Neither q nor K and V rows that no row
+// of the item can see under the causal mask are loaded: the warps never
+// read them.
 template <int DP>
 __device__ void tl_produce(const TlArgs& a, TlCursor& p, float* qbuf,
-                           float* kbuf, float* vbuf, int* ints) {
+                           float* kbuf, float* vbuf, unsigned char* bbuf,
+                           int* ints) {
   if (p.item >= a.n_items) {
     cp_async_commit();
     return;
@@ -800,24 +886,44 @@ __device__ void tl_produce(const TlArgs& a, TlCursor& p, float* qbuf,
   const int kv_tile = a.g * a.tk * rs;
   const TlItem it = tl_item(a, p.item);
   const int slot = p.count % kTlStages;
+  const int cend = tl_causal_end(a, min((it.qt + 1) * a.qr, a.Tq) - 1);
   if (p.j == 0) {
     // the slot's previous item has been consumed in full by now
     p.n = a.nkt > 1 ? tl_tiles(a, it, ints + slot, ints + kTlStages + slot,
                                ints + 2 * kTlStages)
                     : 1;
-    tl_rows<DP>(a, qbuf + slot * q_tile, a.q, a.qsb, a.qst, a.qsh, it,
-                it.qt * a.qr, a.qr, a.Tq);
+    if (cend > 0) {
+      tl_rows<DP>(a, qbuf + slot * q_tile, a.q, a.qsb, a.qst, a.qsh, it,
+                  it.qt * a.qr, a.qr, a.qr, a.Tq);
+    }
   }
   const int kt = p.n == 1 ? 0 : p.j % p.n;
   const int st = p.load % kTlStages;
-  tl_rows<DP>(a, kbuf + st * kv_tile, a.k, a.ksb, a.kst, a.ksh, it,
-              kt * a.tk, a.tk, a.Tk);
+  const int t0 = kt * a.tk;
+  const int kr = min(a.tk, max(0, (cend - t0 + 15) & ~15));
+  tl_rows<DP>(a, kbuf + st * kv_tile, a.k, a.ksb, a.kst, a.ksh, it, t0, kr,
+              a.tk, a.Tk);
+  tl_bytes(a, bbuf + st * a.g * a.tk, it, t0);
   if (p.n == 1 || p.j >= p.n) {
-    tl_rows<DP>(a, vbuf + st * kv_tile, a.v, a.vsb, a.vst, a.vsh, it,
-                kt * a.tk, a.tk, a.Tk);
+    tl_rows<DP>(a, vbuf + st * kv_tile, a.v, a.vsb, a.vst, a.vsh, it, t0,
+                kr, a.tk, a.Tk);
   }
   cp_async_commit();
   p.advance(gridDim.x);
+}
+
+// The tile's visibility bits (bit j of word w: key 32w + j valid) from
+// its staged validity bytes (zero past Tk), by ballots of the warp.
+template <int NW>
+__device__ __forceinline__ void tl_bits(const TlArgs& a,
+                                        const unsigned char* bytes,
+                                        uint32_t (&vw)[NW]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int jl = 32 * w + lane;
+    vw[w] = __ballot_sync(0xffffffffu, jl < a.tk && bytes[jl] != 0);
+  }
 }
 
 // -- one warp's 16 query rows against one KV tile, bf16 (tensor cores)
@@ -838,12 +944,16 @@ struct TlBf16 {
 // Scores of the tile's first gend 16-key groups (keys t0 + ...) of the
 // warp's rows (query i0 + r, r < 16; qs, ks, vs at its unit's row 0),
 // then as asked: fold them into the row max; reduce the max over the
-// lanes of a row; p, l and P.V against the reduced max.
+// lanes of a row; p, l and P.V against the reduced max. vw: the tile's
+// visibility bits, which instances for tiles of more than 16 keys
+// rebuild from the staged bytes after the scores instead (so they hold
+// no registers meanwhile).
 template <int DP, int TK>
 __device__ __forceinline__ void tl_tile_bf16(
     const TlArgs& a, const float* qs, const float* ks, const float* vs,
-    TlBf16<DP>& st, int gend, int b, int i0, int t0, bool do_max,
-    bool reduce_max, bool do_pv) {
+    TlBf16<DP>& st, const unsigned char* bytes,
+    const uint32_t (&vw_in)[TK > 32 ? TK / 32 : 1], int gend, int i0,
+    int t0, bool do_max, bool reduce_max, bool do_pv) {
   constexpr int NG = TK / 16;
   constexpr int DK = DP / 16;
   constexpr int DN = DP / 8;
@@ -881,16 +991,19 @@ __device__ __forceinline__ void tl_tile_bf16(
         }
       }
     }
-    const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
+    uint32_t vw[TK > 32 ? TK / 32 : 1];
+#pragma unroll
+    for (int w = 0; w < (TK > 32 ? TK / 32 : 1); ++w) vw[w] = vw_in[w];
+    if constexpr (TK > 16) tl_bits(a, bytes, vw);
     const int qpos = a.q_start + i0 + g;
 #pragma unroll
     for (int kk = 0; kk < NG; ++kk) {
       if (kk >= gend) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int j = t0 + 16 * kk + 4 * t4 + e;
-        const bool vj = j < a.Tk && valid[j];
-        const int kpos = a.kv_start + j;
+        const int jl = 16 * kk + 4 * t4 + e;
+        const bool vj = (vw[kk >> 1] >> (((kk & 1) << 4) + 4 * t4 + e)) & 1u;
+        const int kpos = a.kv_start + t0 + jl;
         const bool o0 = vj && (!a.causal || qpos >= kpos);
         const bool o1 = vj && (!a.causal || qpos + 8 >= kpos);
         ok0 |= (uint32_t)o0 << (4 * kk + e);
@@ -978,6 +1091,10 @@ __device__ __forceinline__ void tl_finish_bf16(const TlArgs& a,
 }
 
 // -- one warp's 16 query rows against one KV tile, f32 (FMA pipe)
+//
+// Lane (rg, kg) = (lane / 8, lane % 8) holds the scores of rows 4rg + r
+// and keys 16kk + kg + 8c: each q and k float4 read from shared memory
+// feeds 8 (or 16) fmaf.
 
 template <int DP>
 struct TlF32 {
@@ -996,102 +1113,139 @@ struct TlF32 {
   }
 };
 
-// As tl_tile_bf16, in f32. Lane (rg, kg) = (lane / 8, lane % 8) holds the
-// scores of rows 4rg + r and keys 16kk + kg + 8c: each q and k float4
-// read from shared memory feeds 8 (or 16) fmaf. pt: the warp's p^T tile
-// [16 keys][kTlPRow].
-template <int DP, int TK>
-__device__ __forceinline__ void tl_tile_f32(
-    const TlArgs& a, const float* qs, const float* ks, const float* vs,
-    float* pt, TlF32<DP>& st, int gend, int b, int i0, int t0, bool do_max,
-    bool reduce_max, bool do_pv) {
-  constexpr int NG = TK / 16;
-  constexpr int DC = DP / 32;
+// s += q . k over DP columns for the first gend 16-key groups (qs at the
+// warp's row 0, ks at the tile's key 0, rows of DP + pad floats)
+template <int DP, int NG>
+__device__ __forceinline__ void f32_scores(const float* qs, const float* ks,
+                                           float (&s)[NG][4][2], int gend) {
   constexpr int rs = DP + kTlPad;
   const int lane = threadIdx.x & 31;
   const int rg = lane >> 3;
   const int kg = lane & 7;
-  float s[NG][4][2];
-  uint32_t ok = 0;  // bit 8kk + 2r + c: key 16kk + kg + 8c of row 4rg + r
-  if (gend > 0) {
+  // a 128-key row keeps 64 scores a lane: no unrolling over d, so the
+  // loads the compiler hoists stay within two blocks' registers
+#pragma unroll (NG > 4 ? 1 : 8)
+  for (int d = 0; d < DP; d += 4) {
+    float4 qv[4];
 #pragma unroll
-    for (int kk = 0; kk < NG; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[kk][r][0] = s[kk][r][1] = 0.0f;
+    for (int r = 0; r < 4; ++r) {
+      qv[r] = *reinterpret_cast<const float4*>(qs + (4 * rg + r) * rs + d);
     }
-#pragma unroll 8
-    for (int d = 0; d < DP; d += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        qv[r] = *reinterpret_cast<const float4*>(qs + (4 * rg + r) * rs + d);
-      }
-#pragma unroll
-      for (int kk = 0; kk < NG; ++kk) {
-        if (kk >= gend) continue;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float4 kv = *reinterpret_cast<const float4*>(
-              ks + (16 * kk + kg + 8 * c) * rs + d);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            float x = s[kk][r][c];
-            x = fmaf(qv[r].x, kv.x, x);
-            x = fmaf(qv[r].y, kv.y, x);
-            x = fmaf(qv[r].z, kv.z, x);
-            x = fmaf(qv[r].w, kv.w, x);
-            s[kk][r][c] = x;
-          }
-        }
-      }
-    }
-    const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
-    const int qpos = a.q_start + i0 + 4 * rg;
 #pragma unroll
     for (int kk = 0; kk < NG; ++kk) {
       if (kk >= gend) continue;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int j = t0 + 16 * kk + kg + 8 * c;
-        const bool vj = j < a.Tk && valid[j];
-        const int kpos = a.kv_start + j;
+        const float4 kv = *reinterpret_cast<const float4*>(
+            ks + (16 * kk + kg + 8 * c) * rs + d);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const bool o = vj && (!a.causal || qpos + r >= kpos);
-          ok |= (uint32_t)o << (8 * kk + 2 * r + c);
-          float& x = s[kk][r][c];
-          x = o ? __fmul_rn(x, a.scale) : kNegInf;
-          if (do_max) st.m[r] = fmaxf(st.m[r], x);
+          float x = s[kk][r][c];
+          x = fmaf(qv[r].x, kv.x, x);
+          x = fmaf(qv[r].y, kv.y, x);
+          x = fmaf(qv[r].z, kv.z, x);
+          x = fmaf(qv[r].w, kv.w, x);
+          s[kk][r][c] = x;
         }
       }
     }
   }
-  if (reduce_max) {
+}
+
+// Scale and mask the scores of the first gend groups (keys kpos0 + 16kk
+// + kg + 8c; vw the tile's visibility bits; qpos the position of the
+// lane's row 4rg), folding them into m where do_max → visibility bits
+// (bit 8kk + 2r + c).
+template <int NG>
+__device__ __forceinline__ uint64_t f32_mask(
+    const TlArgs& a, float (&s)[NG][4][2],
+    const uint32_t (&vw)[NG > 2 ? NG / 2 : 1], int gend, int qpos, int kpos0,
+    bool do_max, float (&m)[4]) {
+  const int kg = threadIdx.x & 7;
+  const int rg = (threadIdx.x & 31) >> 3;
+  uint64_t ok = 0;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      st.m[r] = fmaxf(st.m[r], __shfl_xor_sync(0xffffffffu, st.m[r], 1));
-      st.m[r] = fmaxf(st.m[r], __shfl_xor_sync(0xffffffffu, st.m[r], 2));
-      st.m[r] = fmaxf(st.m[r], __shfl_xor_sync(0xffffffffu, st.m[r], 4));
+  for (int kk = 0; kk < NG; ++kk) {
+    if (kk >= gend) continue;
+    // every key of the group valid and at or below the causal diagonal of
+    // the warp's first row (qpos - 4rg): no per-score test
+    const uint32_t word = (vw[kk >> 1] >> ((kk & 1) << 4)) & 0xffffu;
+    if (word == 0xffffu &&
+        (!a.causal || qpos - 4 * rg >= kpos0 + 16 * kk + 15)) {
+      ok |= (uint64_t)0xffu << (8 * kk);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float& x = s[kk][r][c];
+          x = __fmul_rn(x, a.scale);
+          if (do_max) m[r] = fmaxf(m[r], x);
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int jl = 16 * kk + kg + 8 * c;
+      const bool vj = (vw[kk >> 1] >> (((kk & 1) << 4) + kg + 8 * c)) & 1u;
+      const int kpos = kpos0 + jl;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool o = vj && (!a.causal || qpos + r >= kpos);
+        ok |= (uint64_t)o << (8 * kk + 2 * r + c);
+        float& x = s[kk][r][c];
+        x = o ? __fmul_rn(x, a.scale) : kNegInf;
+        if (do_max) m[r] = fmaxf(m[r], x);
+      }
     }
   }
-  if (!do_pv || gend == 0) return;
+  return ok;
+}
+
+// the row max over the 8 lanes that share a row
+__device__ __forceinline__ void f32_rowmax(float (&m)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 4));
+  }
+}
+
+// p = exp(s - m) where visible, l += p, and acc += p . v over DP columns
+// (vs at the tile's key 0) for the first gend groups; p goes through the
+// warp's transposed tile pt [16 keys][kTlPRow] so that lane (rg, kg) then
+// accumulates rows 4rg + r, columns 32dc + 4kg + {0..3}. kRoundP: p rounds
+// to bf16 as the product's operand (l sums it unrounded).
+template <int DP, int NG, bool kRoundP>
+__device__ __forceinline__ void f32_pv(const float* vs, float* pt,
+                                       const float (&s)[NG][4][2],
+                                       uint64_t ok, int gend,
+                                       const float (&m)[4], float (&l)[4],
+                                       float (&acc)[4][DP / 32][4]) {
+  constexpr int DC = DP / 32;
+  constexpr int rs = DP + kTlPad;
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+  const int kg = lane & 7;
 #pragma unroll
   for (int kk = 0; kk < NG; ++kk) {
     if (kk >= gend) continue;
     float p[2][4];
+    const bool all = ((ok >> (8 * kk)) & 0xffu) == 0xffu;
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        p[c][r] = (ok >> (8 * kk + 2 * r + c)) & 1u
-                      ? expf(s[kk][r][c] - st.m[r]) : 0.0f;
-        st.l[r] += p[c][r];
+        p[c][r] = all || ((ok >> (8 * kk + 2 * r + c)) & 1u)
+                      ? expf(s[kk][r][c] - m[r]) : 0.0f;
+        l[r] += p[c][r];
+        if (kRoundP) p[c][r] = __bfloat162float(__float2bfloat16_rn(p[c][r]));
       }
       *reinterpret_cast<float4*>(pt + (kg + 8 * c) * kTlPRow + 4 * rg) =
           make_float4(p[c][0], p[c][1], p[c][2], p[c][3]);
     }
     __syncwarp();
-    // lane (rg, kg): pv rows 4rg + r, columns 32dc + 4kg + {0..3}
     const float* vr = vs + 16 * kk * rs + 4 * kg;
 #pragma unroll
     for (int jj = 0; jj < 16; ++jj) {
@@ -1104,7 +1258,7 @@ __device__ __forceinline__ void tl_tile_f32(
             vr + jj * rs + 32 * dc);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          float(&o)[4] = st.acc[r][dc];
+          float(&o)[4] = acc[r][dc];
           o[0] = fmaf(pr[r], vv.x, o[0]);
           o[1] = fmaf(pr[r], vv.y, o[1]);
           o[2] = fmaf(pr[r], vv.z, o[2]);
@@ -1116,12 +1270,45 @@ __device__ __forceinline__ void tl_tile_f32(
   }
 }
 
+// As tl_tile_bf16, in f32. pt: the warp's p^T tile.
+template <int DP, int TK>
+__device__ __forceinline__ void tl_tile_f32(
+    const TlArgs& a, const float* qs, const float* ks, const float* vs,
+    float* pt, TlF32<DP>& st, const unsigned char* bytes,
+    const uint32_t (&vw_in)[TK > 32 ? TK / 32 : 1], int gend, int i0,
+    int t0, bool do_max, bool reduce_max, bool do_pv) {
+  constexpr int NG = TK / 16;
+  float s[NG][4][2];
+  uint64_t ok = 0;
+  if (gend > 0) {
+#pragma unroll
+    for (int kk = 0; kk < NG; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[kk][r][0] = s[kk][r][1] = 0.0f;
+    }
+    f32_scores<DP, NG>(qs, ks, s, gend);
+    uint32_t vw[NG > 2 ? NG / 2 : 1];
+#pragma unroll
+    for (int w = 0; w < (NG > 2 ? NG / 2 : 1); ++w) vw[w] = vw_in[w];
+    if constexpr (TK > 16) tl_bits(a, bytes, vw);
+    const int rg = (threadIdx.x & 31) >> 3;
+    ok = f32_mask<NG>(a, s, vw, gend, a.q_start + i0 + 4 * rg,
+                      a.kv_start + t0, do_max, st.m);
+  }
+  if (reduce_max) f32_rowmax(st.m);
+  if (!do_pv || gend == 0) return;
+  __syncwarp();  // pt may be the warp's q rows: every lane has read them
+  f32_pv<DP, NG, false>(vs, pt, s, ok, gend, st.m, st.l, st.acc);
+}
+
 // as tl_finish_bf16, for the f32 lane layout (a warp's store of one
-// column tile covers 4 rows of 128 bytes)
+// column tile covers 4 rows of 128 bytes): pv columns c0 + ..., and m and
+// l where `stats`
 template <int DP>
 __device__ __forceinline__ void tl_finish_f32(const TlArgs& a,
                                               TlF32<DP>& st, int b, int h,
-                                              int i0) {
+                                              int i0, int c0 = 0,
+                                              bool stats = true) {
   const int lane = threadIdx.x & 31;
   const int rg = lane >> 3;
   const int kg = lane & 7;
@@ -1135,7 +1322,7 @@ __device__ __forceinline__ void tl_finish_f32(const TlArgs& a,
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + 4 * rg + r;
     if (i >= a.Tq) continue;
-    if (kg == 0) {
+    if (kg == 0 && stats) {
       const size_t stat = ((size_t)b * a.H + h) * a.Tq + i;
       a.m[stat] = st.m[r];
       a.l[stat] = st.l[r];
@@ -1143,7 +1330,7 @@ __device__ __forceinline__ void tl_finish_f32(const TlArgs& a,
     float* out = a.pv + (((size_t)b * a.Tq + i) * a.H + h) * a.D;
 #pragma unroll
     for (int dc = 0; dc < DP / 32; ++dc) {
-      const int c = 32 * dc + 4 * kg;
+      const int c = c0 + 32 * dc + 4 * kg;
       const float(&o)[4] = st.acc[r][dc];
       if ((a.D & 3) == 0) {
         if (c < a.D) {
@@ -1160,38 +1347,41 @@ __device__ __forceinline__ void tl_finish_f32(const TlArgs& a,
   }
 }
 
-// last valid key of sequence b, by one warp (a single-tile item: Tk <= 64)
-__device__ __forceinline__ int tl_warp_last(const TlArgs& a, int b) {
-  const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
-  int last = -1;
-  for (int j = threadIdx.x & 31; j < a.Tk; j += 32) {
-    if (valid[j]) last = j;
-  }
-  return __reduce_max_sync(0xffffffffu, last);
-}
-
+// The ring path: one- or two-pass over a stream of KV tiles. Instances
+// with TK above tl_stream_keys(DP) take single-tile items only (one
+// pass), so a warp's pv accumulators start at zero after its scores and
+// need no registers while they are computed.
 template <int DP, int TK, bool kBf16>
-__global__ void __launch_bounds__(kTlMaxThreads, tl_min_blocks<DP>())
+__global__ void __launch_bounds__(kTlMaxThreads, tl_min_blocks<DP, TK>())
 flash_block_tiled_kernel(const TlArgs a) {
   extern __shared__ __align__(128) float smem[];
   constexpr int rs = DP + kTlPad;
+  constexpr int NW = TK > 32 ? TK / 32 : 1;
+  constexpr bool kOne = TK > tl_stream_keys(DP);
   const int q_tile = a.g * a.qr * rs;
   const int kv_tile = a.g * a.tk * rs;
   float* qbuf = smem;                       // [stages][g][qr][rs]
   float* kbuf = qbuf + kTlStages * q_tile;  // [stages][g][tk][rs]
   float* vbuf = kbuf + kTlStages * kv_tile;
-  float* pbuf = vbuf + kTlStages * kv_tile;  // f32: [warps][16][kTlPRow]
-  int* ints = reinterpret_cast<int*>(pbuf + (kBf16 ? 0 : a.warps * 16 * kTlPRow));
-  // this warp's sequence of the item and its 16 rows of the query tile
+  const bool multi = a.nkt > 1;
+  // f32, multi: [warps][16][kTlPRow]
+  float* pbuf = vbuf + kTlStages * kv_tile;
+  unsigned char* bbuf = reinterpret_cast<unsigned char*>(
+      pbuf + (kBf16 || !multi ? 0 : a.warps * 16 * kTlPRow));
+  int* ints = reinterpret_cast<int*>(bbuf + kTlStages * a.g * a.tk);
+  // this warp's sequence of the item and its 16 rows of the query tile.
+  // On a causal diagonal a later row block sees more keys; warps w and
+  // w + 4 share one of the SM's four schedulers, so in an 8-warp tile they
+  // take row blocks w and 7 - w and every scheduler gets the same work.
   const int warp = threadIdx.x >> 5;
   const int wpu = a.qr >> 4;
   const int gi = warp / wpu;
-  const int wq = warp - gi * wpu;
-  const bool multi = a.nkt > 1;
+  const int wl = warp - gi * wpu;
+  const int wq = wpu == 8 && wl >= 4 ? 11 - wl : wl;
 
   TlCursor p{(int)blockIdx.x, 0, 1, 0, 0};
   for (int s = 0; s < kTlStages; ++s) {
-    tl_produce<DP>(a, p, qbuf, kbuf, vbuf, ints);
+    tl_produce<DP>(a, p, qbuf, kbuf, vbuf, bbuf, ints);
   }
   TlCursor c{(int)blockIdx.x, 0, 1, 0, 0};
   std::conditional_t<kBf16, TlBf16<DP>, TlF32<DP>> st;
@@ -1210,14 +1400,22 @@ flash_block_tiled_kernel(const TlArgs a) {
     const float* qs = qbuf + slot * q_tile + (gi * a.qr + 16 * wq) * rs;
     if (gi < it.nb && i0 < a.Tq) {
       const int b = it.b0 + gi;
-      if (c.j == 0) {
+      // the tile's staged validity bytes (zero past Tk)
+      const unsigned char* bytes = bbuf + (stage * a.g + gi) * a.tk;
+      uint32_t vw[NW];
+      tl_bits(a, bytes, vw);
+      if (kOne || c.j == 0) {
         st.init();
-        const int lastv = multi ? ints[kTlStages + slot] : tl_warp_last(a, b);
-        kend = min(a.Tk, lastv + 1);
-        if (a.causal) {
-          const int i_last = min(i0 + 15, a.Tq - 1);
-          kend = min(kend, max(0, a.q_start + i_last - a.kv_start + 1));
+        int lastv = -1;
+        if (multi) {
+          lastv = ints[kTlStages + slot];
+        } else {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            if (vw[w]) lastv = 32 * w + 31 - __clz((int)vw[w]);
+          }
         }
+        kend = min(lastv + 1, tl_causal_end(a, min(i0 + 15, a.Tq - 1)));
       }
       const int t0 = kt * a.tk;
       const int gend = kend <= t0 ? 0 : min((kend - t0 + 15) >> 4, a.tk >> 4);
@@ -1227,36 +1425,549 @@ flash_block_tiled_kernel(const TlArgs a) {
       const bool reduce_max = single || c.j == c.n - 1;
       const bool do_pv = single || c.j >= c.n;
       if constexpr (kBf16) {
-        tl_tile_bf16<DP, TK>(a, qs, ks, vs, st, gend, b, i0, t0, do_max,
-                             reduce_max, do_pv);
+        tl_tile_bf16<DP, TK>(a, qs, ks, vs, st, bytes, vw, gend, i0, t0,
+                             do_max, reduce_max, do_pv);
         if (last) tl_finish_bf16<DP>(a, st, b, it.h, i0);
       } else {
-        tl_tile_f32<DP, TK>(a, qs, ks, vs, pbuf + warp * 16 * kTlPRow, st,
-                            gend, b, i0, t0, do_max, reduce_max, do_pv);
+        float* pt = multi ? pbuf + warp * 16 * kTlPRow
+                          : const_cast<float*>(qs);
+        tl_tile_f32<DP, TK>(a, qs, ks, vs, pt, st, bytes, vw, gend, i0, t0,
+                            do_max, reduce_max, do_pv);
         if (last) tl_finish_f32<DP>(a, st, b, it.h, i0);
       }
     }
     __syncthreads();
-    tl_produce<DP>(a, p, qbuf, kbuf, vbuf, ints);
+    tl_produce<DP>(a, p, qbuf, kbuf, vbuf, bbuf, ints);
     c.advance(gridDim.x);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// the instance for tiles of up to 16 keys where a.tk is 16, else the one
-// for tl_keys(DP)
+// the instance for tiles of 16 keys where a.tk is 16, the streaming one
+// where an item takes several tiles, else the one-pass one
 template <int DP, bool kBf16>
 int launch_tiled(const TlArgs& a, int threads, size_t smem,
                  cudaStream_t stream) {
   constexpr int TK = tl_keys(DP);
+  constexpr int TS = tl_stream_keys(DP);
   if constexpr (TK > 16) {
     if (a.tk == 16) {
       return launch_persistent(flash_block_tiled_kernel<DP, 16, kBf16>, a,
                                a.n_items, threads, smem, stream);
     }
   }
+  if constexpr (TS < TK) {
+    if (a.nkt > 1) {
+      return launch_persistent(flash_block_tiled_kernel<DP, TS, kBf16>, a,
+                               a.n_items, threads, smem, stream);
+    }
+  }
   return launch_persistent(flash_block_tiled_kernel<DP, TK, kBf16>, a,
                            a.n_items, threads, smem, stream);
+}
+
+// -- resident path: bf16, KV rows longer than one tile ---------------------
+
+// ldmatrix: four 8 x 8 bf16 matrices, lanes 8j .. 8j + 7 addressing the
+// rows of matrix j; r[j] holds the lane's pair of matrix j (transposed:
+// of its columns)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// Shared memory of one resident block: K and V rows [tkp][DP + kTlBPad]
+// bf16, the sequence's visibility bits [tkp / 32], 8 ints and the next
+// item's KV-validity bytes [tkp].
+__host__ __device__ inline size_t rs_smem_bytes(int tkp, int dp) {
+  return (size_t)2 * tkp * (dp + kTlBPad) * 2 + 4 * (size_t)((tkp + 31) / 32) +
+         4 * 8 + tkp;
+}
+
+// Start copying the KV-validity bytes of item `item`'s sequence into dst
+// ([tkp], zero past Tk): 4-byte cp.async copies where rows of kv_valid
+// are 4-byte aligned, else plain copies (visible after the next barrier).
+__device__ __forceinline__ void rs_fetch_valid(const TlArgs& a,
+                                               unsigned char* dst, int item) {
+  if (item >= a.n_items) return;
+  const unsigned char* src = a.kv_valid + (size_t)(item / a.H) * a.Tk;
+  for (int j = 4 * threadIdx.x; j < a.tk; j += 4 * blockDim.x) {
+    if (a.valid4) {
+      const int bytes = j < a.Tk ? 4 : 0;
+      cp_async4_zfill(dst + j, bytes ? src + j : a.kv_valid, (uint32_t)bytes);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) dst[j + u] = j + u < a.Tk ? src[j + u] : 0;
+    }
+  }
+  cp_async_commit();
+}
+
+// q's A fragments of rows i0 + g (+ 8), columns 16c + 2t4 (+ 8) + {0, 1},
+// as f32 pairs (zero past Tq and D, and where no row of the block sees a
+// key: the sequence's last valid key is `last`): loaded one row block
+// ahead
+template <int DP>
+__device__ __forceinline__ void rs_load_q(const TlArgs& a, int b, int h,
+                                          int i0, int last,
+                                          float2 (&qf)[DP / 16][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const float* qb = a.q + b * a.qsb + (long long)h * a.qsh;
+  const bool seen =
+      min(last + 1, tl_causal_end(a, min(i0 + 15, a.Tq - 1))) > 0;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + g + 8 * hf;
+    const float* qr = qb + (long long)i * a.qst;
+#pragma unroll
+    for (int c = 0; c < DP / 16; ++c) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int col = 16 * c + 8 * h2 + 2 * t4;
+        float2 x = make_float2(0.0f, 0.0f);
+        if (seen && i < a.Tq) {
+          if (a.vec && col + 2 <= a.D) {
+            x = *reinterpret_cast<const float2*>(qr + col);
+          } else {
+            if (col < a.D) x.x = qr[col];
+            if (col + 1 < a.D) x.y = qr[col + 1];
+          }
+        }
+        qf[c][hf + 2 * h2] = x;
+      }
+    }
+  }
+}
+
+// rows [0, rows) of head h of sequence b of x → dst as bf16 (RNE), rows
+// of DP + kTlBPad elements; zero past Tk and past D. Each thread keeps
+// sixteen 16-byte loads in flight (64 KB a block: a 512-key row of K at
+// D = 32), in registers that the compute phase does not hold.
+template <int DP>
+__device__ __forceinline__ void rs_stage(const TlArgs& a, uint16_t* dst,
+                                         const float* x, long long sb,
+                                         long long st, long long sh, int b,
+                                         int h, int rows) {
+  constexpr int BR = DP + kTlBPad;
+  constexpr int C = DP / 4;  // 4-column chunks of a row
+  const float* base = x + b * sb + (long long)h * sh;
+  const int n = rows * C;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 16 * blockDim.x) {
+    float4 f[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int e = e0 + u * blockDim.x;
+      f[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const int t = e / C;
+      const int c = (e - t * C) * 4;
+      if (e < n && t < a.Tk) {
+        const float* src = base + (long long)t * st + c;
+        if (a.vec && c + 4 <= a.D) {
+          f[u] = *reinterpret_cast<const float4*>(src);
+        } else {
+          if (c < a.D) f[u].x = src[0];
+          if (c + 1 < a.D) f[u].y = src[1];
+          if (c + 2 < a.D) f[u].z = src[2];
+          if (c + 3 < a.D) f[u].w = src[3];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < n) {
+        const int t = e / C;
+        const int c = (e - t * C) * 4;
+        *reinterpret_cast<uint2*>(dst + t * BR + c) = make_uint2(
+            pack_bf16(f[u].x, f[u].y), pack_bf16(f[u].z, f[u].w));
+      }
+    }
+  }
+}
+
+// The scores of key group kk (keys 16kk .. 16kk + 15) against the warp's
+// rows in the natural m16n8 layout: s[n][e] is row g + 8 (e >> 1), key
+// 16kk + 8n + 2t4 + (e & 1). K's B fragments come from ldmatrix: lane l
+// addresses key 16kk + 8 (l / 16) + l % 8 at column 8 ((l / 8) & 1).
+template <int DP>
+__device__ __forceinline__ void rs_scores(const uint16_t* kb,
+                                          const uint32_t (&qa)[DP / 16][4],
+                                          int kk, float (&s)[2][4]) {
+  constexpr int BR = DP + kTlBPad;
+  const int lane = threadIdx.x & 31;
+  const uint16_t* row =
+      kb + (16 * kk + 8 * (lane >> 4) + (lane & 7)) * BR +
+      8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+  for (int dc = 0; dc < DP / 16; ++dc) {
+    uint32_t r[4];
+    ldsm_x4(r, row + 16 * dc);
+    mma_bf16(s[0], qa[dc][0], qa[dc][1], qa[dc][2], qa[dc][3], r[0], r[1]);
+    mma_bf16(s[1], qa[dc][0], qa[dc][1], qa[dc][2], qa[dc][3], r[2], r[3]);
+  }
+}
+
+// One warp: query rows i0 .. i0 + 15 of sequence b, head h, against the
+// resident K and V (two passes over them: the row max, then p, l and
+// P.V), then m, l and pv out. last: the sequence's last valid key.
+template <int DP>
+__device__ __forceinline__ void rs_rows(const TlArgs& a, const uint16_t* kb,
+                                        const uint16_t* vb,
+                                        const uint32_t* bits, int b, int h,
+                                        int i0, int last,
+                                        const float2 (&qf)[DP / 16][4]) {
+  constexpr int BR = DP + kTlBPad;
+  constexpr int DK = DP / 16;
+  constexpr int DN = DP / 8;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int kend = min(last + 1, tl_causal_end(a, min(i0 + 15, a.Tq - 1)));
+  const int ng = kend > 0 ? (kend + 15) >> 4 : 0;
+  TlBf16<DP> st;
+  st.init();
+  if (ng > 0) {
+    uint32_t qa[DK][4];
+#pragma unroll
+    for (int c = 0; c < DK; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qa[c][e] = pack_bf16(qf[c][e].x, qf[c][e].y);
+    }
+    const int qpos = a.q_start + i0 + g;
+    // a group whose 16 keys are valid and at or below the causal diagonal
+    // of the warp's first row is visible to every row: no mask, and its
+    // row max is taken from the raw scores (scaling by a positive scale
+    // rounds monotonically, so scale * max equals max of scale * s)
+    auto full = [&](int kk, uint32_t word) {
+      return word == 0xffffu &&
+             (!a.causal || a.q_start + i0 >= a.kv_start + 16 * kk + 15);
+    };
+    // pass 1: the row max
+    float r0 = -INFINITY, r1 = -INFINITY;  // raw maxima of full groups
+#pragma unroll 4
+    for (int kk = 0; kk < ng; ++kk) {
+      float s[2][4];
+      rs_scores<DP>(kb, qa, kk, s);
+      const uint32_t word = (bits[kk >> 1] >> ((kk & 1) << 4)) & 0xffffu;
+      if (full(kk, word)) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          r0 = fmaxf(r0, fmaxf(s[n][0], s[n][1]));
+          r1 = fmaxf(r1, fmaxf(s[n][2], s[n][3]));
+        }
+        continue;
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jb = 8 * n + 2 * t4 + (e & 1);
+          const bool o = ((word >> jb) & 1u) &&
+                         (!a.causal || qpos + 8 * (e >> 1) >=
+                                           a.kv_start + 16 * kk + jb);
+          const float x = o ? __fmul_rn(s[n][e], a.scale) : kNegInf;
+          if (e < 2) st.m0 = fmaxf(st.m0, x);
+          else st.m1 = fmaxf(st.m1, x);
+        }
+      }
+    }
+    st.m0 = fmaxf(st.m0, __fmul_rn(r0, a.scale));
+    st.m1 = fmaxf(st.m1, __fmul_rn(r1, a.scale));
+    st.m0 = fmaxf(st.m0, __shfl_xor_sync(0xffffffffu, st.m0, 1));
+    st.m0 = fmaxf(st.m0, __shfl_xor_sync(0xffffffffu, st.m0, 2));
+    st.m1 = fmaxf(st.m1, __shfl_xor_sync(0xffffffffu, st.m1, 1));
+    st.m1 = fmaxf(st.m1, __shfl_xor_sync(0xffffffffu, st.m1, 2));
+    // pass 2: p, l and P.V (V's B fragments by ldmatrix.trans: lane l
+    // addresses key 16kk + 8 ((l / 8) & 1) + l % 8 at column 8 (l / 16))
+    const uint16_t* vrow =
+        vb + (8 * ((lane >> 3) & 1) + (lane & 7)) * BR + 8 * (lane >> 4);
+#pragma unroll 2
+    for (int kk = 0; kk < ng; ++kk) {
+      float s[2][4];
+      rs_scores<DP>(kb, qa, kk, s);
+      const uint32_t word = (bits[kk >> 1] >> ((kk & 1) << 4)) & 0xffffu;
+      if (full(kk, word)) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] = expf(__fmul_rn(s[n][e], a.scale) -
+                           (e < 2 ? st.m0 : st.m1));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jb = 8 * n + 2 * t4 + (e & 1);
+            const bool o = ((word >> jb) & 1u) &&
+                           (!a.causal || qpos + 8 * (e >> 1) >=
+                                             a.kv_start + 16 * kk + jb);
+            s[n][e] = o ? expf(__fmul_rn(s[n][e], a.scale) -
+                               (e < 2 ? st.m0 : st.m1))
+                        : 0.0f;
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        st.l0 += s[n][0] + s[n][1];
+        st.l1 += s[n][2] + s[n][3];
+      }
+      // the group's scores are P.V's A fragment; p rounds to bf16
+      const uint32_t p0 = pack_bf16(s[0][0], s[0][1]);
+      const uint32_t p1 = pack_bf16(s[0][2], s[0][3]);
+      const uint32_t p2 = pack_bf16(s[1][0], s[1][1]);
+      const uint32_t p3 = pack_bf16(s[1][2], s[1][3]);
+#pragma unroll
+      for (int dt = 0; dt < DN; dt += 2) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, vrow + 16 * kk * BR + 8 * dt);
+        mma_bf16(st.o[dt], p0, p1, p2, p3, r[0], r[1]);
+        mma_bf16(st.o[dt + 1], p0, p1, p2, p3, r[2], r[3]);
+      }
+    }
+  }
+  tl_finish_bf16<DP>(a, st, b, h, i0);
+}
+
+// Persistent blocks of 8 warps walk over (sequence, head) items. A block
+// stages the item's K and V rows up to the last key any of its rows can
+// see, as bf16, and its visibility bits, once; then every warp walks its
+// 16-row blocks of q against them with no further barrier. Row blocks go
+// to warps in rounds of 8, in reverse order every other round, so each
+// warp's causal work comes out about even.
+template <int DP>
+__global__ void __launch_bounds__(kTlMaxThreads, 2)
+flash_block_resident_kernel(const TlArgs a) {
+  extern __shared__ __align__(128) float smem[];
+  constexpr int BR = DP + kTlBPad;
+  const int tkp = a.tk;  // rows the block can hold: Tk rounded up to 16
+  const int nwords = (tkp + 31) / 32;
+  uint16_t* kb = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* vb = kb + tkp * BR;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(vb + tkp * BR);
+  int* red = reinterpret_cast<int*>(bits + nwords);
+  unsigned char* vbytes = reinterpret_cast<unsigned char*>(red + 8);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int nrb = (a.Tq + 15) >> 4;
+  rs_fetch_valid(a, vbytes, blockIdx.x);
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    const int b = item / a.H;
+    const int h = item - b * a.H;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // the item's validity bytes have landed
+    int last = -1;
+    for (int w = warp; w < nwords; w += nw) {
+      const int j = 32 * w + lane;
+      const uint32_t word = __ballot_sync(0xffffffffu, j < tkp && vbytes[j]);
+      if (lane == 0) bits[w] = word;
+      if (word) last = 32 * w + 31 - __clz((int)word);
+    }
+    if (lane == 0) red[warp] = last;
+    __syncthreads();
+    last = -1;
+    for (int w = 0; w < nw; ++w) last = max(last, red[w]);
+    // the next item's bytes land while this one computes
+    rs_fetch_valid(a, vbytes, item + gridDim.x);
+    const int kend = min(last + 1, tl_causal_end(a, a.Tq - 1));
+    const int rows = (max(kend, 0) + 15) & ~15;
+    rs_stage<DP>(a, kb, a.k, a.ksb, a.kst, a.ksh, b, h, rows);
+    rs_stage<DP>(a, vb, a.v, a.vsb, a.vst, a.vsh, b, h, rows);
+    __syncthreads();
+    // row blocks in rounds of nw, reversed every other round; each warp
+    // loads its next row block's q while it computes the current one
+    float2 qf[DP / 16][4];
+    if (warp < nrb) rs_load_q<DP>(a, b, h, 16 * warp, last, qf);
+    for (int r = 0; nw * r < nrb; ++r) {
+      const int rb = nw * r + (r & 1 ? nw - 1 - warp : warp);
+      if (rb >= nrb) continue;
+      float2 qc[DP / 16][4];
+#pragma unroll
+      for (int c = 0; c < DP / 16; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qc[c][e] = qf[c][e];
+      }
+      const int nxt = nw * (r + 1) + (r & 1 ? warp : nw - 1 - warp);
+      if (nxt < nrb) rs_load_q<DP>(a, b, h, 16 * nxt, last, qf);
+      rs_rows<DP>(a, kb, vb, bits, b, h, 16 * rb, last, qc);
+    }
+    __syncthreads();  // K, V, the bits and red are free for the next item
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// -- wide path: D above kTlMaxDP --------------------------------------------
+
+constexpr int kTlWideWarps = 4;  // warps of a wide block at most
+
+// Shared memory of one wide block of nw warps: per warp a q chunk and a K
+// (or V) chunk [16][kTlChunk + pad] and a p^T tile [16][kTlPRow]; the
+// warps' partial scores [nw][32 lanes][8]; 16 validity bytes; 8 ints.
+__host__ __device__ inline size_t wd_smem_bytes(int nw) {
+  return 4 * (size_t)nw *
+             (2 * 16 * (kTlChunk + kTlPad) + 16 * kTlPRow + 32 * 8) +
+         16 + 4 * 8;
+}
+
+// One warp: rows t0 .. t0 + 15 (zero at or past t_end), columns c0 ..
+// c0 + kTlChunk - 1 (zero at or past D) of head h of sequence b of x →
+// dst, rounded to bf16 where kBf16 (the operands of bf16 compute); four
+// 16-byte loads in flight a lane.
+template <bool kBf16>
+__device__ __forceinline__ void wd_stage(const TlArgs& a, float* dst,
+                                         const float* x, long long sb,
+                                         long long st, long long sh, int b,
+                                         int h, int t0, int t_end, int c0) {
+  constexpr int rs = kTlChunk + kTlPad;
+  constexpr int C = kTlChunk / 4;  // float4 columns of a row
+  const int lane = threadIdx.x & 31;
+  const float* base = x + b * sb + (long long)h * sh;
+  __syncwarp();  // the lanes are done with dst's last contents
+#pragma unroll 4
+  for (int e = lane; e < 16 * C; e += 32) {
+    const int r = e / C;
+    const int c = (e - r * C) * 4;
+    const int col = c0 + c;
+    const int t = t0 + r;
+    float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (t < t_end) {
+      const float* src = base + (long long)t * st + col;
+      if (a.vec && col + 4 <= a.D) {
+        f = *reinterpret_cast<const float4*>(src);
+      } else {
+        if (col < a.D) f.x = src[0];
+        if (col + 1 < a.D) f.y = src[1];
+        if (col + 2 < a.D) f.z = src[2];
+        if (col + 3 < a.D) f.w = src[3];
+      }
+    }
+    if (kBf16) {
+      f.x = __bfloat162float(__float2bfloat16_rn(f.x));
+      f.y = __bfloat162float(__float2bfloat16_rn(f.y));
+      f.z = __bfloat162float(__float2bfloat16_rn(f.z));
+      f.w = __bfloat162float(__float2bfloat16_rn(f.w));
+    }
+    *reinterpret_cast<float4*>(dst + r * rs + c) = f;
+  }
+  __syncwarp();
+}
+
+// Persistent blocks of nw = min(column chunks, kTlWideWarps) warps walk
+// over (sequence, head, 16 query rows) items. For each 16-key tile each
+// warp sums the scores over its own kTlChunk-column chunks of D (chunks
+// w, w + nw, ...), staging q and K chunks in its own shared memory; the
+// block adds the warps' partial sums in warp order, so every warp holds
+// the same full scores; then warp w takes the row max (pass 1), and p, l
+// and pv's column chunk w (pass 2) -- in rounds where D has more chunks
+// than the block has warps. Neither shared memory nor registers grow
+// with D. Every chunk's warp computes the same m and l; chunk 0's writes
+// them. On the FMA pipe at both compute types: at bf16 the operands are
+// rounded as they are staged, and p as it meets V, so the products are
+// those of the tensor cores.
+template <bool kBf16>
+__global__ void __launch_bounds__(kTlWideWarps * 32, 1)
+flash_block_wide_kernel(const TlArgs a) {
+  extern __shared__ __align__(128) float smem[];
+  constexpr int rs = kTlChunk + kTlPad;
+  constexpr int WF = 2 * 16 * rs + 16 * kTlPRow;  // floats of a warp's own
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const int rg = lane >> 3;
+  float* qc = smem + warp * WF;
+  float* kc = qc + 16 * rs;  // K chunk, then (pass 2) the V chunk
+  float* pt = kc + 16 * rs;
+  float* part = smem + nw * WF;  // [nw][32][8]
+  unsigned char* vbytes = reinterpret_cast<unsigned char*>(part + nw * 256);
+  int* red = reinterpret_cast<int*>(vbytes + 16);
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    const int qt = item % a.nqt;
+    const int r = item / a.nqt;
+    const int h = r % a.H;
+    const int b = r / a.H;
+    const int i0 = 16 * qt;
+    const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
+    int last = -1;
+    for (int j = threadIdx.x; j < a.Tk; j += blockDim.x) {
+      if (valid[j]) last = j;
+    }
+    last = __reduce_max_sync(0xffffffffu, last);
+    if (lane == 0) red[warp] = last;
+    __syncthreads();
+    last = -1;
+    for (int w = 0; w < nw; ++w) last = max(last, red[w]);
+    const int kend =
+        min(last + 1, tl_causal_end(a, min(i0 + 15, a.Tq - 1)));
+    const int ntiles = (max(kend, 0) + 15) >> 4;
+    for (int cc0 = 0; cc0 < a.nch; cc0 += nw) {
+      const int cc = cc0 + warp;  // this warp's chunk of pv
+      TlF32<kTlChunk> st;
+      st.init();
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int t = 0; t < ntiles; ++t) {
+          float s[1][4][2] = {};
+          for (int dc = warp; dc < a.nch; dc += nw) {
+            wd_stage<kBf16>(a, qc, a.q, a.qsb, a.qst, a.qsh, b, h, i0, a.Tq,
+                            kTlChunk * dc);
+            wd_stage<kBf16>(a, kc, a.k, a.ksb, a.kst, a.ksh, b, h, 16 * t,
+                            a.Tk, kTlChunk * dc);
+            f32_scores<kTlChunk, 1>(qc, kc, s, 1);
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            part[(warp * 32 + lane) * 8 + e] = s[0][e >> 1][e & 1];
+          }
+          if (threadIdx.x < 16) {
+            const int j = 16 * t + threadIdx.x;
+            vbytes[threadIdx.x] = j < a.Tk ? valid[j] : 0;
+          }
+          __syncthreads();
+          float f[1][4][2] = {};
+          for (int w = 0; w < nw; ++w) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              f[0][e >> 1][e & 1] += part[(w * 32 + lane) * 8 + e];
+            }
+          }
+          const uint32_t vw[1] = {
+              __ballot_sync(0xffffffffu, lane < 16 && vbytes[lane] != 0)};
+          __syncthreads();  // part and vbytes are free for the next tile
+          const uint64_t ok = f32_mask<1>(a, f, vw, 1, a.q_start + i0 + 4 * rg,
+                                          a.kv_start + 16 * t, pass == 0,
+                                          st.m);
+          if (pass == 1 && cc < a.nch) {
+            wd_stage<kBf16>(a, kc, a.v, a.vsb, a.vst, a.vsh, b, h, 16 * t,
+                            a.Tk, kTlChunk * cc);
+            f32_pv<kTlChunk, 1, kBf16>(kc, pt, f, ok, 1, st.m, st.l, st.acc);
+          }
+        }
+        if (pass == 0) f32_rowmax(st.m);
+      }
+      if (cc < a.nch) {
+        tl_finish_f32<kTlChunk>(a, st, b, h, i0, kTlChunk * cc, cc == 0);
+      }
+    }
+    __syncthreads();  // red is free for the next item
+  }
 }
 
 // cudaFuncAttributes of one instance → {registers, static shared bytes,
@@ -1322,14 +2033,20 @@ int kt_flash_block_tc(const float* q, const float* k, const float* v,
 }
 
 // → cudaGetLastError() after the launch (0 = launched). The KV-tiled
-// variant: bf16 (bf16 = 1) or f32 compute, any B, Tq, Tk, H >= 1 and
-// 1 <= D <= dp, dp the padded head dim (16 (bf16 only), 32, 64, 128 or
-// 256); items of g sequences x one head x qr query rows (qr a multiple of
-// 16 up to 64), KV tiles of tk keys (a multiple of 16 up to 64, 32 or 16
-// for dp <= 64, 128, 256); g > 1 only where one query tile and one KV tile
-// hold whole sequences; g * qr / 16 warps, at most 8; vec = every q/k/v
-// pointer 16-byte aligned and every stride a multiple of 4 floats.
-// Persistent grid: as many blocks as fit on every SM.
+// variant: bf16 (bf16 = 1) or f32 compute, any B, Tq, Tk, H, D >= 1, on
+// one of three paths (vec = every q/k/v pointer 16-byte aligned and every
+// stride a multiple of 4 floats; persistent grids):
+// - ring (path 0): dp the padded head dim (16 (bf16 only), 32, 64, 128
+//   or 256) with D <= dp; items of g sequences x one head x qr query rows
+//   (qr a multiple of 16 up to 128), KV tiles of tk keys (a multiple of
+//   16 up to 128, 32 or 16 for dp <= 64, 128, 256 where one tile holds
+//   Tk, else up to 64, 32 or 16); g > 1 only where one
+//   query tile and one KV tile hold whole sequences; g * qr / 16 warps,
+//   at most 8;
+// - resident (path 1): bf16, dp 16, 32 or 64, g = 1, tk = Tk rounded up
+//   to 16, qr = 128 (8 warps);
+// - wide (path 2): D > 256, dp = D rounded up to 128, g = 1, tk = 16,
+//   qr = 16; min(dp / 128, 4) warps.
 int kt_flash_block_tiled(const float* q, const float* k, const float* v,
                          const unsigned char* kv_valid, float* pv, float* m,
                          float* l, int B, int Tq, int Tk, int H, int D,
@@ -1338,20 +2055,43 @@ int kt_flash_block_tiled(const float* q, const float* k, const float* v,
                          long long kst, long long ksh, long long vsb,
                          long long vst, long long vsh, int q_start,
                          int kv_start, int causal, int bf16, int vec,
-                         float scale, void* stream) {
+                         int path, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || g <= 0 || qr < 16 ||
-      tk < 16) {
+      tk < 16 || D < 1 || qr % 16 != 0 || tk % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int nqt = (Tq + qr - 1) / qr;
   const int nkt = (Tk + tk - 1) / tk;
-  const int warps = g * (qr / 16);
-  const bool ok_shape =
-      D >= 1 && D <= dp && tl_dp_ok(dp, bf16 != 0) && qr <= kTlQRows &&
-      qr % 16 == 0 && tk % 16 == 0 && tk <= tl_keys(dp) &&
-      (g == 1 || (nqt == 1 && nkt == 1)) && warps * 32 <= kTlMaxThreads &&
-      tl_smem_bytes(g, qr, tk, dp, bf16 != 0) <= (size_t)kMaxSmem;
-  if (!ok_shape) return (int)cudaErrorInvalidValue;
+  int warps = g * (qr / 16);
+  const int nch = (D + kTlChunk - 1) / kTlChunk;
+  size_t smem = 0;
+  long long items = 0;
+  bool ok_shape = warps * 32 <= kTlMaxThreads;
+  if (path == kTlRing) {
+    smem = tl_smem_bytes(g, qr, tk, dp, bf16 != 0, nkt > 1);
+    ok_shape = ok_shape && D <= dp && tl_dp_ok(dp, bf16 != 0) &&
+               qr <= kTlQRows &&
+               tk <= (nkt > 1 ? tl_stream_keys(dp) : tl_keys(dp)) &&
+               (g == 1 || (nqt == 1 && nkt == 1));
+    items = (long long)((B + g - 1) / g) * H * nqt;
+  } else if (path == kTlResident) {
+    smem = rs_smem_bytes(tk, dp);
+    ok_shape = ok_shape && bf16 && (dp == 16 || dp == 32 || dp == 64) &&
+               D <= dp && g == 1 && nkt == 1 && tk - Tk < 16 &&
+               qr == kTlQRows;
+    items = (long long)B * H;
+  } else if (path == kTlWide) {
+    warps = min(nch, kTlWideWarps);
+    smem = wd_smem_bytes(warps);
+    ok_shape = ok_shape && D > kTlMaxDP && dp == nch * kTlChunk && g == 1 &&
+               tk == 16 && qr == 16;
+    items = (long long)B * H * nqt;
+  } else {
+    ok_shape = false;
+  }
+  if (!ok_shape || smem > (size_t)kMaxSmem || items > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
   TlArgs a;
   a.q = q; a.k = k; a.v = v; a.kv_valid = kv_valid;
   a.pv = pv; a.m = m; a.l = l;
@@ -1359,17 +2099,30 @@ int kt_flash_block_tiled(const float* q, const float* k, const float* v,
   a.ksb = ksb; a.kst = kst; a.ksh = ksh;
   a.vsb = vsb; a.vst = vst; a.vsh = vsh;
   a.B = B; a.Tq = Tq; a.Tk = Tk; a.H = H; a.D = D;
-  a.g = g; a.qr = qr; a.tk = tk; a.nqt = nqt; a.nkt = nkt;
-  const long long items = (long long)((B + g - 1) / g) * H * nqt;
-  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  a.g = g; a.qr = qr; a.tk = tk; a.nqt = nqt; a.nkt = nkt; a.nch = nch;
   a.n_items = (int)items;
   a.warps = warps;
   a.q_start = q_start; a.kv_start = kv_start; a.causal = causal;
   a.vec = vec;
+  a.valid4 = Tk % 4 == 0 && ((uintptr_t)kv_valid & 3) == 0;
   a.scale = scale;
-  const size_t smem = tl_smem_bytes(g, qr, tk, dp, bf16 != 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = warps * 32;
+  if (path == kTlWide) {
+    return bf16 ? launch_persistent(flash_block_wide_kernel<true>, a,
+                                    a.n_items, threads, smem, s)
+                : launch_persistent(flash_block_wide_kernel<false>, a,
+                                    a.n_items, threads, smem, s);
+  }
+  if (path == kTlResident) {
+#define KT_RS_CASE(DD)                                                     \
+  if (dp == DD)                                                            \
+    return launch_persistent(flash_block_resident_kernel<DD>, a, a.n_items, \
+                             threads, smem, s);
+    KT_RS_CASE(16) KT_RS_CASE(32) KT_RS_CASE(64)
+#undef KT_RS_CASE
+    return (int)cudaErrorInvalidValue;
+  }
   if (bf16) {
     switch (dp) {
       case 16: return launch_tiled<16, true>(a, threads, smem, s);
@@ -1390,18 +2143,37 @@ int kt_flash_block_tiled(const float* q, const float* k, const float* v,
 }
 
 // Compiled resources of one instance: tc = 1 the tensor-core variant at
-// (T, D), tc = 0 the tiled one at padded head dim D for bf16 or f32
-// compute, its instance for T (the keys of a tile: 16 or fewer, or more)
-// → out = {registers, static shared bytes, local (spill) bytes, max
-// threads per block}.
-int kt_flash_block_info(int tc, int T, int D, int bf16, int* out) {
+// (T, D); tc = 0 the tiled one for bf16 or f32 compute on `path`: the
+// ring at padded head dim D, its instance for a KV row of T keys (16 or
+// fewer, one tile, or a stream of tiles); the resident one at padded D;
+// the wide one → out =
+// {registers, static shared bytes, local (spill) bytes, max threads per
+// block}.
+int kt_flash_block_info(int tc, int T, int D, int bf16, int path, int* out) {
+  if (!tc && path == kTlWide) {
+    return func_info(bf16 ? (const void*)flash_block_wide_kernel<true>
+                          : (const void*)flash_block_wide_kernel<false>,
+                     out);
+  }
+  if (!tc && path == kTlResident) {
+#define KT_RS_INFO(DD)                                                     \
+  if (D == DD)                                                             \
+    return func_info((const void*)flash_block_resident_kernel<DD>, out);
+    KT_RS_INFO(16) KT_RS_INFO(32) KT_RS_INFO(64)
+#undef KT_RS_INFO
+    return (int)cudaErrorInvalidValue;
+  }
   if (!tc) {
+    // T: keys of the KV row; the instance the launch would take
     const bool short_tile = T <= 16 && tl_keys(D) > 16;
+    const bool stream = T > tl_keys(D);
 #define KT_TL_INFO(DD, BF)                                                   \
   if (D == DD && bf16 == BF)                                                 \
     return func_info(                                                        \
-        short_tile                                                           \
-            ? (const void*)flash_block_tiled_kernel<DD, 16, BF != 0>         \
+        short_tile ? (const void*)flash_block_tiled_kernel<DD, 16, BF != 0>  \
+        : stream                                                             \
+            ? (const void*)flash_block_tiled_kernel<DD, tl_stream_keys(DD),  \
+                                                    BF != 0>                 \
             : (const void*)flash_block_tiled_kernel<DD, tl_keys(DD), BF != 0>, \
         out);
     KT_TL_INFO(16, 1) KT_TL_INFO(32, 1) KT_TL_INFO(64, 1)

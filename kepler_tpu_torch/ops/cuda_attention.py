@@ -8,8 +8,11 @@ library at first launch). It has two variants, chosen from the compute
 type and the shape alone (:func:`flash_block_plan`): a tensor-core one
 (bf16 compute, Tq == Tk a multiple of 16 up to 128, D in {16, 32, 64} —
 the temporal trunk's default) and a KV-tiled one for f32 compute and
-every other shape: any Tq and Tk, and D up to 256, as the TPU kernel
-takes them.
+every other shape: any Tq, Tk and D, as the TPU kernel takes them. The
+tiled variant has three paths (:func:`tiled_plan`): the ring (one score
+pass where a warp's keys fit its registers, else two over a stream of KV
+tiles), the resident path (bf16 K and V of a long block held whole in
+shared memory) and the wide path (D above 256, in chunks of 128 columns).
 
 - **B3** :func:`flash_block_pallas` — one fused (q-block × kv-block)
   attention partial ``(pv [B,Tq,H,D], m [B,H,Tq], l [B,H,Tq])``, the
@@ -24,8 +27,9 @@ takes them.
 The wrapper takes its plain PyTorch version (:func:`flash_block_ref`) only
 for tensors that lie on the CPU. For a CUDA tensor it launches the kernel
 or raises; nothing falls back, and no variant is tried and replaced on
-error. ``LAUNCHES`` counts kernel launches, in all and per variant, so a
-run can show that its main path went through the kernel it expects. The
+error. ``LAUNCHES`` counts kernel launches, in all and per variant, and
+``TILED_PATH_LAUNCHES`` the tiled variant's per path, so a run can show
+that its main path went through the kernel it expects. The
 names keep the JAX package's ``pallas``: the backend name selects the
 hand-written kernels.
 """
@@ -47,6 +51,9 @@ from kepler_tpu_torch.ops.cuda_attribution import (F32_OPS_PER_S, _raise_on,
 # "flash_block" counts every B3 launch, the other two each variant's
 LAUNCHES: dict[str, int] = {"flash_block": 0, "flash_block_tc": 0,
                             "flash_block_tiled": 0}
+# the tiled variant's launches by the path its plan took (tiled_plan)
+TILED_PATH_LAUNCHES: dict[str, int] = {"one-pass": 0, "two-pass": 0,
+                                       "resident": 0, "wide": 0}
 
 # NVIDIA H100 SXM data sheet: the dense bf16 tensor-core rate, the peak a
 # bf16-operand contraction's bound is taken against (f32 operands use
@@ -66,24 +73,36 @@ TC_MAX_T = 128
 TC_STAGES = 2
 TC_STAGE_BYTES = 56 * 1024
 TC_PAD = 4
-# KV-tiled: D up to TILED_MAX_D, zero-padded to the first of the padded
-# head dims (bf16: all; f32 from 32) that holds it; items of up to
+# KV-tiled, the ring path: D zero-padded to the first of the padded head
+# dims (bf16: all; f32 from 32) that holds it; items of up to
 # TILED_Q_ROWS query rows (16 a warp; fewer where a block would not fit
-# MAX_SMEM), KV tiles of up to TILED_KEYS[dp] keys in a two-stage ring;
-# rows padded by TILED_PAD floats, f32 p^T rows of TILED_P_ROW floats.
-# Where an item packs several sequences (dp <= 64) its block stays within
-# TILED_BLOCK_SMEM, so that several small blocks share an SM and their
-# barriers fall at different times (2 sequences an item at the f32
-# serving shape).
-TILED_MAX_D = 256
+# MAX_SMEM), KV tiles in a two-stage ring: one tile of a whole row of up
+# to TILED_KEYS[dp] keys (one score pass), else TILED_STREAM_KEYS[dp];
+# rows padded by TILED_PAD floats, f32 p^T rows of TILED_P_ROW floats,
+# each stage's KV-validity bytes beside its tiles. Where an item packs
+# several sequences (dp <= 64) its block stays within TILED_BLOCK_SMEM,
+# so that several small blocks share an SM and their barriers fall at
+# different times (2 sequences an item at the f32 serving shape).
 TILED_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
               torch.float32: (32, 64, 128, 256)}
-TILED_KEYS = {16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
+TILED_KEYS = {16: 128, 32: 128, 64: 128, 128: 32, 256: 16}
+TILED_STREAM_KEYS = {16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
 TILED_Q_ROWS = 128
 TILED_STAGES = 2
 TILED_PAD = 4
 TILED_P_ROW = 20
 TILED_BLOCK_SMEM = 32 * 1024
+# the resident path: bf16 at these padded head dims where a KV row is
+# longer than one tile and K and V fit shared memory whole as bf16 rows
+# of dp + RESIDENT_PAD elements; 8 warps walk the q rows
+RESIDENT_DIMS = (16, 32, 64)
+RESIDENT_PAD = 8
+# the wide path: D above the widest padded head dim, in chunks of
+# WIDE_CHUNK columns, items of 16 query rows, a warp a chunk (up to
+# WIDE_WARPS, in rounds beyond)
+WIDE_CHUNK = 128
+WIDE_WARPS = 4
+_PATHS = {"one-pass": 0, "two-pass": 0, "resident": 1, "wide": 2}
 
 _SOURCE = "attention"
 _c_void_p = ctypes.c_void_p
@@ -96,13 +115,13 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_kt_bound", False):
         lib.kt_flash_block_tiled.argtypes = (
             [_c_void_p] * 7 + [_c_int] * 9 + [_c_ll] * 9
-            + [_c_int] * 5 + [ctypes.c_float, _c_void_p])
+            + [_c_int] * 6 + [ctypes.c_float, _c_void_p])
         lib.kt_flash_block_tiled.restype = _c_int
         lib.kt_flash_block_tc.argtypes = (
             [_c_void_p] * 7 + [_c_int] * 6 + [_c_ll] * 9
             + [_c_int] * 5 + [ctypes.c_float, _c_void_p])
         lib.kt_flash_block_tc.restype = _c_int
-        lib.kt_flash_block_info.argtypes = [_c_int] * 4 + [
+        lib.kt_flash_block_info.argtypes = [_c_int] * 5 + [
             ctypes.POINTER(_c_int)]
         lib.kt_flash_block_info.restype = _c_int
         lib._kt_bound = True
@@ -114,7 +133,9 @@ class FlashPlan(NamedTuple):
     items of ``g`` sequences × ``hb`` heads, ``threads`` per block,
     ``smem`` bytes of shared memory per block, (tc) whether each item's
     rows arrive as bulk copies, and (tiled) the padded head dim ``dp``,
-    an item's query rows ``qr`` and a KV tile's keys ``tk``."""
+    an item's query rows ``qr``, a KV tile's keys ``tk`` and the
+    ``path``: "one-pass" or "two-pass" (the ring of KV tiles), "resident"
+    or "wide"."""
 
     variant: str
     g: int
@@ -125,6 +146,7 @@ class FlashPlan(NamedTuple):
     dp: int = 0
     qr: int = 0
     tk: int = 0
+    path: str = ""
 
 
 def takes_tensor_cores(tq: int, tk: int, d: int,
@@ -145,15 +167,34 @@ def tc_smem_bytes(g: int, hb: int, t: int, d: int, bulk: bool) -> int:
 
 
 def tiled_smem_bytes(g: int, qr: int, tk: int, dp: int,
-                     compute_dtype: torch.dtype) -> int:
-    """Shared memory of one KV-tiled block, as ``csrc/attention.cu`` lays
-    it out: ``TILED_STAGES`` q slots of ``g`` × ``qr`` rows and as many K
+                     compute_dtype: torch.dtype, multi: bool = False) -> int:
+    """Shared memory of one KV-tiled ring block, as ``csrc/attention.cu``
+    lays it out: ``TILED_STAGES`` q slots of ``g`` × ``qr`` rows and as many K
     and V stages of ``g`` × ``tk`` rows (f32 rows of dp + ``TILED_PAD``
-    floats), at f32 compute each warp's p^T tile (16 ×
-    ``TILED_P_ROW``), and 2·``TILED_STAGES`` + 8 ints."""
+    floats), at f32 compute where the item streams several KV tiles
+    (``multi``) each warp's p^T tile (16 × ``TILED_P_ROW``; a single-tile
+    item's warp keeps it in its own q rows), each stage's ``g`` × ``tk``
+    validity bytes, and 2·``TILED_STAGES`` + 8 ints."""
     rows = TILED_STAGES * g * (qr + 2 * tk) * (dp + TILED_PAD)
-    pt = 0 if compute_dtype == torch.bfloat16 else g * qr * TILED_P_ROW
-    return 4 * (rows + pt) + 4 * (2 * TILED_STAGES + 8)
+    pt = (g * qr * TILED_P_ROW
+          if compute_dtype == torch.float32 and multi else 0)
+    return 4 * (rows + pt) + TILED_STAGES * g * tk + 4 * (2 * TILED_STAGES + 8)
+
+
+def resident_smem_bytes(tkp: int, dp: int) -> int:
+    """Shared memory of one resident block: K and V, ``tkp`` rows each of
+    dp + ``RESIDENT_PAD`` bf16 values, the sequence's visibility bits, 8
+    ints and the next item's ``tkp`` validity bytes."""
+    return (2 * 2 * tkp * (dp + RESIDENT_PAD) + 4 * (-(-tkp // 32)) + 4 * 8
+            + tkp)
+
+
+def wide_smem_bytes(warps: int) -> int:
+    """Shared memory of one wide block: per warp a q chunk and a K (or V)
+    chunk of 16 rows of ``WIDE_CHUNK`` + ``TILED_PAD`` floats, a p^T tile
+    and its lanes' 8 partial scores; 16 validity bytes and 8 ints."""
+    return (4 * warps * (2 * 16 * (WIDE_CHUNK + TILED_PAD)
+                         + 16 * TILED_P_ROW + 32 * 8) + 16 + 4 * 8)
 
 
 def _tc_plan(b: int, t: int, h: int, d: int, contiguous: bool) -> FlashPlan:
@@ -182,37 +223,63 @@ def _round16(n: int) -> int:
 def tiled_plan(b: int, tq: int, tk: int, h: int, d: int,
                compute_dtype: torch.dtype = torch.bfloat16,
                contiguous: bool = True) -> FlashPlan:
-    """The KV-tiled variant's blocking for this call. Items hold one head
-    and query tiles of up to ``TILED_Q_ROWS`` rows (as many as fit
-    ``MAX_SMEM``), KV tiles up to ``TILED_KEYS[dp]`` keys. Where one query
-    tile and one KV tile hold whole sequences, an item packs as many
-    sequences as keep the block within ``MAX_THREADS`` threads (one warp a
-    16 query rows) and its shared memory within ``TILED_BLOCK_SMEM`` (dp
-    <= 64) or ``MAX_SMEM``. It copies rows with cp.async whatever their
-    layout, so ``contiguous`` does not change the plan. Raises ValueError
-    for D outside 1..``TILED_MAX_D``, the one limit of B3's shapes."""
+    """The KV-tiled variant's path and blocking for this call.
+
+    - D above the widest padded head dim: the wide path, items of 16
+      query rows, D taken in chunks of ``WIDE_CHUNK`` columns, a warp a
+      chunk (``WIDE_WARPS`` at most).
+    - bf16 where Tk is longer than a tile (``TILED_KEYS[dp]``), dp in
+      ``RESIDENT_DIMS`` and K and V fit ``MAX_SMEM`` whole: the resident
+      path, one (sequence, head) an item.
+    - Else the ring: items of one head and query tiles of up to
+      ``TILED_Q_ROWS`` rows (as many as fit ``MAX_SMEM``); "one-pass"
+      where one KV tile holds Tk (up to ``TILED_KEYS[dp]``), "two-pass"
+      over tiles of ``TILED_STREAM_KEYS[dp]`` keys where it does not.
+      Where one query tile and one KV tile hold whole sequences, an item
+      packs as many sequences as keep the block within ``MAX_THREADS``
+      threads (one warp a 16 query rows) and its shared memory within
+      ``TILED_BLOCK_SMEM`` (dp <= 64, and bf16 at any dp) or
+      ``MAX_SMEM``.
+
+    Every path copies rows whatever their layout, so ``contiguous`` does
+    not change the plan. Raises ValueError for D, Tq or Tk below 1."""
     del contiguous, h  # the plan is the same for every layout and H
-    if not 1 <= d <= TILED_MAX_D:
-        raise ValueError(f"B3 takes head dims 1 to {TILED_MAX_D}, got {d}")
+    if d < 1:
+        raise ValueError(f"B3 needs D >= 1, got {d}")
     if tq < 1 or tk < 1:
         raise ValueError(f"B3 needs Tq, Tk >= 1, got Tq={tq}, Tk={tk}")
     if compute_dtype not in TILED_DIMS:
         raise TypeError(f"B3 computes in bf16 or f32, not {compute_dtype}")
+    if d > TILED_DIMS[compute_dtype][-1]:
+        chunks = -(-d // WIDE_CHUNK)
+        warps = min(chunks, WIDE_WARPS)
+        return FlashPlan("tiled", 1, 1, 32 * warps, wide_smem_bytes(warps),
+                         False, chunks * WIDE_CHUNK, 16, 16, "wide")
     dp = next(x for x in TILED_DIMS[compute_dtype] if x >= d)
-    kt = min(_round16(tk), TILED_KEYS[dp])
+    kt = (_round16(tk) if tk <= TILED_KEYS[dp]
+          else TILED_STREAM_KEYS[dp])
+    if (compute_dtype == torch.bfloat16 and tk > kt and dp in RESIDENT_DIMS
+            and resident_smem_bytes(_round16(tk), dp) <= MAX_SMEM):
+        return FlashPlan("tiled", 1, 1, MAX_THREADS,
+                         resident_smem_bytes(_round16(tk), dp), False, dp,
+                         TILED_Q_ROWS, _round16(tk), "resident")
+    multi = tk > kt
     qr = min(_round16(tq), TILED_Q_ROWS)
-    while tiled_smem_bytes(1, qr, kt, dp, compute_dtype) > MAX_SMEM:
+    while tiled_smem_bytes(1, qr, kt, dp, compute_dtype, multi) > MAX_SMEM:
         qr -= 16
-    budget = TILED_BLOCK_SMEM if dp <= 64 else MAX_SMEM
+    # bf16 above dp 64 takes one sequence an item: its math is a fraction
+    # of its loads, and one-warp blocks overlap them best
+    budget = (TILED_BLOCK_SMEM if dp <= 64 or compute_dtype == torch.bfloat16
+              else MAX_SMEM)
     g = 1
-    if tq <= qr and tk <= kt:
+    if tq <= qr and not multi:
         while (g < b and (g + 1) * qr // 16 * 32 <= MAX_THREADS
                and tiled_smem_bytes(g + 1, qr, kt, dp, compute_dtype)
                <= budget):
             g += 1
     return FlashPlan("tiled", g, 1, g * qr // 16 * 32,
-                     tiled_smem_bytes(g, qr, kt, dp, compute_dtype), False,
-                     dp, qr, kt)
+                     tiled_smem_bytes(g, qr, kt, dp, compute_dtype, multi),
+                     False, dp, qr, kt, "two-pass" if multi else "one-pass")
 
 
 def flash_block_plan(b: int, tq: int, tk: int, h: int, d: int,
@@ -223,27 +290,32 @@ def flash_block_plan(b: int, tq: int, tk: int, h: int, d: int,
     ``[B, T, H, D]`` with 16-byte aligned data).
 
     Tensor cores where :func:`takes_tensor_cores`, else the KV-tiled
-    kernel (:func:`tiled_plan`). Raises ValueError for D above
-    ``TILED_MAX_D``."""
+    kernel (:func:`tiled_plan`). Raises ValueError for D, Tq or Tk below
+    1."""
     if takes_tensor_cores(tq, tk, d, compute_dtype):
         return _tc_plan(b, tq, h, d, contiguous)
     return tiled_plan(b, tq, tk, h, d, compute_dtype, contiguous)
 
 
 def flash_block_info(variant: str, t: int, d: int,
-                     compute_dtype: torch.dtype = torch.float32
-                     ) -> dict[str, int]:
+                     compute_dtype: torch.dtype = torch.float32,
+                     path: str = "") -> dict[str, int]:
     """Compiled resources of one B3 instance on the card (variant "tc" at
-    T = Tq = Tk and D, bf16; or "tiled" at the padded head dim of D for
-    ``compute_dtype``, any T): registers per thread, static shared bytes,
-    local (spill) bytes, max threads per block."""
+    T = Tq = Tk and D, bf16; or "tiled" on ``path`` — by default the one
+    :func:`tiled_plan` takes at Tq = Tk = ``t`` — at the padded head dim of
+    D for ``compute_dtype``, the ring's instance for a KV row of ``t``
+    keys):
+    registers per thread, static shared bytes, local (spill) bytes, max
+    threads per block."""
+    bf16 = int(compute_dtype == torch.bfloat16)
     if variant == "tc":
-        key, bf16 = d, 1
+        key, bf16, code = d, 1, 0
     else:
-        key = next(x for x in TILED_DIMS[compute_dtype] if x >= d)
-        bf16 = int(compute_dtype == torch.bfloat16)
+        plan = tiled_plan(1, t, t, 1, d, compute_dtype)
+        key, code = plan.dp, _PATHS[path or plan.path]
     out = (_c_int * 4)()
-    rc = _lib().kt_flash_block_info(int(variant == "tc"), t, key, bf16, out)
+    rc = _lib().kt_flash_block_info(int(variant == "tc"), t, key, bf16,
+                                    code, out)
     _raise_on(rc, "flash_block_info")
     return dict(zip(("registers", "static_smem", "local_bytes",
                      "max_threads"), list(out)))
@@ -266,14 +338,39 @@ def attended_pairs(kv_valid: torch.Tensor, tq: int, q_start: int,
     return int((valid.to(torch.int64) * per_key).sum())
 
 
+def needed_rows(kv_valid: torch.Tensor, tq: int, q_start: int,
+                kv_start: int, causal: bool) -> tuple[int, int]:
+    """(query rows, keys) that the call's scores and values need, over all
+    sequences (per head): a query row that sees any valid key, and a
+    valid key that any query row sees. The rest are masked whole and need
+    no q, K or V byte."""
+    valid = (kv_valid > 0.5) if kv_valid.dtype != torch.bool else kv_valid
+    tk = valid.shape[1]
+    any_valid = valid.any(dim=1)
+    if not causal:
+        return tq * int(any_valid.sum()), int(valid.sum())
+    j = torch.arange(tk, device=valid.device)
+    # the last query row sees key j when q_start + tq - 1 >= kv_start + j
+    keys = int((valid & (j <= q_start + tq - 1 - kv_start)).sum())
+    # row i sees the sequence's first valid key f when
+    # q_start + i >= kv_start + f
+    first = torch.where(valid, j, tk).min(dim=1).values
+    rows = torch.clamp(tq - torch.clamp(kv_start + first - q_start, min=0),
+                       0, tq)
+    return int(torch.where(any_valid, rows, 0).sum()), keys
+
+
 def flash_block_cost(b: int, tq: int, tk: int, h: int, d: int, pairs: int,
+                     q_rows: int, keys: int,
                      compute_dtype: torch.dtype = torch.bfloat16
                      ) -> tuple[int, int, float]:
-    """B3 → (bytes, operations, peak rate for their type): q, k, v (f32)
-    and the KV-validity bytes read once, pv, m and l (f32) written once;
-    2·D operations for a score and 2·D for its share of p·v, for each of
-    the ``pairs`` unmasked (sequence, query, key) triples of each head."""
-    nbytes = 4 * (b * tq * h * d + 2 * b * tk * h * d) + b * tk \
+    """B3 → (bytes, operations, peak rate for their type): the ``q_rows``
+    query rows and ``keys`` K and V rows the output needs (f32, summed
+    over sequences, :func:`needed_rows`) and the KV-validity bytes read
+    once, pv, m and l (f32) written once for every row; 2·D operations for
+    a score and 2·D for its share of p·v, for each of the ``pairs``
+    unmasked (sequence, query, key) triples of each head."""
+    nbytes = 4 * h * d * (q_rows + 2 * keys) + b * tk \
         + 4 * (b * tq * h * d + 2 * b * h * tq)
     ops = 4 * d * h * pairs
     rate = BF16_OPS_PER_S if compute_dtype == torch.bfloat16 \
@@ -289,8 +386,9 @@ def flash_block_bound_ms(q: torch.Tensor, k: torch.Tensor,
     """Least time an H100 SXM could take for this B3 call → (ms, by)."""
     b, tq, h, d = q.shape
     pairs = attended_pairs(kv_valid, tq, q_start, kv_start, causal)
+    q_rows, keys = needed_rows(kv_valid, tq, q_start, kv_start, causal)
     nbytes, ops, rate = flash_block_cost(b, tq, k.shape[1], h, d, pairs,
-                                         compute_dtype)
+                                         q_rows, keys, compute_dtype)
     return bound_ms(nbytes, ops, rate)
 
 
@@ -437,11 +535,13 @@ def flash_block_launch(
             rc = lib.kt_flash_block_tiled(
                 *ptrs, b, tq, tk, h, d, plan.dp, plan.g, plan.qr, plan.tk,
                 *strides, int(q_start), int(kv_start), int(causal),
-                int(compute_dtype == torch.bfloat16), int(vec), scale,
-                stream)
+                int(compute_dtype == torch.bfloat16), int(vec),
+                _PATHS[plan.path], scale, stream)
     _raise_on(rc, f"flash_block ({plan.variant})")
     LAUNCHES["flash_block"] += 1
     LAUNCHES[f"flash_block_{plan.variant}"] += 1
+    if plan.variant == "tiled":
+        TILED_PATH_LAUNCHES[plan.path] += 1
     return pv, m, l
 
 

@@ -14,8 +14,8 @@ The block plan (which variant, tensor-core or KV-tiled, and its
 blocking) and cost model that the CUDA wrapper uses are checked here too;
 the kernels themselves run only on the card
 (``tests/test_torch_cuda.py``). The plan takes every block JAX's kernel
-takes (any Tq, Tk, and D up to 256), and at the blocks the card's first
-kernels refused (Tq > 256, Tk of a thousand, D of 12 or 128) the port
+takes (any Tq, Tk and D), and at the blocks the card's first kernels
+refused (Tq > 256, Tk of a thousand, D of 12, 128 or above 256) the port
 still agrees with JAX's interpret-mode kernel.
 """
 
@@ -226,24 +226,49 @@ BF16, F32 = torch.bfloat16, torch.float32
     (2, 16, 16, 4, 32, BF16, True, ("tc", 2, 4, 256, True)),
     (1, 16, 16, 4, 32, BF16, True, ("tc", 1, 4, 128, True)),
     # f32 compute and the shapes tensor cores do not take: KV-tiled,
-    # (variant, g, hb, threads, bulk, padded D, query rows, KV tile keys)
+    # (variant, g, hb, threads, bulk, padded D, query rows, KV tile keys,
+    # path)
     (262144, 16, 16, 4, 32, F32, True,
-     ("tiled", 2, 1, 64, False, 32, 16, 16)),
+     ("tiled", 2, 1, 64, False, 32, 16, 16, "one-pass")),
     (16384, 128, 128, 4, 32, F32, True,
-     ("tiled", 1, 1, 256, False, 32, 128, 64)),
-    (5, 9, 13, 4, 16, BF16, True, ("tiled", 4, 1, 128, False, 16, 16, 16)),
-    (4, 32, 20, 2, 64, BF16, True, ("tiled", 1, 1, 64, False, 64, 32, 32)),
+     ("tiled", 1, 1, 256, False, 32, 128, 128, "one-pass")),
+    (5, 9, 13, 4, 16, BF16, True,
+     ("tiled", 4, 1, 128, False, 16, 16, 16, "one-pass")),
+    (4, 32, 20, 2, 64, BF16, True,
+     ("tiled", 1, 1, 64, False, 64, 32, 32, "one-pass")),
     (2, 256, 256, 4, 8, BF16, True,
-     ("tiled", 1, 1, 256, False, 16, 128, 64)),
-    (1, 1, 1, 1, 8, BF16, True, ("tiled", 1, 1, 32, False, 16, 16, 16)),
+     ("tiled", 1, 1, 256, False, 16, 128, 256, "resident")),
+    (1, 1, 1, 1, 8, BF16, True,
+     ("tiled", 1, 1, 32, False, 16, 16, 16, "one-pass")),
     (2, 144, 144, 4, 32, BF16, True,
-     ("tiled", 1, 1, 256, False, 32, 128, 64)),
+     ("tiled", 1, 1, 256, False, 32, 128, 144, "resident")),
+    # the one-pass boundary at DP 32: 128 visible keys in one tile, 144
+    # streamed in 64-key tiles (f32) or resident (bf16)
+    (4, 128, 128, 4, 32, F32, True,
+     ("tiled", 1, 1, 256, False, 32, 128, 128, "one-pass")),
+    (4, 128, 144, 4, 32, F32, True,
+     ("tiled", 1, 1, 256, False, 32, 128, 64, "two-pass")),
+    (4, 96, 128, 4, 32, BF16, True,
+     ("tiled", 1, 1, 192, False, 32, 96, 128, "one-pass")),
+    (4, 128, 144, 4, 32, BF16, True,
+     ("tiled", 1, 1, 256, False, 32, 128, 144, "resident")),
+    # D above 256: the wide path, D in chunks of 128 columns
+    (4, 48, 48, 2, 320, F32, True,
+     ("tiled", 1, 1, 96, False, 384, 16, 16, "wide")),
+    (4, 16, 16, 4, 1000, BF16, True,
+     ("tiled", 1, 1, 128, False, 1024, 16, 16, "wide")),
+    # D = 128 at T = 16 (the d_model-512 trunk): f32 packs sequences to
+    # MAX_SMEM, bf16 takes one an item
+    (65536, 16, 16, 4, 128, F32, True,
+     ("tiled", 4, 1, 128, False, 128, 16, 16, "one-pass")),
+    (65536, 16, 16, 4, 128, BF16, True,
+     ("tiled", 1, 1, 32, False, 128, 16, 16, "one-pass")),
 ])
 def test_flash_block_plan_fits_the_kernel(b, tq, tk, h, d, cd, contiguous,
                                           want):
     plan = tcat.flash_block_plan(b, tq, tk, h, d, cd, contiguous)
     got = (plan.variant, plan.g, plan.hb, plan.threads, plan.bulk, plan.dp,
-           plan.qr, plan.tk)
+           plan.qr, plan.tk, plan.path)
     assert got[:len(want)] == want
     assert h % plan.hb == 0 and plan.threads <= tcat.MAX_THREADS
     assert plan.smem <= tcat.MAX_SMEM
@@ -257,22 +282,47 @@ def test_flash_block_plan_fits_the_kernel(b, tq, tk, h, d, cd, contiguous,
         assert plan.smem == 2 * (3 * 4 * plan.g * tq * row + 8)
         assert plan.threads == 32 * plan.g * plan.hb * tq // 16
         assert not plan.bulk or plan.hb == h
-    else:
-        # two q slots and two K and V stages of rows padded by 4 floats,
-        # f32's p^T tiles, and the ints; one warp a 16 query rows; D
-        # zero-padded; several sequences an item only where one tile
-        # holds each
-        assert plan.smem == tcat.tiled_smem_bytes(plan.g, plan.qr, plan.tk,
-                                                  plan.dp, cd)
-        pt = 0 if cd == BF16 else plan.g * plan.qr * 20
-        assert plan.smem == 4 * (2 * plan.g * (plan.qr + 2 * plan.tk)
-                                 * (plan.dp + 4) + pt) + 4 * 12
-        assert plan.threads == 32 * plan.g * plan.qr // 16
-        assert d <= plan.dp and plan.dp in tcat.TILED_DIMS[cd]
-        assert plan.qr % 16 == 0 and plan.qr <= tcat.TILED_Q_ROWS
-        assert plan.tk % 16 == 0 and plan.tk <= tcat.TILED_KEYS[plan.dp]
-        assert plan.g == 1 or (tq <= plan.qr and tk <= plan.tk)
-        assert not plan.bulk and plan.hb == 1
+        return
+    assert not plan.bulk and plan.hb == 1
+    if plan.path == "resident":
+        # bf16 K and V rows of dp + 8 values, Tk rounded up to 16, the
+        # visibility bits, 8 ints and the next item's validity bytes; 8
+        # warps walk the q rows
+        assert cd == BF16 and plan.dp in tcat.RESIDENT_DIMS
+        assert plan.tk == (tk + 15) // 16 * 16 and tk > 128
+        assert plan.smem == tcat.resident_smem_bytes(plan.tk, plan.dp)
+        assert plan.smem == (4 * plan.tk * (plan.dp + 8)
+                             + 4 * -(-plan.tk // 32) + 32 + plan.tk)
+        assert plan.threads == 256 and plan.g == 1
+        return
+    if plan.path == "wide":
+        # a warp a 128-column chunk (4 at most): its q and K (or V) chunks,
+        # its p^T tile and its lanes' partial scores
+        assert d > 256 and plan.dp == -(-d // 128) * 128
+        warps = min(plan.dp // 128, 4)
+        assert plan.threads == 32 * warps and plan.qr == 16
+        assert plan.smem == tcat.wide_smem_bytes(warps)
+        assert plan.smem == 4 * warps * (2 * 16 * 132 + 16 * 20 + 256) + 48
+        return
+    # the ring: two q slots and two K and V stages of rows padded by 4
+    # floats, f32's p^T tiles where an item streams tiles, the stages'
+    # validity bytes and the ints; one warp a 16 query rows; D
+    # zero-padded; several sequences an item only where one tile holds
+    # each
+    multi = plan.path == "two-pass"
+    assert multi == (tk > plan.tk)
+    assert plan.smem == tcat.tiled_smem_bytes(plan.g, plan.qr, plan.tk,
+                                              plan.dp, cd, multi)
+    pt = plan.g * plan.qr * 20 if cd == F32 and multi else 0
+    assert plan.smem == 4 * (2 * plan.g * (plan.qr + 2 * plan.tk)
+                             * (plan.dp + 4) + pt) \
+        + 2 * plan.g * plan.tk + 4 * 12
+    assert plan.threads == 32 * plan.g * plan.qr // 16
+    assert d <= plan.dp and plan.dp in tcat.TILED_DIMS[cd]
+    assert plan.qr % 16 == 0 and plan.qr <= tcat.TILED_Q_ROWS
+    keys = tcat.TILED_STREAM_KEYS if multi else tcat.TILED_KEYS
+    assert plan.tk % 16 == 0 and plan.tk <= keys[plan.dp]
+    assert plan.g == 1 or (tq <= plan.qr and tk <= plan.tk)
 
 
 def _jax_parity(b, tq, tk, h, d, cd, causal, q_start, kv_start, seed,
@@ -314,12 +364,21 @@ def test_flash_block_plan_takes_what_jax_takes(tq, tk, d, cd):
     _jax_parity(2, tq, tk, 2, d, cd, True, 0, 0, tq + tk + d)
 
 
-def test_flash_block_plan_refuses_head_dims_past_256():
-    """D = 257: the one shape B3 does not take, named in the error."""
-    for cd in (BF16, F32):
-        with pytest.raises(ValueError, match="B3 takes head dims 1 to 256"):
-            tcat.flash_block_plan(4, 16, 16, 4, 257, cd)
-    assert tcat.flash_block_plan(4, 16, 16, 4, 256, F32).dp == 256
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [257, 320, 512])
+def test_flash_block_plan_takes_head_dims_past_256(d, cd):
+    """D above 256, which the plan refused until the wide path: the plan
+    fits the kernel's threads and shared memory, and the port agrees with
+    JAX's interpret-mode kernel on a small causal block with a ragged
+    mask (m, l rtol 1e-5; pv 1e-5 or 1e-2 · max|v|)."""
+    tcd = DTYPES[cd][1]
+    plan = tcat.flash_block_plan(4, 48, 48, 4, d, tcd)
+    assert plan.variant == "tiled" and plan.path == "wide"
+    assert plan.smem <= tcat.MAX_SMEM and plan.threads <= tcat.MAX_THREADS
+    assert d <= plan.dp
+    _jax_parity(2, 48, 48, 2, d, cd, True, 0, 0, d)
+    with pytest.raises(ValueError, match="D >= 1"):
+        tcat.flash_block_plan(4, 16, 16, 4, 0, tcd)
 
 
 PARITY_CASES = {
@@ -328,6 +387,7 @@ PARITY_CASES = {
     "t512_d128": (2, 512, 512, 1, 128, 0, 0, False),
     "tq64_tk640_offsets": (2, 64, 640, 2, 32, 512, 100, False),
     "fully_masked_row": (3, 40, 72, 2, 24, 8, 0, True),
+    "t40_d320": (2, 40, 48, 2, 320, 8, 0, False),
 }
 
 
@@ -361,13 +421,49 @@ def test_attended_pairs_counts_the_unmasked_scores(causal, q_start,
                                kv_start, causal) == brute
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_start,kv_start", [(0, 0), (0, 8), (8, 0),
+                                              (3, 5), (0, 3)])
+def test_needed_rows_counts_what_the_output_depends_on(causal, q_start,
+                                                       kv_start):
+    """Query rows that see a key and keys that a row sees, against the
+    position mask (ragged lengths, sequences with no valid key, and a
+    mask with holes)."""
+    valid = ragged_valid(11, 6, 8)
+    valid[1, :3] = 0  # a sequence whose first valid key is not key 0
+    mask = tcat._position_mask(torch.from_numpy(valid), 6, q_start,
+                               kv_start, causal).expand(6, 1, 6, 8)[:, 0]
+    want = (int(mask.any(dim=2).sum()), int(mask.any(dim=1).sum()))
+    assert tcat.needed_rows(torch.from_numpy(valid), 6, q_start, kv_start,
+                            causal) == want
+
+
+def test_flash_block_bound_counts_only_the_bytes_the_output_needs():
+    """Half the sequences with no valid key: q, K and V of those cost
+    nothing, the outputs of every row still count."""
+    b, t, h, d = 8, 16, 4, 32
+    valid = torch.zeros((b, t), dtype=torch.bool)
+    valid[: b // 2] = True
+    q = torch.zeros((b, t, h, d))
+    pairs = tcat.attended_pairs(valid, t, 0, 0, True)
+    nbytes, _, _ = tcat.flash_block_cost(b, t, t, h, d, pairs, b // 2 * t,
+                                         b // 2 * t)
+    assert nbytes == 4 * h * d * 3 * (b // 2) * t + b * t \
+        + 4 * (b * t * h * d + 2 * b * h * t)
+    assert tcat.needed_rows(valid, t, 0, 0, True) == (b // 2 * t, b // 2 * t)
+    ms, _ = tcat.flash_block_bound_ms(q, q, valid, 0, 0)
+    assert ms == tcat.bound_ms(nbytes, 4 * d * h * pairs,
+                               tcat.BF16_OPS_PER_S)[0]
+
+
 def test_flash_block_cost_at_the_serving_shape():
     """B = 262,144, T = 16, H = 4, D = 32: ~8.7 GB to move, bound by
     bytes at ~2.6 ms on an H100 SXM; the all-valid causal pairs need
     ~18 GFLOP (the full 16 × 16 scores would be ~34)."""
     b, t, h, d = 262144, 16, 4, 32
     pairs = b * t * (t + 1) // 2
-    nbytes, ops, rate = tcat.flash_block_cost(b, t, t, h, d, pairs)
+    nbytes, ops, rate = tcat.flash_block_cost(b, t, t, h, d, pairs, b * t,
+                                              b * t)
     assert nbytes == 4 * 4 * b * t * h * d + b * t + 8 * b * h * t
     assert abs(nbytes / 8.7e9 - 1) < 0.01
     assert ops == 4 * d * h * pairs and abs(ops / 18.25e9 - 1) < 0.01
@@ -376,8 +472,8 @@ def test_flash_block_cost_at_the_serving_shape():
     q = torch.zeros((4, t, h, d))
     ms, by = tcat.flash_block_bound_ms(q, q, valid, 0, 0)
     assert by == "bytes" and ms > 0
-    _, _, rate32 = tcat.flash_block_cost(b, t, t, h, d, pairs,
-                                         torch.float32)
+    _, _, rate32 = tcat.flash_block_cost(b, t, t, h, d, pairs, b * t,
+                                         b * t, torch.float32)
     assert rate32 == 67e12
 
 

@@ -354,6 +354,15 @@ TILED_CASES = {
     "tq64_tk640_offsets": (3, 64, 640, 2, 32, 512, 100),
     "t20_tk33_d5": (4, 20, 33, 3, 5, 3, 0),
     "t48_d256": (2, 48, 40, 2, 256, 0, 0),
+    # the wide path: D above 256 in chunks of 128 columns
+    "t40_d320": (3, 40, 48, 2, 320, 0, 0),
+    "t24_d512": (3, 24, 24, 2, 512, 8, 0),
+    # either side of the one-pass boundary at DP 32: 128 keys in one tile,
+    # 144 keys two tiles (f32) or resident (bf16)
+    "t96_tk128_one_pass": (3, 96, 128, 2, 32, 32, 0),
+    "t96_tk144_past_one_pass": (3, 96, 144, 2, 32, 48, 0),
+    # the 2-shard ring's 512-row bf16 block, K and V resident
+    "t512_d32_resident": (3, 512, 512, 4, 32, 512, 512),
 }
 
 
@@ -417,6 +426,12 @@ def test_tiled_kernel_takes_strided_views_and_forced_plans(cuda_device, cd):
         q, k, v, valid, 256, 128, compute_dtype=cd), v, cd)
     info = cat.flash_block_info("tiled", 16, 32, cd)
     assert info["local_bytes"] == 0 and info["max_threads"] >= 256
+    # the one-pass instance keeps a 128-key row in registers and two
+    # blocks an SM (at f32 with 32 bytes of spill); the streaming, resident
+    # and wide instances spill nothing
+    assert cat.flash_block_info("tiled", 128, 32, cd)["registers"] <= 128
+    for t, d in ((512, 32), (16, 512)):
+        assert cat.flash_block_info("tiled", t, d, cd)["local_bytes"] == 0
 
 
 @pytest.mark.cuda
@@ -457,11 +472,11 @@ def test_fused_window_steps_kernel_equals_plain(cuda_device, k, db_kind):
 @pytest.mark.cuda
 def test_flash_block_wrapper_rejects_what_the_kernel_does_not_take(
         cuda_device):
-    q = torch.randn((2, 8, 2, 257), device=cuda_device)
     valid = torch.ones((2, 8), dtype=torch.bool, device=cuda_device)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        cat.flash_block_pallas(q, q, q, valid, 0, 0)
     q = torch.randn((2, 8, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="Tq, Tk >= 1"):
+        cat.flash_block_pallas(q[:, :0], q, q, valid, 0, 0,
+                               compute_dtype=torch.float32)
     with pytest.raises(TypeError, match="float32"):
         cat.flash_block_pallas(q.double(), q, q, valid, 0, 0)
     with pytest.raises(TypeError, match="bf16 or f32"):
