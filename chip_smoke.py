@@ -37,9 +37,11 @@ zones, buckets N = 1024, W = 256):
    128, 4 heads of 32) — kernel B3 once per call over 262,144 sequences,
    every launch its tensor-core variant; then in accuracy mode (f32) on
    the last window's 262,144 sequences — B3 once, on its KV-tiled
-   variant — against the fast path; and the trunk at d_model 512 (4
-   heads of 128) over 65,536 sequences at bf16 and f32 — B3 once a call,
-   tiled — against the fast path;
+   variant — against the fast path; the trunk at d_model 512 (4 heads of
+   128) over 65,536 sequences at bf16 and f32 — B3 once a call, tiled —
+   and at d_model 2048 (4 heads of 512) over 4,096 sequences — B3 once a
+   call on the tiled variant's wide path — each against the fast path
+   and the trunk through plain attention;
 6. the node agent on one fake host of 10,000 processes (half in
    docker/kubepods cgroups, four RAPL zones, under ``/dev/shm``): the
    native /proc reader, ``RaplPowerMeter`` and ``PowerMonitor(device=
@@ -146,8 +148,8 @@ and B2 and B3 are timed in each of their forms: B2 per window (K = 1)
 and per flush (K = 4, one launch), B3's tensor-core variant against its
 KV-tiled variant at bf16, the tiled variant at f32 (accuracy mode), on
 the rings' blocks (one score pass on the 128-row blocks, K and V
-resident on the 512-row ones), at D = 128 and at D = 512 (the wide
-path), each against the bound of its compute type. The delta update's
+resident on the 512-row ones), at D = 128 and at D = 512 and 320 (the
+wide path), each against the bound of its compute type. The delta update's
 row scatter (``kt_scatter_rows``, a repair kernel: the reference's
 update is XLA's scatter, not a Pallas kernel) is held bit-equal to its
 plain version at N = 16,384 and DB = 8, 512 and 1,024, pads and a
@@ -213,9 +215,13 @@ D_MODEL, N_HEADS = 128, 4
 # path 5c: the trunk at d_model 512 (4 heads of 128: B3's tiled variant)
 # over as many sequences as keep q, k and v at 2.1 GB each
 TRUNK_WIDE_D, TRUNK_WIDE_B = 512, 65536
-# B3's wide path: 4 heads of D = 512 (no main path runs it), over as many
-# sequences of T = 16 as keep q, k and v at 0.5 GB each
-B3_WIDE_D, B3_WIDE_B = 512, 4096
+# path 5d: the trunk at d_model 2048 (4 heads of 512: B3's wide path)
+# over as many sequences as keep q, k and v at 0.54 GB each
+TRUNK_WIDEST_D, TRUNK_WIDEST_B = 2048, 4096
+# B3's wide path (D above 256): the kernel rows' head dims (512: path 5d's
+# heads; 320: five 64-column chunks, no power of two) over as many
+# sequences of T = 16 as path 5d
+B3_WIDE_DS, B3_WIDE_B = (512, 320), 4096
 # profiler traces taken before a kernel row reports its device ms as not
 # whole
 DEVICE_MS_TRIES = 10
@@ -1802,21 +1808,19 @@ def kernel_b3_wide(dev: torch.device, cd: torch.dtype) -> dict:
     return row
 
 
-def kernel_b3_d512(dev: torch.device, cd: torch.dtype) -> dict:
-    """B3's wide path (D above 256, in chunks of 128 columns): B3_WIDE_B
-    sequences of T = 16, 4 heads of B3_WIDE_D, causal with a ragged mask,
-    against its plain version. No main path has such heads; the row shows
-    that the kernel takes them."""
+def kernel_b3_wide_path(dev: torch.device, cd: torch.dtype, d: int) -> dict:
+    """B3's wide path (D above 256, in chunks of 64 columns): B3_WIDE_B
+    sequences of T = 16, 4 heads of ``d``, causal with a ragged mask,
+    against its plain version (at D = 512 the launch path 5d makes)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 43)
-    shape = (B3_WIDE_B, HISTORY_T, N_HEADS, B3_WIDE_D)
+    shape = (B3_WIDE_B, HISTORY_T, N_HEADS, d)
     q, k, v = (torch.randn(shape, generator=gen, device=dev)
                for _ in range(3))
     valid = ragged_lengths(gen, dev, B3_WIDE_B, HISTORY_T)
-    row = b3_launch(q, k, v, valid, 0, cd,
-                    f"B3 at D = {B3_WIDE_D}, {str(cd)[6:]}")
+    row = b3_launch(q, k, v, valid, 0, cd, f"B3 at D = {d}, {str(cd)[6:]}")
     check(row["plan"]["variant"] == "tiled"
           and row["plan"]["path"] == "wide",
-          f"B3 at D = {B3_WIDE_D} does not plan the tiled variant's wide "
+          f"B3 at D = {d} does not plan the tiled variant's wide "
           f"path: {row['plan']}")
     emit({"phase": "kernel", "name": "flash_block_tiled", **row})
     del q, k, v, valid
@@ -2216,35 +2220,53 @@ def main_temporal_trunk(dev: torch.device, saved: list,
 def main_trunk_wide(dev: torch.device) -> dict:
     """Path 5c: the trunk at d_model = 512 (4 heads of 128) over
     TRUNK_WIDE_B sequences of T = 16, at bf16 and f32, through
-    ``pallas_attention_fn`` — B3 once a call on its tiled variant —
-    against the same trunk through plain attention
-    (``ops.attention.full_attention``) and against the fast path: bf16
-    within 1e-2 · max|watts|, f32 the accuracy-mode bound (rtol 1e-4,
-    atol 1e-5 · max|watts|: predictions of tens of watts, f32 sums in
-    another order through 512-wide layers)."""
+    ``pallas_attention_fn`` — B3 once a call on its tiled variant's
+    one-pass path — against the same trunk through plain attention and
+    against the fast path (:func:`trunk_at_width`)."""
+    return trunk_at_width(dev, "main_trunk_wide", TRUNK_WIDE_D,
+                          TRUNK_WIDE_B, SEED + 40, "one-pass")
+
+
+def main_trunk_widest(dev: torch.device) -> dict:
+    """Path 5d: the trunk at d_model = 2048 (4 heads of 512) over
+    TRUNK_WIDEST_B sequences of T = 16, at bf16 and f32, through
+    ``pallas_attention_fn`` — B3 once a call on its tiled variant's wide
+    path — against the same trunk through plain attention and against
+    the fast path (:func:`trunk_at_width`)."""
+    return trunk_at_width(dev, "main_trunk_widest", TRUNK_WIDEST_D,
+                          TRUNK_WIDEST_B, SEED + 44, "wide")
+
+
+def trunk_at_width(dev: torch.device, phase: str, d_model: int, b: int,
+                   seed: int, b3_path: str) -> dict:
+    """The temporal trunk at ``d_model`` (4 heads) over ``b`` sequences of
+    T = 16, at bf16 and f32, through ``pallas_attention_fn``: B3 once a
+    call on its tiled variant's ``b3_path``, against the same trunk
+    through plain attention (``ops.attention.full_attention``) and
+    against the fast path: bf16 within 1e-2 · max|watts|, f32 the
+    accuracy-mode bound (rtol 1e-4, atol 1e-5 · max|watts|: predictions
+    of tens of watts, f32 sums in another order through wide layers)."""
     from kepler_tpu_torch.models.estimator import params_to
     from kepler_tpu_torch.models.temporal import predict_temporal
     from kepler_tpu_torch.ops.attention import full_attention
     from kepler_tpu_torch.ops.cuda_attention import pallas_attention_fn
 
-    params = params_to(temporal_params(ACC_SCALE, d_model=TRUNK_WIDE_D),
-                       dev)
-    hist, wv, tv, _ = temporal_inputs(dev, TRUNK_WIDE_B, HISTORY_T,
-                                      SEED + 40)
-    row: dict = {"phase": "main_trunk_wide", "d_model": TRUNK_WIDE_D,
-                 "sequences": TRUNK_WIDE_B, "history_t": HISTORY_T}
+    params = params_to(temporal_params(ACC_SCALE, d_model=d_model), dev)
+    hist, wv, tv, _ = temporal_inputs(dev, b, HISTORY_T, seed)
+    row: dict = {"phase": phase, "d_model": d_model,
+                 "head_dim": d_model // N_HEADS, "sequences": b,
+                 "history_t": HISTORY_T, "b3_path": b3_path}
+    on_path = f"flash_block_tiled_{b3_path}"
     for name, cd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         fn = pallas_attention_fn(compute_dtype=cd)
         reset_launches()
         out, ms = timed_call(lambda: predict_temporal(
             params, hist, wv, tv, compute_dtype=cd, attention_fn=fn))
         launches = read_launches()
-        check(launches["flash_block"] == 1
-              and launches["flash_block_tiled_one-pass"] == 1,
-              f"the d_model {TRUNK_WIDE_D} trunk ({name}) launched B3 "
-              f"{launches['flash_block']} times "
-              f"({launches['flash_block_tiled_one-pass']} on the tiled "
-              f"variant's one-pass path), not once")
+        check(launches["flash_block"] == 1 and launches[on_path] == 1,
+              f"the d_model {d_model} trunk ({name}) launched B3 "
+              f"{launches['flash_block']} times ({launches[on_path]} on "
+              f"the tiled variant's {b3_path} path), not once")
 
         def plain_attention(q, k, v, t_valid, cd=cd):
             return full_attention(q, k, v, t_valid=t_valid,
@@ -2254,17 +2276,18 @@ def main_trunk_wide(dev: torch.device) -> dict:
                                  attention_fn=plain_attention)
         fast = predict_temporal(params, hist, wv, tv, compute_dtype=cd)
         a, p, f = (x.cpu().numpy() for x in (out, plain, fast))
-        check(np.isfinite(a).all(), f"wide trunk ({name}): non-finite")
+        check(np.isfinite(a).all(),
+              f"d_model {d_model} trunk ({name}): non-finite")
         if cd == torch.bfloat16:
             ok_plain, ok_fast = bf16_close(a, p), bf16_close(a, f)
         else:
             atol = 1e-5 * float(np.abs(f).max())
             ok_plain = np.allclose(a, p, rtol=1e-4, atol=atol)
             ok_fast = np.allclose(a, f, rtol=1e-4, atol=atol)
-        check(ok_plain, f"wide trunk ({name}) off the trunk through plain "
-              f"attention by {float(np.abs(a - p).max())} W")
-        check(ok_fast, f"wide trunk ({name}) off the fast path by "
-              f"{float(np.abs(a - f).max())} W")
+        check(ok_plain, f"d_model {d_model} trunk ({name}) off the trunk "
+              f"through plain attention by {float(np.abs(a - p).max())} W")
+        check(ok_fast, f"d_model {d_model} trunk ({name}) off the fast "
+              f"path by {float(np.abs(a - f).max())} W")
         row[name] = {"launches": launches, "call_ms": ms,
                      "max_abs_err_w_vs_plain_attention":
                          float(np.abs(a - p).max()),
@@ -5231,7 +5254,7 @@ def main(argv: list[str] | None = None) -> int:
     b2_rows: dict = {}
     b3_rows: list = []
     b3_wide: dict = {}
-    b3_d512: dict = {}
+    b3_widepath: dict = {}
     scatter_rows: dict = {}
     if "kernels" in on:
         b1 = kernel_b1(dev)
@@ -5239,8 +5262,9 @@ def main(argv: list[str] | None = None) -> int:
         b3_rows = [kernel_b3(dev, b, t) for b, t in B3_SHAPES]
         b3_wide = {str(cd)[6:]: kernel_b3_wide(dev, cd)
                    for cd in (torch.bfloat16, torch.float32)}
-        b3_d512 = {str(cd)[6:]: kernel_b3_d512(dev, cd)
-                   for cd in (torch.bfloat16, torch.float32)}
+        b3_widepath = {(d, str(cd)[6:]): kernel_b3_wide_path(dev, cd, d)
+                       for d in B3_WIDE_DS
+                       for cd in (torch.bfloat16, torch.float32)}
         scatter_rows = {db: kernel_scatter_rows(dev, db)
                         for db in SCATTER_DBS}
     lap("kernels")
@@ -5278,6 +5302,9 @@ def main(argv: list[str] | None = None) -> int:
         wide = main_trunk_wide(dev)
         r["main_trunk_wide_bf16"] = wide["bf16"]
         r["main_trunk_wide_f32"] = wide["f32"]
+        widest = main_trunk_widest(dev)
+        r["main_trunk_widest_bf16"] = widest["bf16"]
+        r["main_trunk_widest_f32"] = widest["f32"]
     lap("temporal")
     if "train" in on:
         r["main_train"] = main_train(dev)
@@ -5379,7 +5406,8 @@ def main(argv: list[str] | None = None) -> int:
             for x in b3_rows})
     launch_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "library_device_ms", "max_abs_err")
-    for cd_name, x in [*b3_wide.items(), *b3_d512.items()]:
+    for cd_name, x in [*b3_wide.items(),
+                       *((cd, x) for (_, cd), x in b3_widepath.items())]:
         tiled_extra.setdefault("by_shape", {})[
             f"B{x['B']}_T{x['Tq']}_D{x['D']}_{cd_name}"] = {
             k: x[k] for k in launch_keys}

@@ -1,7 +1,7 @@
 """Time B3's KV-tiled variant on the card, at the main paths' shapes and
 in forced plans, for one checkout of the repository.
 
-    python hack/b3_tiled_ab.py [ROOT] [--plans]
+    python hack/b3_tiled_ab.py [ROOT] [--plans] [--wide]
 
 ROOT (default: this checkout) is the tree whose ``kepler_tpu_torch`` and
 ``chip_smoke.py`` are imported, so an unpacked older commit can be timed
@@ -14,8 +14,11 @@ ms from ``torch.profiler`` (``chip_smoke.device_ms``, B3's kernels only)
 and ROOT's bound. The shapes are the main paths' launches of the tiled
 variant (accuracy mode at T = 16 and T = 128, a diagonal block of the
 8-shard f32 ring and of the 2-shard bf16 ring, D = 128 at T = 16), the
-tiled variant forced where tensor cores run, D = 512, and the two rings'
-B3 device ms in one call (three calls). ``--plans`` adds plans the
+tiled variant forced where tensor cores run, the wide path (D = 512 and
+D = 320 at chip_smoke's kernel rows' shape: 4,096 sequences of T = 16, 4
+heads, ragged, causal), and the two rings' B3 device ms in one call
+(three calls). ``--wide`` times the wide path's rows alone, with SDPA's
+device ms on the same inputs beside each. ``--plans`` adds plans the
 planner does not pick, each timed on the same inputs: a one-pass f32
 block of 64 query rows (two blocks of 4 warps an SM), a two-pass f32
 stream of 64-key tiles at T = 128, and D = 128 at T = 16 with 1 and 2
@@ -50,9 +53,10 @@ def emit(row: dict) -> None:
 
 
 def one(dev, name: str, b: int, tq: int, tk: int, d: int, cd, start=0,
-        plan=None, chunk=None, h: int = 4) -> None:
+        plan=None, chunk=None, h: int = 4, sdpa: bool = False) -> None:
     """B3 once at this shape (a diagonal block: q and KV both from
-    ``start``) against its plain version, then its device ms."""
+    ``start``) against its plain version, then its device ms (and, where
+    ``sdpa``, SDPA's on the same inputs)."""
     gen = torch.Generator(device=dev).manual_seed(b + tq + d)
     q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev)
                for t in (tq, tk, tk))
@@ -75,6 +79,8 @@ def one(dev, name: str, b: int, tq: int, tk: int, d: int, cd, start=0,
         row["device_ms"] = ms[0] if isinstance(ms, tuple) else ms
         row["bound_ms"] = cat.flash_block_bound_ms(
             q, k, valid, start, start, compute_dtype=cd)[0]
+        if sdpa:
+            row["sdpa_device_ms"] = cs.sdpa_ms(q, k, v, valid)[1]
     except (RuntimeError, ValueError) as err:
         row["error"] = repr(err)[:400]
     emit(row)
@@ -123,6 +129,13 @@ def main() -> int:
             for t, d, cd in ((16, 32, F), (128, 32, F), (128, 32, BF),
                              (16, 128, F), (16, 128, BF), (512, 32, BF),
                              (512, 32, F), (16, 512, BF), (16, 512, F))}})
+    if PATHS:
+        for d in (512, 320):
+            for cd in (BF, F):
+                one(dev, f"{str(cd)[6:]}_d{d}", 4096, 16, 16, d, cd,
+                    sdpa=True)
+    if "--wide" in sys.argv:
+        return 0
     one(dev, "f32_t16", 262144, 16, 16, 32, F)
     one(dev, "f32_t128", 16384, 128, 128, 32, F)
     one(dev, "f32_ring_block", 4096, 128, 128, 32, F, start=384)
@@ -133,9 +146,6 @@ def main() -> int:
     for t, b in ((16, 262144), (128, 16384)):
         one(dev, f"bf16_forced_t{t}", b, t, t, 32, BF,
             plan=cat.tiled_plan(b, t, t, 4, 32, BF))
-    if PATHS:
-        for cd in (BF, F):
-            one(dev, f"{str(cd)[6:]}_d512", 4096, 16, 16, 512, cd)
     if PATHS and "--plans" in sys.argv:
         plan = cat.tiled_plan(16384, 128, 128, 4, 32, F)
         half = plan._replace(qr=64, threads=128, smem=cat.tiled_smem_bytes(

@@ -115,16 +115,30 @@
 //     barrier: pass 1 the row max, pass 2 p, l and P.V, K and V read as
 //     B fragments by ldmatrix (.trans for V). The next item's validity
 //     bytes arrive by cp.async while this one computes.
-//   - Wide (path 2): D above 256. Items of (sequence, head, 16 query
-//     rows) on blocks of up to 4 warps; two passes over 16-key tiles.
-//     Each warp sums a tile's scores over its own 128-column chunks of D
-//     (q and K chunks staged in its own shared memory), the block adds
-//     the warps' partial sums in warp order, and warp w then takes pv's
-//     column chunk w (in rounds beyond 4 chunks), so neither shared
-//     memory nor registers grow with D. On the FMA pipe at both compute
-//     types (bf16 operands rounded as they are staged, p as it meets V,
-//     so the products are the tensor cores' ones). Built to be right; no
-//     main path has such heads.
+//   - Wide (path 2): D above 256 (the trunk at d_model above 1024). One
+//     warp a block and eight blocks an SM (where a tile holds 16 keys),
+//     each warp walking over items of (sequence, head, 16 query rows)
+//     with a stream of loads of its own: a ring of three stages, each a
+//     64-column chunk of q and of a KV tile's K rows (or of its V rows),
+//     filled by 16-byte cp.async copies while the earlier stages compute,
+//     so the next chunks and the next item's are in flight meanwhile; no
+//     block barrier. (On an H100, four stages or 32-column chunks left
+//     fewer warps an SM and were slower, most at f32; 128-column chunks
+//     too.) The copies
+//     zero-fill, without reading, the q rows that see no key and the K
+//     and V rows past the last key a row sees; the item's validity bytes
+//     are read one item ahead and ride in each stage's header as
+//     visibility bits. Where the visible keys fit one tile of up to 64
+//     (every block up to T = 64: the served windows) the warp sums each
+//     score over all of D in its own registers, chunk after chunk, takes
+//     the exact row max from them, forms p once and streams V's chunks
+//     into pv: q, K and V are each staged once. Longer rows take two
+//     passes over 64-key tiles (pv summed over tiles in device memory by
+//     the lane that owns each element). bf16 runs both products on the
+//     tensor cores with the tc variant's fragment scheme (operands rounded
+//     f32 -> bf16 as the fragments form, each element once), f32 on the
+//     FMA pipe (fmaf chains, no TF32). Neither shared memory nor
+//     registers grow with D.
 //   On every path: key tiles (16-key groups on the resident path) past
 //   the sequence's last valid key or above the causal diagonal of the
 //   rows that need them are neither loaded nor computed -- an item that
@@ -664,7 +678,6 @@ constexpr int kTlQRows = 128;  // query rows of an item's tile at most
 constexpr int kTlPRow = 20;    // f32: floats of one key's row of a warp's p^T
 constexpr int kTlMaxDP = 256;  // widest padded head dim of the ring path
 constexpr int kTlBPad = 8;     // bf16 elements padding each resident row
-constexpr int kTlChunk = 128;  // wide path: columns of a D chunk
 
 // the three paths of the variant, as the wrapper's plan names them
 enum TlPath { kTlRing = 0, kTlResident = 1, kTlWide = 2 };
@@ -1215,9 +1228,8 @@ __device__ __forceinline__ void f32_rowmax(float (&m)[4]) {
 // p = exp(s - m) where visible, l += p, and acc += p . v over DP columns
 // (vs at the tile's key 0) for the first gend groups; p goes through the
 // warp's transposed tile pt [16 keys][kTlPRow] so that lane (rg, kg) then
-// accumulates rows 4rg + r, columns 32dc + 4kg + {0..3}. kRoundP: p rounds
-// to bf16 as the product's operand (l sums it unrounded).
-template <int DP, int NG, bool kRoundP>
+// accumulates rows 4rg + r, columns 32dc + 4kg + {0..3}.
+template <int DP, int NG>
 __device__ __forceinline__ void f32_pv(const float* vs, float* pt,
                                        const float (&s)[NG][4][2],
                                        uint64_t ok, int gend,
@@ -1240,7 +1252,6 @@ __device__ __forceinline__ void f32_pv(const float* vs, float* pt,
         p[c][r] = all || ((ok >> (8 * kk + 2 * r + c)) & 1u)
                       ? expf(s[kk][r][c] - m[r]) : 0.0f;
         l[r] += p[c][r];
-        if (kRoundP) p[c][r] = __bfloat162float(__float2bfloat16_rn(p[c][r]));
       }
       *reinterpret_cast<float4*>(pt + (kg + 8 * c) * kTlPRow + 4 * rg) =
           make_float4(p[c][0], p[c][1], p[c][2], p[c][3]);
@@ -1298,7 +1309,7 @@ __device__ __forceinline__ void tl_tile_f32(
   if (reduce_max) f32_rowmax(st.m);
   if (!do_pv || gend == 0) return;
   __syncwarp();  // pt may be the warp's q rows: every lane has read them
-  f32_pv<DP, NG, false>(vs, pt, s, ok, gend, st.m, st.l, st.acc);
+  f32_pv<DP, NG>(vs, pt, s, ok, gend, st.m, st.l, st.acc);
 }
 
 // as tl_finish_bf16, for the f32 lane layout (a warp's store of one
@@ -1817,157 +1828,707 @@ flash_block_resident_kernel(const TlArgs a) {
 
 // -- wide path: D above kTlMaxDP --------------------------------------------
 
-constexpr int kTlWideWarps = 4;  // warps of a wide block at most
+constexpr int kWdChunk = 64;  // columns of a staged chunk of D
+constexpr int kWdRow = kWdChunk + kTlPad;  // floats of a staged row
+constexpr int kWdStages = 3;  // a warp's ring of stages
+constexpr int kWdKeys = 64;   // keys of a KV tile at most: one pass up to it
+constexpr int kWdGroups = kWdKeys / 16;
+constexpr int kWdHdr = 12;  // ints of a stage's header
 
-// Shared memory of one wide block of nw warps: per warp a q chunk and a K
-// (or V) chunk [16][kTlChunk + pad] and a p^T tile [16][kTlPRow]; the
-// warps' partial scores [nw][32 lanes][8]; 16 validity bytes; 8 ints.
-__host__ __device__ inline size_t wd_smem_bytes(int nw) {
-  return 4 * (size_t)nw *
-             (2 * 16 * (kTlChunk + kTlPad) + 16 * kTlPRow + 32 * 8) +
-         16 + 4 * 8;
+// Shared memory of one wide block (one warp): kWdStages stages of 16 q
+// rows and tk K (or V) rows of kWdRow floats, at f32 the p^T tile [tk]
+// [kTlPRow], and each stage's header.
+__host__ __device__ inline size_t wd_smem_bytes(int tk, bool bf16) {
+  return sizeof(float) * ((size_t)kWdStages * (16 + tk) * kWdRow +
+                          (bf16 ? 0 : (size_t)tk * kTlPRow)) +
+         sizeof(int) * kWdStages * kWdHdr;
 }
 
-// One warp: rows t0 .. t0 + 15 (zero at or past t_end), columns c0 ..
-// c0 + kTlChunk - 1 (zero at or past D) of head h of sequence b of x →
-// dst, rounded to bf16 where kBf16 (the operands of bf16 compute); four
-// 16-byte loads in flight a lane.
-template <bool kBf16>
-__device__ __forceinline__ void wd_stage(const TlArgs& a, float* dst,
-                                         const float* x, long long sb,
-                                         long long st, long long sh, int b,
-                                         int h, int t0, int t_end, int c0) {
-  constexpr int rs = kTlChunk + kTlPad;
-  constexpr int C = kTlChunk / 4;  // float4 columns of a row
+// The producer's place in a warp's stream of loads. An item (sequence b,
+// head h, query rows i0 .. i0 + 15) whose rows see keys [0, kend) in nt KV
+// tiles takes one empty load where kend = 0; else, in one pass (nt = 1),
+// nch loads of a q chunk and the K tile's chunk, then nch of the V tile's;
+// in two passes, nt x nch q-and-K loads (pass 1: the row max), then per
+// tile nch q-and-K and nch V loads (pass 2: p, l and P.V). The cursor
+// holds the next load's chunk c, tile t, pass and kind (qk), the item's
+// first q row that sees a key, and its KV-validity bits of keys below
+// 128; item past the last: done.
+struct WdCursor {
+  int item, b, h, i0, kend, nt, qlo;
+  int c, t, pass, qk, first, load;
+  uint32_t vw[4];
+};
+
+// Start loading the KV-validity bytes of keys 32w + lane (w < 4) of the
+// item's sequence (zero at or past Tk, and past the last item). A warp
+// reads them one item ahead, so they have landed when the item begins.
+__device__ __forceinline__ void wd_fetch(const TlArgs& a, int item,
+                                         unsigned char (&pre)[4]) {
   const int lane = threadIdx.x & 31;
-  const float* base = x + b * sb + (long long)h * sh;
-  __syncwarp();  // the lanes are done with dst's last contents
-#pragma unroll 4
-  for (int e = lane; e < 16 * C; e += 32) {
-    const int r = e / C;
-    const int c = (e - r * C) * 4;
-    const int col = c0 + c;
-    const int t = t0 + r;
-    float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (t < t_end) {
-      const float* src = base + (long long)t * st + col;
-      if (a.vec && col + 4 <= a.D) {
-        f = *reinterpret_cast<const float4*>(src);
-      } else {
-        if (col < a.D) f.x = src[0];
-        if (col + 1 < a.D) f.y = src[1];
-        if (col + 2 < a.D) f.z = src[2];
-        if (col + 3 < a.D) f.w = src[3];
+  const unsigned char* src =
+      a.kv_valid + (size_t)(item / (a.nqt * a.H)) * a.Tk;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    pre[w] = 0;
+    if (item < a.n_items && 32 * w + lane < a.Tk) pre[w] = src[32 * w + lane];
+  }
+}
+
+// visibility bits of keys j0 .. j0 + 31 of sequence b, read now (keys past
+// 128: blocks of long rows only)
+__device__ __forceinline__ uint32_t wd_bits(const TlArgs& a, int b, int j0) {
+  const int j = j0 + (threadIdx.x & 31);
+  return __ballot_sync(0xffffffffu,
+                       j < a.Tk && a.kv_valid[(size_t)b * a.Tk + j] != 0);
+}
+
+__device__ __forceinline__ uint32_t wd_word(const uint32_t (&vw)[4], int w) {
+  return w == 0 ? vw[0] : w == 1 ? vw[1] : w == 2 ? vw[2] : vw[3];
+}
+
+// The cursor's item begins: its place, its validity bits from the
+// prefetched bytes, the keys its rows see (none past the sequence's last
+// valid key or above the causal diagonal of its last row; none at all
+// where no row sees the first valid key), its tiles and first q row that
+// sees a key; and the next item's bytes start to load.
+__device__ void wd_begin(const TlArgs& a, WdCursor& p,
+                         unsigned char (&pre)[4]) {
+  const int r = p.item / a.nqt;
+  p.i0 = 16 * (p.item - r * a.nqt);
+  p.b = r / a.H;
+  p.h = r - p.b * a.H;
+  int first = -1, last = -1;
+#pragma unroll
+  for (int w = 3; w >= 0; --w) {
+    p.vw[w] = __ballot_sync(0xffffffffu, pre[w] != 0);
+    if (p.vw[w]) first = 32 * w + __ffs((int)p.vw[w]) - 1;
+  }
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    if (p.vw[w]) last = 32 * w + 31 - __clz((int)p.vw[w]);
+  }
+  for (int j0 = 128; j0 < a.Tk; j0 += 32) {
+    const uint32_t w = wd_bits(a, p.b, j0);
+    if (w) {
+      last = j0 + 31 - __clz((int)w);
+      if (first < 0) first = j0 + __ffs((int)w) - 1;
+    }
+  }
+  wd_fetch(a, p.item + gridDim.x, pre);
+  const int cend = tl_causal_end(a, min(p.i0 + 15, a.Tq - 1));
+  p.kend = first >= 0 && first < cend ? min(last + 1, cend) : 0;
+  p.nt = p.kend <= a.tk ? 1 : (p.kend + a.tk - 1) / a.tk;
+  p.qlo = a.causal
+              ? min(max(p.i0, a.kv_start + first - a.q_start), p.i0 + 16)
+              : p.i0;
+  p.c = p.t = 0;
+  p.pass = p.nt == 1 ? 0 : 1;
+  p.qk = p.first = 1;
+}
+
+// the cursor past its load: the next load of its item, or the next item
+__device__ __forceinline__ void wd_advance(const TlArgs& a, WdCursor& p) {
+  p.first = 0;
+  bool done = p.kend == 0;
+  if (!done && ++p.c == a.nch) {
+    p.c = 0;
+    if (p.pass == 1) {
+      if (++p.t == p.nt) {
+        p.t = 0;
+        p.pass = 2;
+      }
+    } else if (p.qk) {
+      p.qk = 0;
+    } else if (p.pass == 0 || ++p.t == p.nt) {
+      done = true;
+    } else {
+      p.qk = 1;
+    }
+  }
+  if (done) {
+    p.item += gridDim.x;
+    p.first = 1;
+  }
+}
+
+// Start copies of rows t0 + r (r < rows) of head h of sequence b of x,
+// columns c0 .. c0 + kWdChunk - 1, into dst (rows of kWdRow floats):
+// 16-byte copies (4-byte ones where strides or pointers are not 16-byte
+// aligned); rows outside [t_lo, t_hi) and columns at or past D are
+// zero-filled and not read.
+__device__ __forceinline__ void wd_rows(const TlArgs& a, float* dst,
+                                        const float* x, long long sb,
+                                        long long st, long long sh, int b,
+                                        int h, int t0, int rows, int t_lo,
+                                        int t_hi, int c0) {
+  const int lane = threadIdx.x & 31;
+  const float* base = x + b * sb + (long long)h * sh + c0;
+  if (a.vec) {
+    constexpr int C = kWdChunk / 4;  // 16-byte copies a row
+    const int c = 4 * (lane % C);   // the lane's column, in every row
+    const int cb = 4 * min(max(a.D - c0 - c, 0), 4);
+    for (int r = lane / C; r < rows; r += 32 / C) {
+      const int t = t0 + r;
+      const int bytes = t >= t_lo && t < t_hi ? cb : 0;
+      cp_async16_zfill(dst + r * kWdRow + c,
+                       bytes ? base + (long long)t * st + c : x,
+                       (uint32_t)bytes);
+    }
+  } else {
+    for (int e = lane; e < rows * kWdChunk; e += 32) {
+      const int r = e / kWdChunk;
+      const int c = e - r * kWdChunk;
+      const int t = t0 + r;
+      const int bytes = t >= t_lo && t < t_hi && c0 + c < a.D ? 4 : 0;
+      cp_async4_zfill(dst + r * kWdRow + c,
+                      bytes ? base + (long long)t * st + c : x,
+                      (uint32_t)bytes);
+    }
+  }
+}
+
+// Issue the cursor's next load into its stage (one cp.async group: a q
+// chunk and the K tile's rows up to kend, or the V tile's; an empty one
+// where the item's rows see no key) with its header {b (-1 past the last
+// item), h, i0, kend, c, t, flags (qk, pass, first), nt, and with a tile's
+// last q-and-K chunk its two visibility words}; then advance.
+__device__ void wd_produce(const TlArgs& a, WdCursor& p,
+                           unsigned char (&pre)[4], float* stages,
+                           int* hdr) {
+  const int st = p.load % kWdStages;
+  ++p.load;
+  int* hd = hdr + st * kWdHdr;
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (p.item >= a.n_items) {
+    if (lead) hd[0] = -1;
+    cp_async_commit();
+    return;
+  }
+  if (p.first) wd_begin(a, p, pre);
+  uint32_t w0 = 0, w1 = 0;
+  if (p.kend > 0) {
+    const int t0 = p.t * a.tk;
+    const int kr = min(a.tk, (p.kend - t0 + 15) & ~15);
+    const int c0 = p.c * kWdChunk;
+    float* dst = stages + st * (16 + a.tk) * kWdRow;
+    float* kv = dst + 16 * kWdRow;
+    if (p.qk) {
+      wd_rows(a, dst, a.q, a.qsb, a.qst, a.qsh, p.b, p.h, p.i0, 16, p.qlo,
+              min(p.i0 + 16, a.Tq), c0);
+      wd_rows(a, kv, a.k, a.ksb, a.kst, a.ksh, p.b, p.h, t0, kr, 0, p.kend,
+              c0);
+      if (p.c == a.nch - 1) {
+        // a tile of several starts at a multiple of 32 keys (tk 32 or 64)
+        const int w = t0 >> 5;
+        w0 = w < 4 ? wd_word(p.vw, w) : wd_bits(a, p.b, t0);
+        w1 = w + 1 < 4 ? wd_word(p.vw, w + 1) : wd_bits(a, p.b, t0 + 32);
+      }
+    } else {
+      wd_rows(a, kv, a.v, a.vsb, a.vst, a.vsh, p.b, p.h, t0, kr, 0, p.kend,
+              c0);
+    }
+  }
+  if (lead) {
+    hd[0] = p.b;
+    hd[1] = p.h;
+    hd[2] = p.i0;
+    hd[3] = p.kend;
+    hd[4] = p.c;
+    hd[5] = p.t;
+    hd[6] = p.qk | p.pass << 1 | p.first << 3;
+    hd[7] = p.nt;
+    hd[8] = (int)w0;
+    hd[9] = (int)w1;
+  }
+  cp_async_commit();
+  wd_advance(a, p);
+}
+
+// a stage's load as its header gives it to the consumer
+struct WdLoad {
+  int b, h, i0, kend, c, t, qk, pass, first, nt;
+  uint32_t vw[2];
+};
+
+// An item whose rows see no key: m = -1e30, l = 0, pv = 0.
+__device__ void wd_empty(const TlArgs& a, const WdLoad& ld) {
+  const int lane = threadIdx.x & 31;
+  const int rows = min(16, a.Tq - ld.i0);
+  if (lane < rows) {
+    const size_t stat = ((size_t)ld.b * a.H + ld.h) * a.Tq + ld.i0 + lane;
+    a.m[stat] = kNegInf;
+    a.l[stat] = 0.0f;
+  }
+  for (int r = 0; r < rows; ++r) {
+    float* out = a.pv + (((size_t)ld.b * a.Tq + ld.i0 + r) * a.H + ld.h) * a.D;
+    if ((a.D & 3) == 0) {
+      for (int c = 4 * lane; c < a.D; c += 128) {
+        *reinterpret_cast<float4*>(out + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int c = lane; c < a.D; c += 32) out[c] = 0.0f;
+    }
+  }
+}
+
+// -- the wide path at bf16: both products on the tensor cores
+
+struct WdBf16 {
+  // the tile's scores in the tc variant's layout: s[2kk + half] holds keys
+  // 16kk + 4t4 + 2half + {0, 1} of rows g ([0..1]) and g + 8 ([2..3])
+  float s[2 * kWdGroups][4];
+  float m0, m1, l0, l1;
+  uint32_t pf[kWdGroups][4];  // p of group kk as P.V's A fragment
+
+  __device__ void init() {
+    m0 = m1 = kNegInf;
+    l0 = l1 = 0.0f;
+  }
+  __device__ void zero() {
+#pragma unroll
+    for (int n = 0; n < 2 * kWdGroups; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    }
+  }
+};
+
+// s += q . K^T over one staged chunk (qs: 16 q rows, ks: the K tile's rows)
+// for the first gend 16-key groups; operands rounded f32 -> bf16 as the
+// fragments form, the contraction index permuted alike in both (so each
+// lane reads float4s), as in the tc variant
+__device__ __forceinline__ void wd_scores_bf16(const float* qs,
+                                               const float* ks, WdBf16& st,
+                                               int gend) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int dc = 0; dc < kWdChunk / 16; ++dc) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        qs + g * kWdRow + 16 * dc + 4 * t4);
+    const float4 y = *reinterpret_cast<const float4*>(
+        qs + (g + 8) * kWdRow + 16 * dc + 4 * t4);
+    const uint32_t a0 = pack_bf16(x.x, x.y);
+    const uint32_t a1 = pack_bf16(y.x, y.y);
+    const uint32_t a2 = pack_bf16(x.z, x.w);
+    const uint32_t a3 = pack_bf16(y.z, y.w);
+#pragma unroll
+    for (int kk = 0; kk < kWdGroups; ++kk) {
+      if (kk >= gend) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = 16 * kk + 2 * g - (g & 1) + 2 * half;
+        const float4 kv = *reinterpret_cast<const float4*>(
+            ks + key * kWdRow + 16 * dc + 4 * t4);
+        mma_bf16(st.s[2 * kk + half], a0, a1, a2, a3, pack_bf16(kv.x, kv.y),
+                 pack_bf16(kv.z, kv.w));
       }
     }
-    if (kBf16) {
-      f.x = __bfloat162float(__float2bfloat16_rn(f.x));
-      f.y = __bfloat162float(__float2bfloat16_rn(f.y));
-      f.z = __bfloat162float(__float2bfloat16_rn(f.z));
-      f.w = __bfloat162float(__float2bfloat16_rn(f.w));
-    }
-    *reinterpret_cast<float4*>(dst + r * rs + c) = f;
   }
-  __syncwarp();
 }
 
-// Persistent blocks of nw = min(column chunks, kTlWideWarps) warps walk
-// over (sequence, head, 16 query rows) items. For each 16-key tile each
-// warp sums the scores over its own kTlChunk-column chunks of D (chunks
-// w, w + nw, ...), staging q and K chunks in its own shared memory; the
-// block adds the warps' partial sums in warp order, so every warp holds
-// the same full scores; then warp w takes the row max (pass 1), and p, l
-// and pv's column chunk w (pass 2) -- in rounds where D has more chunks
-// than the block has warps. Neither shared memory nor registers grow
-// with D. Every chunk's warp computes the same m and l; chunk 0's writes
-// them. On the FMA pipe at both compute types: at bf16 the operands are
-// rounded as they are staged, and p as it meets V, so the products are
-// those of the tensor cores.
+// Scale and mask the tile's summed scores (keys kpos0 + ...; vw its
+// visibility bits), folding them into the row max where do_max; then,
+// where do_p, p = exp(s - m), l and p's A fragments (p rounded to bf16).
+__device__ __forceinline__ void wd_softmax_bf16(const TlArgs& a, WdBf16& st,
+                                                const uint32_t (&vw)[2],
+                                                int gend, int i0, int kpos0,
+                                                bool do_max, bool reduce_max,
+                                                bool do_p) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int qpos = a.q_start + i0 + g;
+  // bit 4kk + e: key 16kk + 4t4 + e visible to row g (ok0), g + 8 (ok1)
+  uint32_t ok0 = 0, ok1 = 0;
+#pragma unroll
+  for (int kk = 0; kk < kWdGroups; ++kk) {
+    if (kk >= gend) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int jl = 16 * kk + 4 * t4 + e;
+      const bool vj = (vw[kk >> 1] >> (((kk & 1) << 4) + 4 * t4 + e)) & 1u;
+      const int kpos = kpos0 + jl;
+      const bool o0 = vj && (!a.causal || qpos >= kpos);
+      const bool o1 = vj && (!a.causal || qpos + 8 >= kpos);
+      ok0 |= (uint32_t)o0 << (4 * kk + e);
+      ok1 |= (uint32_t)o1 << (4 * kk + e);
+      float& x0 = st.s[2 * kk + (e >> 1)][e & 1];
+      float& x1 = st.s[2 * kk + (e >> 1)][2 + (e & 1)];
+      x0 = o0 ? __fmul_rn(x0, a.scale) : kNegInf;
+      x1 = o1 ? __fmul_rn(x1, a.scale) : kNegInf;
+      if (do_max) {
+        st.m0 = fmaxf(st.m0, x0);
+        st.m1 = fmaxf(st.m1, x1);
+      }
+    }
+  }
+  if (reduce_max) {
+    st.m0 = fmaxf(st.m0, __shfl_xor_sync(0xffffffffu, st.m0, 1));
+    st.m0 = fmaxf(st.m0, __shfl_xor_sync(0xffffffffu, st.m0, 2));
+    st.m1 = fmaxf(st.m1, __shfl_xor_sync(0xffffffffu, st.m1, 1));
+    st.m1 = fmaxf(st.m1, __shfl_xor_sync(0xffffffffu, st.m1, 2));
+  }
+  if (!do_p) return;
+#pragma unroll
+  for (int kk = 0; kk < kWdGroups; ++kk) {
+    if (kk >= gend) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x0 = st.s[2 * kk + (e >> 1)][e & 1];
+      float& x1 = st.s[2 * kk + (e >> 1)][2 + (e & 1)];
+      x0 = (ok0 >> (4 * kk + e)) & 1u ? expf(x0 - st.m0) : 0.0f;
+      x1 = (ok1 >> (4 * kk + e)) & 1u ? expf(x1 - st.m1) : 0.0f;
+      st.l0 += x0;
+      st.l1 += x1;
+    }
+    st.pf[kk][0] = pack_bf16(st.s[2 * kk][0], st.s[2 * kk][1]);
+    st.pf[kk][1] = pack_bf16(st.s[2 * kk][2], st.s[2 * kk][3]);
+    st.pf[kk][2] = pack_bf16(st.s[2 * kk + 1][0], st.s[2 * kk + 1][1]);
+    st.pf[kk][3] = pack_bf16(st.s[2 * kk + 1][2], st.s[2 * kk + 1][3]);
+  }
+}
+
+// pv's columns c0 .. c0 + kWdChunk - 1 of the warp's rows (g, g + 8) += P . V
+// over one staged chunk of the V tile (vs), for the first gend groups;
+// add: pv holds earlier tiles' sums (a tile of several), else it starts at
+// zero. Each lane keeps its fragment's pv positions, so its own stores are
+// what it reads back.
+__device__ void wd_pv_bf16(const TlArgs& a, const float* vs,
+                           const WdBf16& st, int gend, const WdLoad& ld,
+                           bool add) {
+  constexpr int DN = kWdChunk / 8;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int c0 = ld.c * kWdChunk;
+  const bool even = (a.D & 1) == 0;
+  float o[DN][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = ld.i0 + g + 8 * half;
+    const float* out = a.pv + (((size_t)ld.b * a.Tq + i) * a.H + ld.h) * a.D;
+#pragma unroll
+    for (int dt = 0; dt < DN; ++dt) {
+      const int c = c0 + 8 * dt + 2 * t4;
+      float2 x = make_float2(0.0f, 0.0f);
+      if (add && i < a.Tq) {
+        if (even) {
+          if (c < a.D) x = *reinterpret_cast<const float2*>(out + c);
+        } else {
+          if (c < a.D) x.x = out[c];
+          if (c + 1 < a.D) x.y = out[c + 1];
+        }
+      }
+      o[dt][2 * half] = x.x;
+      o[dt][2 * half + 1] = x.y;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kWdGroups; ++kk) {
+    if (kk >= gend) continue;
+    // B fragments: keys 16kk + 4t4 + {0..3} (the permuted contraction
+    // index), column g of each 8-column tile
+    const float* vr = vs + (16 * kk + 4 * t4) * kWdRow + g;
+#pragma unroll
+    for (int dt = 0; dt < DN; ++dt) {
+      const float* vc = vr + 8 * dt;
+      mma_bf16(o[dt], st.pf[kk][0], st.pf[kk][1], st.pf[kk][2],
+               st.pf[kk][3], pack_bf16(vc[0], vc[kWdRow]),
+               pack_bf16(vc[2 * kWdRow], vc[3 * kWdRow]));
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = ld.i0 + g + 8 * half;
+    if (i >= a.Tq) continue;
+    float* out = a.pv + (((size_t)ld.b * a.Tq + i) * a.H + ld.h) * a.D;
+#pragma unroll
+    for (int dt = 0; dt < DN; ++dt) {
+      const int c = c0 + 8 * dt + 2 * t4;
+      const float x = o[dt][2 * half], y = o[dt][2 * half + 1];
+      if (even) {
+        if (c < a.D) *reinterpret_cast<float2*>(out + c) = make_float2(x, y);
+      } else {
+        if (c < a.D) out[c] = x;
+        if (c + 1 < a.D) out[c + 1] = y;
+      }
+    }
+  }
+}
+
+// l over the quad; m and l of the warp's rows to device memory
+__device__ __forceinline__ void wd_stats_bf16(const TlArgs& a, WdBf16& st,
+                                              const WdLoad& ld) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 1);
+  st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, 2);
+  st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 1);
+  st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, 2);
+  if ((lane & 3) != 0) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = ld.i0 + g + 8 * half;
+    if (i >= a.Tq) continue;
+    const size_t stat = ((size_t)ld.b * a.H + ld.h) * a.Tq + i;
+    a.m[stat] = half ? st.m1 : st.m0;
+    a.l[stat] = half ? st.l1 : st.l0;
+  }
+}
+
+// -- the wide path at f32: both products on the FMA pipe (no TF32)
+
+struct WdF32 {
+  // lane (rg, kg) = (lane / 8, lane % 8): rows 4rg + r, keys 16kk + kg + 8c
+  float s[kWdGroups][4][2];
+  float m[4], l[4];
+
+  __device__ void init() {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.0f;
+    }
+  }
+  __device__ void zero() {
+#pragma unroll
+    for (int kk = 0; kk < kWdGroups; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[kk][r][0] = s[kk][r][1] = 0.0f;
+    }
+  }
+};
+
+// p = exp(s - m) where visible, l += p, p into the warp's p^T tile pt
+// [tk][kTlPRow] (key 16kk + kg + 8c, rows 4rg .. 4rg + 3)
+__device__ __forceinline__ void wd_p_f32(float* pt, WdF32& st, uint64_t ok,
+                                         int gend) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+  const int kg = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < kWdGroups; ++kk) {
+    if (kk >= gend) continue;
+    const bool all = ((ok >> (8 * kk)) & 0xffu) == 0xffu;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float p[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        p[r] = all || ((ok >> (8 * kk + 2 * r + c)) & 1u)
+                   ? expf(st.s[kk][r][c] - st.m[r]) : 0.0f;
+        st.l[r] += p[r];
+      }
+      *reinterpret_cast<float4*>(pt + (16 * kk + kg + 8 * c) * kTlPRow +
+                                 4 * rg) = make_float4(p[0], p[1], p[2], p[3]);
+    }
+  }
+}
+
+// pv's columns c0 .. c0 + kWdChunk - 1 of the warp's rows += P . V over one
+// staged chunk of the V tile (vs), p from the p^T tile: lane (rg, kg)
+// accumulates rows 4rg + r, columns 32dc + 4kg + {0..3}; add as in
+// wd_pv_bf16.
+__device__ void wd_pv_f32(const TlArgs& a, const float* vs, const float* pt,
+                          int gend, const WdLoad& ld, bool add) {
+  constexpr int DC = kWdChunk / 32;
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+  const int kg = lane & 7;
+  const int c0 = ld.c * kWdChunk;
+  const bool quad = (a.D & 3) == 0;
+  float acc[4][DC][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ld.i0 + 4 * rg + r;
+    const float* out = a.pv + (((size_t)ld.b * a.Tq + i) * a.H + ld.h) * a.D;
+#pragma unroll
+    for (int dc = 0; dc < DC; ++dc) {
+      const int c = c0 + 32 * dc + 4 * kg;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (add && i < a.Tq) {
+        if (quad) {
+          if (c < a.D) x = *reinterpret_cast<const float4*>(out + c);
+        } else {
+          if (c < a.D) x.x = out[c];
+          if (c + 1 < a.D) x.y = out[c + 1];
+          if (c + 2 < a.D) x.z = out[c + 2];
+          if (c + 3 < a.D) x.w = out[c + 3];
+        }
+      }
+      acc[r][dc][0] = x.x;
+      acc[r][dc][1] = x.y;
+      acc[r][dc][2] = x.z;
+      acc[r][dc][3] = x.w;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kWdGroups; ++kk) {
+    if (kk >= gend) continue;
+#pragma unroll 4
+    for (int jj = 0; jj < 16; ++jj) {
+      const int key = 16 * kk + jj;
+      const float4 pj =
+          *reinterpret_cast<const float4*>(pt + key * kTlPRow + 4 * rg);
+      const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vs + key * kWdRow + 32 * dc + 4 * kg);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float(&o)[4] = acc[r][dc];
+          o[0] = fmaf(pr[r], vv.x, o[0]);
+          o[1] = fmaf(pr[r], vv.y, o[1]);
+          o[2] = fmaf(pr[r], vv.z, o[2]);
+          o[3] = fmaf(pr[r], vv.w, o[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ld.i0 + 4 * rg + r;
+    if (i >= a.Tq) continue;
+    float* out = a.pv + (((size_t)ld.b * a.Tq + i) * a.H + ld.h) * a.D;
+#pragma unroll
+    for (int dc = 0; dc < DC; ++dc) {
+      const int c = c0 + 32 * dc + 4 * kg;
+      const float(&o)[4] = acc[r][dc];
+      if (quad) {
+        if (c < a.D) {
+          *reinterpret_cast<float4*>(out + c) =
+              make_float4(o[0], o[1], o[2], o[3]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < a.D) out[c + e] = o[e];
+        }
+      }
+    }
+  }
+}
+
+// l over the 8 lanes of a row; m and l of the warp's rows to device memory
+__device__ __forceinline__ void wd_stats_f32(const TlArgs& a, WdF32& st,
+                                             const WdLoad& ld) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane >> 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
+    st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 4);
+  }
+  if ((lane & 7) != 0) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ld.i0 + 4 * rg + r;
+    if (i >= a.Tq) continue;
+    const size_t stat = ((size_t)ld.b * a.H + ld.h) * a.Tq + i;
+    a.m[stat] = st.m[r];
+    a.l[stat] = st.l[r];
+  }
+}
+
+// One warp a block, as many blocks an SM as fit (eight where a tile holds
+// 16 keys: 26-28 KB each), each warp walking over (sequence, head, 16
+// query rows) items with a stream of loads of its own: a ring of
+// kWdStages stages, each a chunk of kWdChunk columns of q and of a KV
+// tile's K rows (or of its V rows), filled by cp.async copies while the
+// earlier stages compute, so the next chunks -- and the next item's --
+// are in flight meanwhile; no block barrier anywhere. Where the item's
+// visible keys fit one tile (up to kWdKeys: every T <= 64 block) the warp
+// sums each score over all of D in its own registers, chunk after chunk,
+// takes the exact row max from them, forms p once, and then streams V's
+// chunks into pv: q, K and V are each staged once. Longer rows take two
+// passes over tiles of 64 keys (the row max; then p, l and P.V, pv summed
+// over tiles in device memory by the lanes that own each element).
 template <bool kBf16>
-__global__ void __launch_bounds__(kTlWideWarps * 32, 1)
+__global__ void __launch_bounds__(32, 1)
 flash_block_wide_kernel(const TlArgs a) {
   extern __shared__ __align__(128) float smem[];
-  constexpr int rs = kTlChunk + kTlPad;
-  constexpr int WF = 2 * 16 * rs + 16 * kTlPRow;  // floats of a warp's own
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  const int rg = lane >> 3;
-  float* qc = smem + warp * WF;
-  float* kc = qc + 16 * rs;  // K chunk, then (pass 2) the V chunk
-  float* pt = kc + 16 * rs;
-  float* part = smem + nw * WF;  // [nw][32][8]
-  unsigned char* vbytes = reinterpret_cast<unsigned char*>(part + nw * 256);
-  int* red = reinterpret_cast<int*>(vbytes + 16);
-  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
-    const int qt = item % a.nqt;
-    const int r = item / a.nqt;
-    const int h = r % a.H;
-    const int b = r / a.H;
-    const int i0 = 16 * qt;
-    const unsigned char* valid = a.kv_valid + (size_t)b * a.Tk;
-    int last = -1;
-    for (int j = threadIdx.x; j < a.Tk; j += blockDim.x) {
-      if (valid[j]) last = j;
-    }
-    last = __reduce_max_sync(0xffffffffu, last);
-    if (lane == 0) red[warp] = last;
-    __syncthreads();
-    last = -1;
-    for (int w = 0; w < nw; ++w) last = max(last, red[w]);
-    const int kend =
-        min(last + 1, tl_causal_end(a, min(i0 + 15, a.Tq - 1)));
-    const int ntiles = (max(kend, 0) + 15) >> 4;
-    for (int cc0 = 0; cc0 < a.nch; cc0 += nw) {
-      const int cc = cc0 + warp;  // this warp's chunk of pv
-      TlF32<kTlChunk> st;
-      st.init();
-      for (int pass = 0; pass < 2; ++pass) {
-        for (int t = 0; t < ntiles; ++t) {
-          float s[1][4][2] = {};
-          for (int dc = warp; dc < a.nch; dc += nw) {
-            wd_stage<kBf16>(a, qc, a.q, a.qsb, a.qst, a.qsh, b, h, i0, a.Tq,
-                            kTlChunk * dc);
-            wd_stage<kBf16>(a, kc, a.k, a.ksb, a.kst, a.ksh, b, h, 16 * t,
-                            a.Tk, kTlChunk * dc);
-            f32_scores<kTlChunk, 1>(qc, kc, s, 1);
+  const int stage_f = (16 + a.tk) * kWdRow;
+  float* pt = smem + kWdStages * stage_f;  // f32: [tk][kTlPRow]
+  int* hdr = reinterpret_cast<int*>(pt + (kBf16 ? 0 : a.tk * kTlPRow));
+  WdCursor p;
+  p.item = blockIdx.x;
+  p.first = 1;
+  p.load = 0;
+  unsigned char pre[4];
+  wd_fetch(a, p.item, pre);
+  for (int s = 0; s < kWdStages; ++s) wd_produce(a, p, pre, smem, hdr);
+  std::conditional_t<kBf16, WdBf16, WdF32> st;
+  for (int load = 0;; ++load) {
+    cp_async_wait_group<kWdStages - 1>();
+    __syncwarp();
+    const int* hd = hdr + (load % kWdStages) * kWdHdr;
+    WdLoad ld;
+    ld.b = hd[0];
+    if (ld.b < 0) break;
+    ld.h = hd[1];
+    ld.i0 = hd[2];
+    ld.kend = hd[3];
+    ld.c = hd[4];
+    ld.t = hd[5];
+    ld.qk = hd[6] & 1;
+    ld.pass = (hd[6] >> 1) & 3;
+    ld.first = hd[6] >> 3;
+    ld.nt = hd[7];
+    ld.vw[0] = (uint32_t)hd[8];
+    ld.vw[1] = (uint32_t)hd[9];
+    const float* qs = smem + (load % kWdStages) * stage_f;
+    const float* ks = qs + 16 * kWdRow;  // the K (or V) tile's rows
+    if (ld.kend == 0) {
+      wd_empty(a, ld);
+    } else {
+      const int t0 = ld.t * a.tk;
+      const int gend = min((ld.kend - t0 + 15) >> 4, a.tk >> 4);
+      if (ld.first) st.init();
+      if (ld.qk) {
+        if (ld.c == 0) st.zero();
+        const bool last = ld.c == a.nch - 1;
+        const bool do_max = ld.pass != 2;
+        const bool reduce_max =
+            ld.pass == 0 || (ld.pass == 1 && ld.t == ld.nt - 1);
+        if constexpr (kBf16) {
+          wd_scores_bf16(qs, ks, st, gend);
+          if (last) {
+            wd_softmax_bf16(a, st, ld.vw, gend, ld.i0, a.kv_start + t0,
+                            do_max, reduce_max, ld.pass != 1);
           }
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            part[(warp * 32 + lane) * 8 + e] = s[0][e >> 1][e & 1];
-          }
-          if (threadIdx.x < 16) {
-            const int j = 16 * t + threadIdx.x;
-            vbytes[threadIdx.x] = j < a.Tk ? valid[j] : 0;
-          }
-          __syncthreads();
-          float f[1][4][2] = {};
-          for (int w = 0; w < nw; ++w) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              f[0][e >> 1][e & 1] += part[(w * 32 + lane) * 8 + e];
-            }
-          }
-          const uint32_t vw[1] = {
-              __ballot_sync(0xffffffffu, lane < 16 && vbytes[lane] != 0)};
-          __syncthreads();  // part and vbytes are free for the next tile
-          const uint64_t ok = f32_mask<1>(a, f, vw, 1, a.q_start + i0 + 4 * rg,
-                                          a.kv_start + 16 * t, pass == 0,
-                                          st.m);
-          if (pass == 1 && cc < a.nch) {
-            wd_stage<kBf16>(a, kc, a.v, a.vsb, a.vst, a.vsh, b, h, 16 * t,
-                            a.Tk, kTlChunk * cc);
-            f32_pv<kTlChunk, 1, kBf16>(kc, pt, f, ok, 1, st.m, st.l, st.acc);
+        } else {
+          f32_scores<kWdChunk, kWdGroups>(qs, ks, st.s, gend);
+          if (last) {
+            const int rg = (threadIdx.x & 31) >> 3;
+            const uint64_t ok = f32_mask<kWdGroups>(
+                a, st.s, ld.vw, gend, a.q_start + ld.i0 + 4 * rg,
+                a.kv_start + t0, do_max, st.m);
+            if (reduce_max) f32_rowmax(st.m);
+            if (ld.pass != 1) wd_p_f32(pt, st, ok, gend);
           }
         }
-        if (pass == 0) f32_rowmax(st.m);
-      }
-      if (cc < a.nch) {
-        tl_finish_f32<kTlChunk>(a, st, b, h, i0, kTlChunk * cc, cc == 0);
+      } else {
+        if constexpr (kBf16) {
+          wd_pv_bf16(a, ks, st, gend, ld, ld.t > 0);
+        } else {
+          wd_pv_f32(a, ks, pt, gend, ld, ld.t > 0);
+        }
+        if (ld.c == a.nch - 1 && ld.t == ld.nt - 1) {
+          if constexpr (kBf16) {
+            wd_stats_bf16(a, st, ld);
+          } else {
+            wd_stats_f32(a, st, ld);
+          }
+        }
       }
     }
-    __syncthreads();  // red is free for the next item
+    __syncwarp();  // the stage (and pt's readers) are done
+    wd_produce(a, p, pre, smem, hdr);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // cudaFuncAttributes of one instance → {registers, static shared bytes,
@@ -2045,8 +2606,9 @@ int kt_flash_block_tc(const float* q, const float* k, const float* v,
 //   at most 8;
 // - resident (path 1): bf16, dp 16, 32 or 64, g = 1, tk = Tk rounded up
 //   to 16, qr = 128 (8 warps);
-// - wide (path 2): D > 256, dp = D rounded up to 128, g = 1, tk = 16,
-//   qr = 16; min(dp / 128, 4) warps.
+// - wide (path 2): D > 256, dp = D rounded up to 64, g = 1, qr = 16, tk
+//   up to 64 (Tk rounded up to 16 where one tile holds it, else 32 or 64);
+//   one warp a block.
 int kt_flash_block_tiled(const float* q, const float* k, const float* v,
                          const unsigned char* kv_valid, float* pv, float* m,
                          float* l, int B, int Tq, int Tk, int H, int D,
@@ -2063,7 +2625,7 @@ int kt_flash_block_tiled(const float* q, const float* k, const float* v,
   const int nqt = (Tq + qr - 1) / qr;
   const int nkt = (Tk + tk - 1) / tk;
   int warps = g * (qr / 16);
-  const int nch = (D + kTlChunk - 1) / kTlChunk;
+  const int nch = (D + kWdChunk - 1) / kWdChunk;
   size_t smem = 0;
   long long items = 0;
   bool ok_shape = warps * 32 <= kTlMaxThreads;
@@ -2081,10 +2643,10 @@ int kt_flash_block_tiled(const float* q, const float* k, const float* v,
                qr == kTlQRows;
     items = (long long)B * H;
   } else if (path == kTlWide) {
-    warps = min(nch, kTlWideWarps);
-    smem = wd_smem_bytes(warps);
-    ok_shape = ok_shape && D > kTlMaxDP && dp == nch * kTlChunk && g == 1 &&
-               tk == 16 && qr == 16;
+    warps = 1;
+    smem = wd_smem_bytes(tk, bf16 != 0);
+    ok_shape = ok_shape && D > kTlMaxDP && dp == nch * kWdChunk && g == 1 &&
+               qr == 16 && tk <= kWdKeys && (nkt == 1 || tk % 32 == 0);
     items = (long long)B * H * nqt;
   } else {
     ok_shape = false;

@@ -12,7 +12,10 @@ every other shape: any Tq, Tk and D, as the TPU kernel takes them. The
 tiled variant has three paths (:func:`tiled_plan`): the ring (one score
 pass where a warp's keys fit its registers, else two over a stream of KV
 tiles), the resident path (bf16 K and V of a long block held whole in
-shared memory) and the wide path (D above 256, in chunks of 128 columns).
+shared memory) and the wide path (D above 256: one warp a block streaming
+64-column chunks of q, K and V through a ring of asynchronous copies; one
+score pass summed over all of D in the warp's registers where a row's
+visible keys fit a 64-key tile; tensor cores at bf16).
 
 - **B3** :func:`flash_block_pallas` — one fused (q-block × kv-block)
   attention partial ``(pv [B,Tq,H,D], m [B,H,Tq], l [B,H,Tq])``, the
@@ -97,11 +100,17 @@ TILED_BLOCK_SMEM = 32 * 1024
 # of dp + RESIDENT_PAD elements; 8 warps walk the q rows
 RESIDENT_DIMS = (16, 32, 64)
 RESIDENT_PAD = 8
-# the wide path: D above the widest padded head dim, in chunks of
-# WIDE_CHUNK columns, items of 16 query rows, a warp a chunk (up to
-# WIDE_WARPS, in rounds beyond)
-WIDE_CHUNK = 128
-WIDE_WARPS = 4
+# the wide path: D above the widest padded head dim; one warp a block, an
+# item of 16 query rows at a time, a ring of WIDE_STAGES stages each
+# holding a WIDE_CHUNK-column chunk of 16 q rows and of a KV tile's tk K
+# (or V) rows (f32 rows padded by TILED_PAD floats); one tile holds rows of
+# up to WIDE_KEYS keys (one score pass), longer rows stream tiles of
+# WIDE_KEYS (two passes); f32 adds a p^T tile of tk keys, each stage a
+# header of WIDE_HEADER ints
+WIDE_CHUNK = 64
+WIDE_STAGES = 3
+WIDE_KEYS = 64
+WIDE_HEADER = 12
 _PATHS = {"one-pass": 0, "two-pass": 0, "resident": 1, "wide": 2}
 
 _SOURCE = "attention"
@@ -189,12 +198,14 @@ def resident_smem_bytes(tkp: int, dp: int) -> int:
             + tkp)
 
 
-def wide_smem_bytes(warps: int) -> int:
-    """Shared memory of one wide block: per warp a q chunk and a K (or V)
-    chunk of 16 rows of ``WIDE_CHUNK`` + ``TILED_PAD`` floats, a p^T tile
-    and its lanes' 8 partial scores; 16 validity bytes and 8 ints."""
-    return (4 * warps * (2 * 16 * (WIDE_CHUNK + TILED_PAD)
-                         + 16 * TILED_P_ROW + 32 * 8) + 16 + 4 * 8)
+def wide_smem_bytes(tk: int, compute_dtype: torch.dtype) -> int:
+    """Shared memory of one wide block (one warp): ``WIDE_STAGES`` stages of
+    16 q rows and ``tk`` K (or V) rows of ``WIDE_CHUNK`` + ``TILED_PAD``
+    floats, at f32 compute a p^T tile of ``tk`` × ``TILED_P_ROW`` floats,
+    and each stage's ``WIDE_HEADER`` ints."""
+    pt = tk * TILED_P_ROW if compute_dtype == torch.float32 else 0
+    return (4 * (WIDE_STAGES * (16 + tk) * (WIDE_CHUNK + TILED_PAD) + pt)
+            + 4 * WIDE_STAGES * WIDE_HEADER)
 
 
 def _tc_plan(b: int, t: int, h: int, d: int, contiguous: bool) -> FlashPlan:
@@ -225,9 +236,10 @@ def tiled_plan(b: int, tq: int, tk: int, h: int, d: int,
                contiguous: bool = True) -> FlashPlan:
     """The KV-tiled variant's path and blocking for this call.
 
-    - D above the widest padded head dim: the wide path, items of 16
-      query rows, D taken in chunks of ``WIDE_CHUNK`` columns, a warp a
-      chunk (``WIDE_WARPS`` at most).
+    - D above the widest padded head dim: the wide path, one warp a
+      block, items of 16 query rows, D in chunks of ``WIDE_CHUNK``
+      columns; one KV tile of Tk rounded up to 16 keys where Tk is at most
+      ``WIDE_KEYS`` (one score pass), else tiles of ``WIDE_KEYS``.
     - bf16 where Tk is longer than a tile (``TILED_KEYS[dp]``), dp in
       ``RESIDENT_DIMS`` and K and V fit ``MAX_SMEM`` whole: the resident
       path, one (sequence, head) an item.
@@ -251,10 +263,10 @@ def tiled_plan(b: int, tq: int, tk: int, h: int, d: int,
     if compute_dtype not in TILED_DIMS:
         raise TypeError(f"B3 computes in bf16 or f32, not {compute_dtype}")
     if d > TILED_DIMS[compute_dtype][-1]:
-        chunks = -(-d // WIDE_CHUNK)
-        warps = min(chunks, WIDE_WARPS)
-        return FlashPlan("tiled", 1, 1, 32 * warps, wide_smem_bytes(warps),
-                         False, chunks * WIDE_CHUNK, 16, 16, "wide")
+        kt = min(_round16(tk), WIDE_KEYS)
+        return FlashPlan("tiled", 1, 1, 32, wide_smem_bytes(kt, compute_dtype),
+                         False, -(-d // WIDE_CHUNK) * WIDE_CHUNK, 16, kt,
+                         "wide")
     dp = next(x for x in TILED_DIMS[compute_dtype] if x >= d)
     kt = (_round16(tk) if tk <= TILED_KEYS[dp]
           else TILED_STREAM_KEYS[dp])

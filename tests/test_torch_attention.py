@@ -252,11 +252,29 @@ BF16, F32 = torch.bfloat16, torch.float32
      ("tiled", 1, 1, 192, False, 32, 96, 128, "one-pass")),
     (4, 128, 144, 4, 32, BF16, True,
      ("tiled", 1, 1, 256, False, 32, 128, 144, "resident")),
-    # D above 256: the wide path, D in chunks of 128 columns
+    # D above 256: the wide path, one warp a block, D in chunks of 64
+    # columns; one KV tile of Tk rounded up to 16 keys up to 64 keys (one
+    # pass: T = 16, Tq = Tk = 48), else tiles of 64 (two passes)
     (4, 48, 48, 2, 320, F32, True,
-     ("tiled", 1, 1, 96, False, 384, 16, 16, "wide")),
+     ("tiled", 1, 1, 32, False, 320, 16, 48, "wide")),
     (4, 16, 16, 4, 1000, BF16, True,
-     ("tiled", 1, 1, 128, False, 1024, 16, 16, "wide")),
+     ("tiled", 1, 1, 32, False, 1024, 16, 16, "wide")),
+    (4096, 16, 16, 4, 512, BF16, True,
+     ("tiled", 1, 1, 32, False, 512, 16, 16, "wide")),
+    (4096, 16, 16, 4, 512, F32, True,
+     ("tiled", 1, 1, 32, False, 512, 16, 16, "wide")),
+    (4096, 16, 16, 4, 320, F32, False,
+     ("tiled", 1, 1, 32, False, 320, 16, 16, "wide")),
+    (4, 48, 48, 2, 512, BF16, True,
+     ("tiled", 1, 1, 32, False, 512, 16, 48, "wide")),
+    (4, 48, 48, 2, 1000, F32, True,
+     ("tiled", 1, 1, 32, False, 1024, 16, 48, "wide")),
+    (4, 16, 100, 2, 320, BF16, True,
+     ("tiled", 1, 1, 32, False, 320, 16, 64, "wide")),
+    (4, 20, 65, 2, 512, F32, True,
+     ("tiled", 1, 1, 32, False, 512, 16, 64, "wide")),
+    (2, 512, 512, 4, 1000, BF16, True,
+     ("tiled", 1, 1, 32, False, 1024, 16, 64, "wide")),
     # D = 128 at T = 16 (the d_model-512 trunk): f32 packs sequences to
     # MAX_SMEM, bf16 takes one an item
     (65536, 16, 16, 4, 128, F32, True,
@@ -296,13 +314,20 @@ def test_flash_block_plan_fits_the_kernel(b, tq, tk, h, d, cd, contiguous,
         assert plan.threads == 256 and plan.g == 1
         return
     if plan.path == "wide":
-        # a warp a 128-column chunk (4 at most): its q and K (or V) chunks,
-        # its p^T tile and its lanes' partial scores
-        assert d > 256 and plan.dp == -(-d // 128) * 128
-        warps = min(plan.dp // 128, 4)
-        assert plan.threads == 32 * warps and plan.qr == 16
-        assert plan.smem == tcat.wide_smem_bytes(warps)
-        assert plan.smem == 4 * warps * (2 * 16 * 132 + 16 * 20 + 256) + 48
+        # one warp a block: three stages of a 64-column chunk of 16 q rows
+        # and tk K (or V) rows padded by 4 floats, at f32 a p^T tile of tk
+        # keys, 12 header ints a stage; a tile of several starts at a
+        # multiple of 32 keys
+        assert d > 256 and plan.dp == -(-d // 64) * 64
+        assert plan.threads == 32 and plan.qr == 16 and plan.g == 1
+        assert plan.tk == min((tk + 15) // 16 * 16, 64)
+        assert plan.smem == tcat.wide_smem_bytes(plan.tk, cd)
+        pt = plan.tk * 20 if cd == F32 else 0
+        assert plan.smem == 4 * (3 * (16 + plan.tk) * 68 + pt) + 4 * 3 * 12
+        # eight blocks an SM (1 KB of shared memory reserved each) where a
+        # sequence's keys fit one 16-key tile: the served windows
+        if tk <= 16:
+            assert 8 * (plan.smem + 1024) <= 232448
         return
     # the ring: two q slots and two K and V stages of rows padded by 4
     # floats, f32's p^T tiles where an item streams tiles, the stages'
@@ -388,6 +413,10 @@ PARITY_CASES = {
     "tq64_tk640_offsets": (2, 64, 640, 2, 32, 512, 100, False),
     "fully_masked_row": (3, 40, 72, 2, 24, 8, 0, True),
     "t40_d320": (2, 40, 48, 2, 320, 8, 0, False),
+    # the wide path at a ring block (Tq != Tk, both starts nonzero) and
+    # with a KV row past its one-pass limit of 64 keys (two passes)
+    "t16_tk24_d512_ring_block": (2, 16, 24, 2, 512, 24, 16, False),
+    "t16_tk100_d320_two_pass": (2, 16, 100, 2, 320, 90, 0, False),
 }
 
 

@@ -354,9 +354,16 @@ TILED_CASES = {
     "tq64_tk640_offsets": (3, 64, 640, 2, 32, 512, 100),
     "t20_tk33_d5": (4, 20, 33, 3, 5, 3, 0),
     "t48_d256": (2, 48, 40, 2, 256, 0, 0),
-    # the wide path: D above 256 in chunks of 128 columns
+    # the wide path: D above 256 in chunks of 64 columns
     "t40_d320": (3, 40, 48, 2, 320, 0, 0),
     "t24_d512": (3, 24, 24, 2, 512, 8, 0),
+    # each branch of its design: one pass at the served T = 16, a KV row
+    # streamed in two passes over 64-key tiles, D = 1000 (16 chunks, the
+    # last one partial) and rows that see no key (causal, KV from 8)
+    "t16_d512_one_pass": (3, 16, 16, 2, 512, 0, 0),
+    "t20_tk100_d320_streamed": (3, 20, 100, 2, 320, 80, 0),
+    "t16_d1000_chunks": (3, 16, 16, 2, 1000, 0, 0),
+    "t16_d384_masked_rows": (3, 16, 32, 2, 384, 0, 8),
     # either side of the one-pass boundary at DP 32: 128 keys in one tile,
     # 144 keys two tiles (f32) or resident (bf16)
     "t96_tk128_one_pass": (3, 96, 128, 2, 32, 32, 0),
@@ -398,8 +405,9 @@ def test_tiled_kernel_matches_plain_at_every_block(cuda_device, case, cd,
 def test_tiled_kernel_takes_strided_views_and_forced_plans(cuda_device, cd):
     """Strided q/k/v views (4-byte copies where strides are not multiples
     of 4 floats, 16-byte ones where they are) at a padded D and a long
-    block, and the tiled variant forced where tensor cores would run (the
-    ring's 128-row block at bf16), all against the plain version."""
+    block, and on the wide path at D = 320, and the tiled variant forced
+    where tensor cores would run (the ring's 128-row block at bf16), all
+    against the plain version; the instances' registers and spills."""
     q, k, v, valid = attention_inputs(5, 3, 144, 144, 4, 24, cuda_device)
     wide = torch.randn((3, 144, 5, 25), device=cuda_device)
     odd = wide[:, :, 1:, 1:]  # strides not multiples of 4 floats
@@ -432,6 +440,26 @@ def test_tiled_kernel_takes_strided_views_and_forced_plans(cuda_device, cd):
     assert cat.flash_block_info("tiled", 128, 32, cd)["registers"] <= 128
     for t, d in ((512, 32), (16, 512)):
         assert cat.flash_block_info("tiled", t, d, cd)["local_bytes"] == 0
+    # the wide instance: one warp a block, at most 255 registers
+    info = cat.flash_block_info("tiled", 16, 512, cd)
+    assert info["registers"] <= 255 and info["max_threads"] >= 32
+    # the wide path on strided views: 4-byte copies where the view is
+    # misaligned and its strides are not multiples of 4 floats, 16-byte
+    # ones where they are
+    q, k, v, valid = attention_inputs(7, 3, 16, 16, 2, 320, cuda_device)
+    odd = torch.randn((3, 16, 3, 321), device=cuda_device)[:, :, :2, 1:]
+    aligned = torch.randn((3, 16, 4, 324), device=cuda_device)[:, :, 1:3, 4:]
+    for view in (odd, aligned):
+        before = dict(cat.TILED_PATH_LAUNCHES)
+        got = cat.flash_block_pallas(view, k, v, valid, 0, 0,
+                                     compute_dtype=cd)
+        assert cat.TILED_PATH_LAUNCHES["wide"] == before["wide"] + 1
+        assert_b3_close(got, cat.flash_block_ref(
+            view, k, v, valid, 0, 0, compute_dtype=cd), v, cd)
+        got = cat.flash_block_pallas(q, view, view, valid, 3, 1,
+                                     compute_dtype=cd)
+        assert_b3_close(got, cat.flash_block_ref(
+            q, view, view, valid, 3, 1, compute_dtype=cd), view, cd)
 
 
 @pytest.mark.cuda
