@@ -14,6 +14,13 @@ watts on the unclamped output. ``optax.adamw`` becomes
 over every leaf, biases included, as optax decays them all. Unlike the
 JAX step, the PyTorch step updates the state's tensors in place: the state
 it returns shares them with the one it was given.
+
+Each step opens the telemetry spans ``train.step`` and, inside it,
+``train.forward``, ``train.loss`` and ``train.backward`` (with remat the
+recomputed forward falls under ``train.backward``; AdamW's step is
+torch's own ``Optimizer.step#AdamW.step`` range): profiler ranges while a
+profiler records, stage histograms where a recorder is installed,
+nothing otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, Callable, Mapping, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.estimator import map_params, param_leaves
 
 Params = Any  # dict of tensors; deep's ``blocks`` one level nested
@@ -129,10 +137,12 @@ def _update(state: TrainState, loss_fn: Callable[[Params], torch.Tensor]
             ) -> tuple[TrainState, torch.Tensor]:
     """One AdamW step on ``loss_fn(params)`` → (state, detached loss)."""
     opt = state.opt_state
-    opt.zero_grad(set_to_none=True)
-    loss = loss_fn(state.params)
-    loss.backward()
-    opt.step()
+    with telemetry.span("train.step"):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(state.params)
+        with telemetry.span("train.backward"):
+            loss.backward()
+        opt.step()
     return TrainState(state.params, opt, state.step + 1), loss.detach()
 
 
@@ -150,9 +160,12 @@ def make_train_step(predict_fn: Callable[..., torch.Tensor],
                    label_valid: torch.Tensor | None = None
                    ) -> tuple[TrainState, torch.Tensor]:
         def loss_fn(params: Params) -> torch.Tensor:
-            pred = predict_fn(params, features, workload_valid, clamp=False)
-            return masked_mse(pred, target_watts, workload_valid,
-                              label_valid)
+            with telemetry.span("train.forward"):
+                pred = predict_fn(params, features, workload_valid,
+                                  clamp=False)
+            with telemetry.span("train.loss"):
+                return masked_mse(pred, target_watts, workload_valid,
+                                  label_valid)
 
         return _update(state, loss_fn)
 
@@ -192,9 +205,11 @@ def temporal_step_fn(optimizer: Optimizer | None = None,
                    label_valid: torch.Tensor | None = None
                    ) -> tuple[TrainState, torch.Tensor]:
         def loss_fn(params: Params) -> torch.Tensor:
-            pred = run(params, feat_hist, workload_valid, t_valid)
-            return masked_mse(pred, target_watts, workload_valid,
-                              label_valid)
+            with telemetry.span("train.forward"):
+                pred = run(params, feat_hist, workload_valid, t_valid)
+            with telemetry.span("train.loss"):
+                return masked_mse(pred, target_watts, workload_valid,
+                                  label_valid)
 
         return _update(state, loss_fn)
 

@@ -24,6 +24,13 @@ model-axis math and replicated params, so the port computes each block
 once where the reference replicates it over ``model``
 (:func:`node_blocks`, :func:`shard_by_node`; the packed window programs
 use them too).
+
+Telemetry spans (profiler ranges while a profiler records, stages of the
+aggregator's ``aggregator.window`` cycle where a recorder is installed):
+:func:`run_fleet_attribution` opens ``fleet.pack`` (the host pack of a
+node block), ``fleet.h2d`` (its copy to the device) and ``fleet.launch``
+(the program call); the programs open ``fleet.attribute`` (B1 or its
+plain version), ``fleet.estimator`` and ``fleet.mix``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.device import resolve_device
 from kepler_tpu_torch.models.estimator import (LINEAR, TEMPORAL, params_to,
                                                predictor)
@@ -123,16 +131,19 @@ def fleet_attribution_program(
 ) -> FleetResult:
     """Ratio attribution for every node, plus the estimator for mixed
     fleets when ``predict_fn`` is given."""
-    ratio = attribute_fn(
-        zone_deltas_uj, zone_valid, usage_ratio, cpu_deltas,
-        workload_valid, node_cpu_delta, dt_s,
-    )
+    with telemetry.span("fleet.attribute"):
+        ratio = attribute_fn(
+            zone_deltas_uj, zone_valid, usage_ratio, cpu_deltas,
+            workload_valid, node_cpu_delta, dt_s,
+        )
     if predict_fn is None:
         return _ratio_only_result(ratio)
-    feats = build_features(cpu_deltas, workload_valid, node_cpu_delta,
-                           usage_ratio, dt_s)
-    model_watts = predict_fn(model_params, feats, workload_valid)
-    return mix_model_watts(ratio, model_watts, mode, dt_s)
+    with telemetry.span("fleet.estimator"):
+        feats = build_features(cpu_deltas, workload_valid, node_cpu_delta,
+                               usage_ratio, dt_s)
+        model_watts = predict_fn(model_params, feats, workload_valid)
+    with telemetry.span("fleet.mix"):
+        return mix_model_watts(ratio, model_watts, mode, dt_s)
 
 
 def temporal_fleet_program(
@@ -154,14 +165,18 @@ def temporal_fleet_program(
     """Mixed fleet with the TEMPORAL estimator: the model predicts each
     workload's watts from its whole history window (``monitor.history``)
     instead of the last tick."""
-    ratio = attribute_fn(
-        zone_deltas_uj, zone_valid, usage_ratio, cpu_deltas,
-        workload_valid, node_cpu_delta, dt_s,
-    )
+    with telemetry.span("fleet.attribute"):
+        ratio = attribute_fn(
+            zone_deltas_uj, zone_valid, usage_ratio, cpu_deltas,
+            workload_valid, node_cpu_delta, dt_s,
+        )
     pfn = (accuracy_mode_predictor(predict_temporal, TEMPORAL)
            if accuracy_mode else predict_temporal)
-    watts = pfn(model_params, feat_hist, workload_valid, t_valid=t_valid)
-    return mix_model_watts(ratio, watts, mode, dt_s)
+    with telemetry.span("fleet.estimator"):
+        watts = pfn(model_params, feat_hist, workload_valid,
+                    t_valid=t_valid)
+    with telemetry.span("fleet.mix"):
+        return mix_model_watts(ratio, watts, mode, dt_s)
 
 
 def resolve_attribute_fn(backend: str) -> Callable:
@@ -263,16 +278,18 @@ def put_blocks(arrays: Sequence[np.ndarray], mesh: Mesh
     sb = n_rows // len(blocks)
     out = []
     for b in blocks:
-        parts = [np.ascontiguousarray(a[b.index * sb:(b.index + 1) * sb])
-                 for a in arrays]
-        offsets, size = [], 0
-        for p in parts:
-            offsets.append(size)
-            size += -(-p.nbytes // 16) * 16  # 16-byte aligned segments
-        buf = np.empty(size, np.uint8)
-        for p, off in zip(parts, offsets):
-            buf[off:off + p.nbytes] = p.reshape(-1).view(np.uint8)
-        dev_buf = torch.from_numpy(buf).to(b.device)
+        with telemetry.span("fleet.pack"):
+            parts = [np.ascontiguousarray(a[b.index * sb:(b.index + 1) * sb])
+                     for a in arrays]
+            offsets, size = [], 0
+            for p in parts:
+                offsets.append(size)
+                size += -(-p.nbytes // 16) * 16  # 16-byte aligned segments
+            buf = np.empty(size, np.uint8)
+            for p, off in zip(parts, offsets):
+                buf[off:off + p.nbytes] = p.reshape(-1).view(np.uint8)
+        with telemetry.span("fleet.h2d"):
+            dev_buf = torch.from_numpy(buf).to(b.device)
         out.append([
             dev_buf[off:off + p.nbytes].view(torch.from_numpy(p[:0]).dtype
                                              ).view(p.shape)
@@ -385,14 +402,19 @@ def run_fleet_attribution(
     mesh = program.mesh
     if mesh is None:
         dev = program.device
-        params = (params_to(model_params, dev)
-                  if model_params is not None else None)
-        return program(params, *(torch.as_tensor(x).to(dev) for x in data))
+        with telemetry.span("fleet.h2d"):
+            params = (params_to(model_params, dev)
+                      if model_params is not None else None)
+            args = [torch.as_tensor(x).to(dev) for x in data]
+        with telemetry.span("fleet.launch"):
+            return program(params, *args)
     blocks = put_blocks([np.asarray(x) for x in data], mesh)
     on: dict[torch.device, Any] = {}
     params = []
-    for b in node_blocks(mesh):
-        if model_params is not None and b.device not in on:
-            on[b.device] = params_to(model_params, b.device)
-        params.append(on.get(b.device))
-    return program(params, *zip(*blocks))
+    with telemetry.span("fleet.h2d"):
+        for b in node_blocks(mesh):
+            if model_params is not None and b.device not in on:
+                on[b.device] = params_to(model_params, b.device)
+            params.append(on.get(b.device))
+    with telemetry.span("fleet.launch"):
+        return program(params, *zip(*blocks))

@@ -13,7 +13,8 @@ serves:
                               the monitor/exporter threads, which a
                               per-thread cProfile cannot
 - ``/debug/pprof/torch``    — one-shot ``torch.profiler`` trace of 0.5 s
-                              (host and, on the card, device activity) to
+                              (every thread's host ranges and, on the
+                              card, device activity) to
                               a Chrome-trace file in a temp dir (loads in
                               Perfetto); the reference package serves a
                               JAX profiler trace here as ``/debug/pprof/jax``
@@ -147,15 +148,20 @@ class DebugService:
         return 200, {"Content-Type": "text/plain"}, out.getvalue().encode()
 
     def _torch_trace(self) -> tuple[int, dict[str, str], bytes]:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import (ProfilerActivity, _ExperimentalConfig,
+                                    profile)
 
         activities = [ProfilerActivity.CPU]
         if self._device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         trace_dir = tempfile.mkdtemp(prefix="kepler-torch-trace-")
-        with profile(activities=activities) as prof:
-            # capture one trivial device op so the trace isn't empty; real
-            # attribution steps landing in this window are also captured
+        every_thread = _ExperimentalConfig(profile_all_threads=True)
+        with profile(activities=activities,
+                     experimental_config=every_thread) as prof:
+            # one trivial device op so the trace isn't empty. Attribution
+            # windows in these 0.5 s land in it too: their device work and
+            # their host ranges (the fleet.* spans, PyTorch's operators),
+            # since every thread's host ranges are recorded
             torch.zeros(8, device=self._device).add_(1.0).sum().item()
             time.sleep(0.5)
         path = os.path.join(trace_dir, "trace.json")

@@ -42,6 +42,16 @@ Cost contract:
   the pipeline survives its own observability being dropped; dropped
   traces are counted (``kepler_self_traces_dropped_total``), never
   raised.
+
+Profiler mirror: while a ``torch.profiler`` records, every span also
+opens a ``torch.profiler.record_function`` range of its (trace) name, so
+the spans sit on the profiler's clock, nest with PyTorch's operators in
+its Chrome trace, and select the device work each stage launched. The
+gate is a flag read (``torch.autograd.profiler._is_profiler_enabled``,
+looked up in ``sys.modules``: without torch loaded no profiler can
+record, so this module imports no torch). With no profiler recording a
+span opens no range, enabled recorder or not; with the recorder disabled
+and a profiler recording, ``span()`` returns a range-only context.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ import bisect
 import collections
 import contextlib
 import logging
+import sys
 import threading
 import time as _time
 from dataclasses import dataclass
@@ -182,7 +193,7 @@ class _Span:
     not supported — ``span()`` returns a fresh handle per with-block."""
 
     __slots__ = ("_rec", "_st", "_name", "_budget", "_t0", "_depth",
-                 "_stage")
+                 "_stage", "_range")
 
     def __init__(self, rec: "SpanRecorder", st: _ThreadState, name: str,
                  budget_s: float | None,
@@ -194,6 +205,8 @@ class _Span:
         self._stage = stage
 
     def __enter__(self) -> "_Span":
+        self._range = _mirror(self._name)
+        self._range.__enter__()
         st = self._st
         if not st.stack:
             st.events = []
@@ -206,6 +219,7 @@ class _Span:
 
     def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> None:
         t1 = self._rec._monotonic()
+        self._range.__exit__(exc_type, exc, tb)
         st = self._st
         if st.stack:
             st.stack.pop()
@@ -216,6 +230,22 @@ class _Span:
             stage=self._stage))
         if not st.stack:
             self._rec._complete_cycle(st, self._budget)
+
+
+def _mirror(name: str) -> Any:
+    """The profiler range ``name`` while a torch profiler records, else
+    the shared no-op. The gate is a flag read, no C call."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and prof._is_profiler_enabled:
+        return _range(name)
+    return _NOOP
+
+
+def _range(name: str) -> Any:
+    """A profiler range named ``name`` (a context manager)."""
+    from torch.profiler import record_function
+
+    return record_function(name)
 
 
 class _NoopSpan:
@@ -286,7 +316,7 @@ class SpanRecorder:
         overrides the histogram key (``""`` = trace-only) — see
         :class:`SpanEvent`."""
         if not self._enabled:
-            return _NOOP
+            return _mirror(name)
         return _Span(self, self._state(), name, budget_s, stage)
 
     def _state(self) -> _ThreadState:
@@ -471,11 +501,16 @@ def install(rec: SpanRecorder) -> SpanRecorder:
 def span(name: str, budget_s: float | None = None,
          stage: str | None = None):
     """The instrumentation point. Disabled cost: one global read, one
-    attribute check, a shared no-op context manager. ``stage``
-    re-keys the stage histogram (``""`` = trace-only), so per-instance
-    span names never mint per-instance metric series."""
+    attribute check, the profiler gate (a dict lookup and a flag read)
+    and a shared no-op context manager. ``stage`` re-keys the stage
+    histogram (``""`` = trace-only), so per-instance span names never
+    mint per-instance metric series; the profiler range takes ``name``."""
     rec = _active
     if not rec._enabled:
+        # _mirror() inlined: this is the hot path
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is not None and prof._is_profiler_enabled:
+            return _range(name)
         return _NOOP
     return rec.span(name, budget_s, stage)
 

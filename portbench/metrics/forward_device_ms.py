@@ -1,0 +1,12 @@
+"""Device time a step of the kernels the forward launches (inside the
+program's ``train.forward`` span: the predictor call), from the
+profiler."""
+
+RANGE = "train.forward"
+
+
+def read(r):
+    steps = r.window.counts.get("steps")
+    if r.trace is None or not steps or not r.trace.count_host(RANGE):
+        return None
+    return r.trace.device_s_under(RANGE) / steps * 1e3

@@ -1,0 +1,286 @@
+"""The port's span plane (``kepler_tpu_torch.telemetry.spans``) and its
+profiler mirror: the disabled path's cost with the profiler gate (the
+< 1 µs contract ``tests/test_telemetry.py`` pins for the JAX package),
+no profiler range without a recording profiler, spans as nested
+``user_annotation`` ranges under a CPU ``torch.profiler`` with the
+recorder enabled and disabled, an exception closing both, and the fleet
+program's ``fleet.*`` spans: present under a profiler, stages of an
+enclosing ``aggregator.window`` cycle, and the published tensors
+bit-equal traced and untraced."""
+
+from __future__ import annotations
+
+import json
+import shutil
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from kepler_tpu_torch import telemetry
+from kepler_tpu_torch.models.mlp import init_mlp
+from kepler_tpu_torch.models.temporal import init_temporal
+from kepler_tpu_torch.parallel import aggregator_core
+from kepler_tpu_torch.parallel.fleet import MODE_MODEL, MODE_RATIO, FleetBatch
+from kepler_tpu_torch.parallel.mesh import make_mesh
+from kepler_tpu_torch.telemetry import SpanRecorder
+
+FLEET_SPANS = ("fleet.pack", "fleet.h2d", "fleet.launch", "fleet.attribute",
+               "fleet.estimator", "fleet.mix")
+
+
+def ranges(prof, tmp_path) -> list[dict]:
+    """The ``user_annotation`` events of a finished profiler's Chrome
+    trace, in start order."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return sorted((e for e in events if e.get("cat") == "user_annotation"),
+                  key=lambda e: e["ts"])
+
+
+def within(inner: dict, outer: dict) -> bool:
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+class CountingRange:
+    """Stands in for ``torch.profiler.record_function``: counts the
+    ranges opened and closed, and opens the real one."""
+
+    opened = closed = 0
+
+    def __init__(self, name: str) -> None:
+        from torch.autograd.profiler import record_function
+
+        self._real = record_function(name)
+
+    def __enter__(self):
+        CountingRange.opened += 1
+        self._real.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        CountingRange.closed += 1
+        return self._real.__exit__(*exc)
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", CountingRange)
+    CountingRange.opened = CountingRange.closed = 0
+    return CountingRange
+
+
+def test_disabled_span_with_the_profiler_gate_is_sub_microsecond():
+    """As the JAX package's contract, and timed its way: with the
+    recorder disabled and no profiler recording, one ``with span(...)``
+    round trip, the gate included, costs < 1 µs, the best of 300
+    rounds of 1,000 calls (rounds short enough that on a busy test
+    host the scheduler leaves some of them alone)."""
+    assert not telemetry.recorder().enabled  # module default
+    assert not torch.autograd.profiler._is_profiler_enabled
+    n = 1_000
+    best = float("inf")
+    for _ in range(300):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with telemetry.span("train.forward"):
+                pass
+        best = min(best, (time.perf_counter() - t0) / n)
+    assert best < 1e-6, f"disabled span cost {best * 1e9:.0f} ns/call"
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_no_profiler_no_range_and_the_recorder_still_observes(counted,
+                                                              enabled):
+    rec = SpanRecorder(enabled=enabled)
+    with telemetry.installed(rec):
+        with telemetry.span("train.step"):
+            with telemetry.span("train.forward"):
+                pass
+            with telemetry.span("window.h2d_delta.s3",
+                                stage="window.h2d_delta.shard"):
+                pass
+    assert counted.opened == 0
+    if enabled:
+        hist = rec._hist
+        assert sorted(hist) == ["train.forward", "train.step",
+                                "window.h2d_delta.shard"]
+        assert all(h.count == 1 for h in hist.values())
+        assert [t.name for t in rec.recent_traces()] == ["train.step"]
+    else:
+        assert rec.stats()["cycles"] == 0 and not rec._hist
+    # the positive control: under a profiler the same spans open ranges
+    with telemetry.installed(rec), profile(activities=[ProfilerActivity.CPU]):
+        with telemetry.span("train.step"):
+            with telemetry.span("train.forward"):
+                pass
+    assert counted.opened == counted.closed == 2
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_spans_are_nested_profiler_ranges(tmp_path, enabled):
+    rec = SpanRecorder(enabled=enabled)
+    with telemetry.installed(rec), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        with telemetry.span("train.step"):
+            with telemetry.span("train.forward"):
+                torch.ones(8).sum()
+            with telemetry.span("window.h2d_delta.s1",
+                                stage="window.h2d_delta.shard"):
+                torch.ones(8).sum()
+    got = {e["name"]: e for e in ranges(prof, tmp_path)}
+    # a per-instance name goes to the profiler under its trace name
+    assert {"train.step", "train.forward", "window.h2d_delta.s1"} <= set(got)
+    assert within(got["train.forward"], got["train.step"])
+    assert within(got["window.h2d_delta.s1"], got["train.step"])
+    assert (got["train.forward"]["ts"] + got["train.forward"]["dur"]
+            <= got["window.h2d_delta.s1"]["ts"])
+    if enabled:  # the recorder's cycle is as it was
+        (trace,) = rec.recent_traces()
+        assert [(e.name, e.depth) for e in trace.events] == [
+            ("train.forward", 1), ("window.h2d_delta.s1", 1),
+            ("train.step", 0)]
+        assert "window.h2d_delta.shard" in rec.stats()["stages"]
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_an_exception_closes_the_span_and_its_range(tmp_path, counted,
+                                                    enabled):
+    rec = SpanRecorder(enabled=enabled)
+    with telemetry.installed(rec), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        with pytest.raises(RuntimeError):
+            with telemetry.span("train.step"):
+                with telemetry.span("train.backward"):
+                    raise RuntimeError("boom")
+        with telemetry.span("train.after"):
+            pass
+    assert counted.opened == counted.closed == 3
+    got = {e["name"]: e for e in ranges(prof, tmp_path)}
+    assert within(got["train.backward"], got["train.step"])
+    # the next span opens at the top level, after both closed
+    assert not within(got["train.after"], got["train.step"])
+    assert rec.inflight() == []
+    if enabled:
+        assert [t.name for t in rec.recent_traces()] == ["train.step",
+                                                         "train.after"]
+
+
+# -- the fleet program's spans ---------------------------------------------------------------
+
+def fleet_batch(seed: int, n: int = 8, w: int = 6, z: int = 3):
+    """A padded batch, half its nodes served by the model."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((n, w)) > 0.25
+    cpu = np.where(valid, rng.uniform(0.01, 2.0, (n, w)), 0.0)
+    names = [f"node-{i}" for i in range(n)]
+    return FleetBatch(
+        node_names=names, n_nodes=n,
+        workload_counts=[int(v.sum()) for v in valid],
+        workload_ids=[[f"{m}/w{j}" for j in range(w)] for m in names],
+        zone_deltas_uj=rng.uniform(1e6, 5e7, (n, z)).astype(np.float32),
+        zone_valid=rng.random((n, z)) > 0.1,
+        usage_ratio=rng.uniform(0.2, 0.95, n).astype(np.float32),
+        cpu_deltas=cpu.astype(np.float32), workload_valid=valid,
+        node_cpu_delta=(cpu.sum(1) * 1.3).astype(np.float32),
+        dt_s=np.full(n, 5.0, np.float32),
+        mode=np.where(np.arange(n) % 2, MODE_MODEL, MODE_RATIO).astype(
+            np.int32))
+
+
+def random_params(params: dict, seed: int) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {k: 0.1 * torch.randn(v.shape, generator=g)
+            for k, v in params.items()}
+
+
+def fleet_cases(seed: int):
+    """(program, run_fleet_attribution's arguments) for the MLP program
+    over a one-shard mesh, the temporal one over a one-shard mesh, and
+    the MLP program on a device without a mesh."""
+    batch = fleet_batch(seed)
+    n, w, z = batch.shape
+    mlp = random_params(init_mlp(z, hidden=16), seed)
+    temporal = random_params(init_temporal(z, d_model=16, t_max=4), seed)
+    rng = np.random.default_rng(seed + 1)
+    t_valid = np.arange(4)[None, None] < rng.integers(1, 5, (n, w))[..., None]
+    hist = np.where(t_valid[..., None],
+                    rng.normal(0, 1, (n, w, 4, 7)), 0).astype(np.float32)
+    mesh = make_mesh(devices=["cpu"])
+    return [
+        (aggregator_core.make_fleet_program(model_mode="mlp", mesh=mesh),
+         (batch, mlp)),
+        (aggregator_core.make_temporal_fleet_program(mesh=mesh),
+         (batch, temporal, hist, t_valid)),
+        (aggregator_core.make_fleet_program("cpu", model_mode="mlp"),
+         (batch, mlp)),
+    ]
+
+
+def published(result) -> list[torch.Tensor]:
+    blocks = ((result,) if isinstance(result, aggregator_core.FleetResult)
+              else result)
+    return [t for r in blocks for t in r]
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_fleet_spans_and_bit_equal_windows(tmp_path, case):
+    program, args = fleet_cases(3)[case]
+    plain = published(aggregator_core.run_fleet_attribution(program, *args))
+    rec = SpanRecorder(enabled=True)
+    with telemetry.installed(rec), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        with telemetry.span("aggregator.window"):
+            traced = published(aggregator_core.run_fleet_attribution(
+                program, *args))
+    assert len(traced) == len(plain) == 8  # one block
+    for a, b in zip(traced, plain):
+        assert torch.equal(a, b)
+    got = {e["name"]: e for e in ranges(prof, tmp_path)}
+    # no host pack without a mesh: the batch moves array by array
+    want = FLEET_SPANS[1:] if case == 2 else FLEET_SPANS
+    assert set(want) <= set(got)
+    for name in ("fleet.attribute", "fleet.estimator", "fleet.mix"):
+        assert within(got[name], got["fleet.launch"])
+    # the operators' stages, nested in the window's cycle
+    (trace,) = rec.recent_traces()
+    assert trace.name == "aggregator.window"
+    assert {e.name for e in trace.events if e.depth >= 1} == set(want)
+    assert set(want) <= set(rec.stats()["stages"])
+
+
+def test_the_debug_torch_trace_holds_the_window_thread_s_spans():
+    """``/debug/pprof/torch`` profiles on the HTTP handler's thread; the
+    window's spans, opened on another thread, are in its trace too."""
+    from kepler_tpu_torch.server.debug import DebugService
+
+    stop = threading.Event()
+
+    def window() -> None:
+        while not stop.is_set():
+            with telemetry.span("fleet.launch"):
+                torch.ones(4).sum()
+            stop.wait(0.005)
+
+    th = threading.Thread(target=window)
+    th.start()
+    try:
+        code, _, body = DebugService(None, "cpu")._torch_trace()
+    finally:
+        stop.set()
+        th.join()
+    assert code == 200
+    path = Path(body.decode().split("written to ", 1)[1].strip())
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        shutil.rmtree(path.parent, ignore_errors=True)
+    assert th.native_id in {e.get("tid") for e in events
+                        if e.get("cat") == "user_annotation"
+                        and e["name"] == "fleet.launch"}

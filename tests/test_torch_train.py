@@ -26,6 +26,7 @@ with no labels. Tolerances:
 from __future__ import annotations
 
 import functools
+import json
 import os
 
 import jax
@@ -294,6 +295,64 @@ def test_fit_and_remat_step():
         out.append((float(loss), ptrain.param_leaves(state.params)))
     assert out[0][0] == out[1][0]
     for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+
+
+# -- the step's telemetry spans --------------------------------------------------------------
+
+# the program's spans, then torch's own range of AdamW's step, which
+# ``optimizer_device_ms`` reads
+STEP_STAGES = ("train.forward", "train.loss", "train.backward",
+               "Optimizer.step#AdamW.step")
+
+
+def spanned_step(case: str, tmp_path=None):
+    """One step of ``make_train_step`` (mlp) or ``temporal_step_fn``
+    (with or without remat) → (loss, params after it, the step's
+    ``train.*`` and AdamW profiler ranges: None untraced)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    family = "mlp" if case == "mlp" else "temporal"
+    args, targets, lv = family_inputs(family, 9)
+    if case == "mlp":
+        step = ptrain.make_train_step(port_est.predictor("mlp"))
+    else:
+        step = ptrain.temporal_step_fn(compute_dtype=torch.float32,
+                                       remat=case == "temporal-remat")
+    state = ptrain.create_train_state(
+        port_est.params_from_numpy(family, family_params(family)),
+        ptrain.make_optimizer(1e-2))
+    inputs = [t(a) for a in args] + [t(targets), t(lv)]
+    if tmp_path is None:
+        state, loss = step(state, *inputs)
+        return loss, ptrain.param_leaves(state.params), None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, loss = step(state, *inputs)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and (e["name"].startswith("train.")
+                   or e["name"] == STEP_STAGES[-1])]
+    return loss, ptrain.param_leaves(state.params), events
+
+
+@pytest.mark.parametrize("case", ["mlp", "temporal", "temporal-remat"])
+def test_a_profiled_step_shows_its_stages_and_is_bit_equal(tmp_path, case):
+    loss, leaves, events = spanned_step(case, tmp_path)
+    names = [e["name"] for e in events]
+    assert sorted(names) == sorted(("train.step",) + STEP_STAGES)
+    by = {e["name"]: e for e in events}
+    outer = by["train.step"]
+    end = outer["ts"]
+    for name in STEP_STAGES:  # inside the step, in this order, disjoint
+        e = by[name]
+        assert end <= e["ts"]
+        end = e["ts"] + e["dur"]
+        assert end <= outer["ts"] + outer["dur"]
+    plain_loss, plain_leaves, _ = spanned_step(case)
+    assert torch.equal(loss, plain_loss)
+    for a, b in zip(leaves, plain_leaves):
         assert torch.equal(a, b)
 
 
