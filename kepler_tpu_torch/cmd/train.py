@@ -123,7 +123,15 @@ def parse_args(argv: Sequence[str] | None) -> argparse.Namespace:
 def build_trainer(args: argparse.Namespace, data: dict, device: Any):
     """The train state and step of ``args.model`` on ``device`` for the
     loaded windows → (state, step_fn, step_fn's inputs after the state),
-    or None when temporal training finds no history in the dumps."""
+    or None when temporal training finds no history in the dumps.
+
+    The single-tick families step on the labelled rows alone (a slot
+    with a label in some zone), gathered once here: ``[R, F]`` features,
+    ``[R]`` valid, ``[R, Z]`` targets and label mask. The loss and every
+    gradient are the padded step's up to f32 summation order. The counter
+    is logged once at INFO: "stepping on R labelled rows of S slots
+    (x%)", the rows the step computes on over the dumps' slots. The
+    temporal family steps on the padded ``[B, W, T, F]`` histories."""
     import torch
 
     from kepler_tpu_torch.models import build_features, initializer
@@ -172,6 +180,14 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
             put(data["node_cpu_delta"], np.float32),
             put(data["usage_ratio"], np.float32),
             put(data["dt_s"], np.float32))
+        # after the features: ``share`` is a node's, over all its slots
+        keep = label_valid.any(-1)
+        feats, targets, label_valid = (
+            feats[keep], targets[keep], label_valid[keep])
+        rows, slots = feats.shape[0], keep.numel()
+        valid = torch.ones(rows, dtype=torch.bool, device=device)
+        log.info("stepping on %d labelled rows of %d slots (%.2f%%)",
+                 rows, slots, 100.0 * rows / max(slots, 1))
         params = initializer(args.model)(n_zones, generator=gen,
                                          device=device)
         state = create_train_state(params, optimizer)

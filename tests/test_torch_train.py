@@ -445,12 +445,17 @@ def dump_windows(root, model_mode=None, n_windows: int = 3, seed: int = 0,
     return d
 
 
-def write_window(d, name, zones, zone_valid, watts, w=4):
+def write_window(d, name, zones, zone_valid, watts, w=4, cpu=None,
+                 workload_valid=None):
+    """One RAPL node's dump: ``w`` slots, every one a workload with 1 CPU
+    unit unless ``cpu`` and ``workload_valid`` say otherwise."""
     np.savez_compressed(
         d / name, zone_names=np.asarray(zones),
         zone_valid=np.asarray(zone_valid, bool).reshape(1, -1),
-        cpu_deltas=np.ones((1, w), np.float32),
-        workload_valid=np.ones((1, w), bool),
+        cpu_deltas=(np.ones((1, w), np.float32) if cpu is None
+                    else np.asarray(cpu, np.float32).reshape(1, w)),
+        workload_valid=(np.ones((1, w), bool) if workload_valid is None
+                        else np.asarray(workload_valid, bool).reshape(1, w)),
         node_cpu_delta=np.full(1, 4.0, np.float32),
         usage_ratio=np.full(1, 0.5, np.float32),
         dt_s=np.full(1, 5.0, np.float32),
@@ -491,6 +496,121 @@ def test_load_windows_aligns_zones_as_jax(tmp_path, case):
         assert got["feat_hist"].shape[2] == 4
     with pytest.raises(FileNotFoundError, match="window-"):
         pcmd.load_windows(str(tmp_path / "nowhere"))
+
+
+REFIT_DUMPS = ("padded_slots", "node_missing_zone", "every_slot_valid")
+
+
+def refit_dump(root, dump: str, seed: int = 3) -> str:
+    """Eight one-node windows, zones dram and package: ``padded_slots``
+    holds 3-8 slots a file, a random share of them workloads, padded to 8
+    by ``load_windows``; ``node_missing_zone`` fills all 8 slots, with
+    nodes that lack dram, package or both; ``every_slot_valid`` fills all
+    8 slots with every zone read."""
+    d = root / "refit"
+    d.mkdir()
+    rng = np.random.default_rng(seed)
+    missing = ([False, True], [True, False], [False, False], [True, True])
+    for i in range(8):
+        w = int(rng.integers(3, 9)) if dump == "padded_slots" else 8
+        wvalid = (rng.random(w) < 0.6 if dump == "padded_slots"
+                  else np.ones(w, bool))
+        zv = missing[i % 4] if dump == "node_missing_zone" else [True, True]
+        write_window(d, f"window-{i}-{i + 1:06d}.npz", ["dram", "package"],
+                     zv, rng.uniform(0.0, 5.0, (w, 2)), w=w,
+                     cpu=rng.uniform(0.1, 4.0, w), workload_valid=wvalid)
+    return str(d)
+
+
+def padded_inputs(data: dict) -> tuple[torch.Tensor, ...]:
+    """``cmd.train``'s inputs before the gather: every slot of the dumps,
+    ``[B, W, ...]``."""
+    from kepler_tpu_torch.models import build_features
+
+    valid = torch.from_numpy(data["workload_valid"])
+    feats = build_features(
+        torch.from_numpy(data["cpu_deltas"]), valid,
+        torch.from_numpy(data["node_cpu_delta"]),
+        torch.from_numpy(data["usage_ratio"]),
+        torch.from_numpy(data["dt_s"]))
+    return (feats, valid, torch.from_numpy(data["target_watts"]),
+            torch.from_numpy(data["label_valid"]))
+
+
+@pytest.mark.parametrize("dump", REFIT_DUMPS)
+@pytest.mark.parametrize("family", ("linear", "mlp", "moe", "deep"))
+def test_build_trainer_steps_on_labelled_rows_as_the_padded_step(
+        tmp_path, family, dump):
+    """``build_trainer``'s inputs are the labelled rows of the dumps, in
+    dump order, and three of its steps are three steps of
+    ``make_train_step`` on every slot from the same seed: the losses
+    within rtol 1e-5, each leaf's change by the norm within 1e-5 of the
+    larger of that leaf's change and the median leaf's (AdamW's first
+    steps may move an element with a near-zero gradient either way)."""
+    data, _ = pcmd.load_windows(refit_dump(tmp_path, dump))
+    args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--model",
+                            family, "--seed", "5", "--device", "cpu"])
+    state, step_fn, inputs = pcmd.build_trainer(args, data,
+                                                torch.device("cpu"))
+    padded = padded_inputs(data)
+    keep = padded[3].any(-1)
+    rows = int(keep.sum())
+    if dump == "every_slot_valid":
+        assert rows == keep.numel()
+    else:
+        assert 0 < rows < keep.numel()
+    feats, valid, targets, lv = inputs
+    assert feats.shape == (rows, padded[0].shape[-1])
+    assert valid.shape == (rows,) and bool(valid.all())
+    for got, want in zip((feats, targets, lv), (padded[0], padded[2],
+                                                padded[3])):
+        assert torch.equal(got, want[keep])
+
+    start = [v.detach().clone() for v in ptrain.param_leaves(state.params)]
+    params = port_est.initializer(family)(
+        2, generator=torch.Generator().manual_seed(5))
+    ref = ptrain.create_train_state(params, ptrain.make_optimizer(args.lr))
+    assert all(torch.equal(v, s)
+               for v, s in zip(ptrain.param_leaves(ref.params), start))
+    ref_step = ptrain.make_train_step(port_est.predictor(family))
+    losses, ref_losses = [], []
+    for _ in range(3):
+        state, loss = step_fn(state, *inputs)
+        ref, ref_loss = ref_step(ref, *padded)
+        losses.append(float(loss))
+        ref_losses.append(float(ref_loss))
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+
+    got, want = ([float(torch.linalg.vector_norm((v.detach() - s).double()))
+                  for v, s in zip(ptrain.param_leaves(st.params), start)]
+                 for st in (state, ref))
+    median = float(np.median(want))
+    assert median > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert abs(a - b) <= 1e-5 * max(b, median), i
+
+
+@pytest.mark.parametrize("dump", REFIT_DUMPS)
+def test_build_trainer_logs_the_rows_it_keeps(tmp_path, caplog, dump):
+    """The counter: the labelled rows the step runs on over the dumps'
+    slots, logged once at INFO."""
+    import logging
+    import re
+
+    data, _ = pcmd.load_windows(refit_dump(tmp_path, dump))
+    args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--device",
+                            "cpu"])
+    with caplog.at_level(logging.INFO, logger="kepler.train"):
+        pcmd.build_trainer(args, data, torch.device("cpu"))
+    found = re.findall(r"stepping on (\d+) labelled rows of (\d+) slots "
+                       r"\(([0-9.]+)%\)", caplog.text)
+    assert len(found) == 1
+    rows, slots, share = int(found[0][0]), int(found[0][1]), found[0][2]
+    lv = data["label_valid"]
+    assert rows == int(lv.any(-1).sum())
+    assert slots == lv.shape[0] * lv.shape[1] == 64
+    assert share == f"{100 * rows / slots:.2f}"
+    assert (share == "100.00") == (dump == "every_slot_valid")
 
 
 @pytest.mark.parametrize("family", FAMILIES)
