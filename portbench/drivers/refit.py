@@ -1,28 +1,31 @@
 """A refit of an estimator from the Aggregator's training dumps, as
 ``cmd.train`` runs it.
 
-Set-up makes the dumps of ``dump_windows`` fleet windows from the seed
-(``fleetgen.training_dump``: RAPL rows only, labelled with their ratio
-watts, joined as ``cmd.train.load_windows`` joins them), then builds the
-job with ``cmd.train.build_trainer`` (``--model`` the configuration's,
-``--seed`` the run's, every other flag at its default) and drives its
-``step_fn`` through the first ``checked_steps`` steps, as
-``cmd.train.main``'s loop calls it. The window goes on stepping that same
-state, syncing on the loss every ``--log-every`` steps as the loop does.
-Once the window has closed, the same ``step_fn`` makes one more step of
-that state (the window's next), from a copy of the params and AdamW's
-moments that the window left.
+Set-up finds the plain refit of the configuration's ``model``
+(``reference/refit_<model>.py``, ``spec.refit_reference``: a family
+without one stops here, naming the file), makes the dumps of
+``dump_windows`` fleet windows from the seed (``fleetgen.training_dump``:
+RAPL rows only, labelled with their ratio watts, with their histories
+where the family is ``temporal``, joined as ``cmd.train.load_windows``
+joins them), then builds the job with ``cmd.train.build_trainer``
+(``--model`` the configuration's, ``--seed`` the run's, every other flag
+at its default) and drives its ``step_fn`` through the first
+``checked_steps`` steps, as ``cmd.train.main``'s loop calls it. The
+window goes on stepping that same state, syncing on the loss every
+``--log-every`` steps as the loop does. Once the window has closed, the
+same ``step_fn`` makes one more step of that state (the window's next),
+from a copy of the params and AdamW's moments that the window left.
 
 Counts: ``steps`` in the window and ``samples`` (labelled rows × steps).
-``correct``: against the plain reference (``reference.mlp``) from the
-same seed and dumps. ``loss_gap``: the losses of the checked steps and
-of the step after the window, each relative to the reference's;
-``change_gap``: the params' change over the checked steps, by the worst
-leaf (``leaf_gap``); ``timed_change_gap``: the change the step after the
-window made, against the reference's step from the same state (the
-program's own params and moments as the window left them), by the worst
-leaf; ``unmoved_leaves``: the leaves that the reference moves and that
-the window left as it found them, bit for bit.
+``correct``: against the family's plain refit (``adamw`` stepping its
+``loss_and_grad``) from the same seed and dumps. ``loss_gap``: the
+losses of the checked steps and of the step after the window, each
+relative to the reference's; ``change_gap``: the params' change over the
+checked steps, by the worst leaf (``leaf_gap``); ``timed_change_gap``:
+the change the step after the window made, against the reference's step
+from the same state (the program's own params and moments as the window
+left them), by the worst leaf; ``unmoved_leaves``: the leaves that the
+reference moves and that the window left as it found them, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ from typing import Any, Mapping, NamedTuple
 
 import torch
 
-from portbench import fleetgen
+from portbench import fleetgen, spec
 from portbench.harness import Check, Spans, Window
-from portbench.reference import attribution, mlp
+from portbench.reference import adamw
 from portbench.reference.precision import BELOW, rounding
 
 BETA1 = 0.9
@@ -73,7 +76,7 @@ def norms(params: Mapping[str, torch.Tensor]) -> dict[str, float]:
             for k, v in params.items()}
 
 
-def moved(grads: list[mlp.Params]) -> list[str]:
+def moved(grads: list[adamw.Params]) -> list[str]:
     """The leaves whose reference gradient reaches ``ROUND_OFF_SHARE`` of
     the median leaf's at some step of ``grads``; every leaf where no step
     has a median above 0 (nothing to tell round-off by)."""
@@ -92,12 +95,12 @@ class Last(NamedTuple):
     AdamW's moments as the window left them), its number (from 1), its
     loss and the params after it."""
 
-    params: mlp.Params
-    exp_avg: mlp.Params
-    exp_avg_sq: mlp.Params
+    params: adamw.Params
+    exp_avg: adamw.Params
+    exp_avg_sq: adamw.Params
     t: int
     loss: float
-    end: mlp.Params
+    end: adamw.Params
 
 
 class Session:
@@ -108,12 +111,10 @@ class Session:
 
         self.config, self.traffic, self.seed = config, traffic, seed
         self.device, self.spans = device, spans
+        self.family = spec.refit_reference(config["model"])
         self.precision = config["estimator"]["compute_dtype"]
-        fleet = fleetgen.Fleet.of(config)
         gen = torch.Generator(device=device).manual_seed(seed)
-        self.data = fleetgen.training_dump(
-            fleet, traffic, gen, device, int(config["dump_windows"]),
-            config["zones"])
+        self.data = fleetgen.training_dump(config, traffic, gen, device)
         self.labelled = int(self.data["workload_valid"].sum())
         self.args = train_cli.parse_args(
             ["--data", ".", "--out", "params.npz", "--model",
@@ -135,7 +136,7 @@ class Session:
                     for k, p in self.state.params.items()}
         self.end = self._params()
         self.last: Last | None = None
-        self.ref: mlp.Refit | None = None
+        self.ref: adamw.Refit | None = None
 
     def _params(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.state.params.items()}
@@ -190,38 +191,25 @@ class Session:
                 torch.cuda.empty_cache()
         return self.last
 
-    def _reference_data(self) -> tuple[torch.Tensor, ...]:
-        """The reference's inputs, worked out again from the dumps."""
-        d, dev = self.data, self.device
-
-        def put(key: str) -> torch.Tensor:
-            return torch.from_numpy(d[key]).to(dev)
-
-        valid = put("workload_valid")
-        feats = attribution.window_features(
-            put("cpu_deltas"), valid, put("node_cpu_delta"),
-            put("usage_ratio"), put("dt_s"))
-        return feats, valid, put("target_watts"), put("label_valid")
-
     def reference(self, precision: str, last: Last,
                   data: tuple[torch.Tensor, ...]
-                  ) -> tuple[mlp.Refit, mlp.Step]:
+                  ) -> tuple[adamw.Refit, adamw.Step]:
         """The plain refit of the checked steps, and the plain step from
         the state the window left, at ``precision``."""
-        est = self.config["estimator"]
-        start = mlp.init(self.seed, len(self.config["zones"]), est["hidden"],
-                         est["n_features"])
-        opt = mlp.AdamW(lr=self.args.lr)
+        loss_and_grad = self.family.loss_and_grad
+        start = self.family.start(self.seed, self.config)
+        opt = adamw.AdamW(lr=self.args.lr)
         rnd = rounding(precision)
-        refit = mlp.refit(start, *data, opt,
-                          int(self.traffic["checked_steps"]), rnd)
-        step = mlp.step_from(last.params, last.exp_avg, last.exp_avg_sq,
-                             last.t, *data, opt, rnd)
+        refit = adamw.refit(loss_and_grad, start, data, opt,
+                            int(self.traffic["checked_steps"]), rnd)
+        step = adamw.step_from(loss_and_grad, last.params, last.exp_avg,
+                               last.exp_avg_sq, last.t, data, opt, rnd)
         return refit, step
 
     def readings(self, losses: list[float], start: Mapping[str, torch.Tensor],
                  end: Mapping[str, torch.Tensor], last: Last,
-                 ref: mlp.Refit, ref_last: mlp.Step) -> dict[str, float]:
+                 ref: adamw.Refit, ref_last: adamw.Step
+                 ) -> dict[str, float]:
         """The compared readings of a refit against the reference's."""
         got = losses + [last.loss]
         want = ref.losses + [ref_last.loss]
@@ -246,8 +234,8 @@ class Session:
     def program_readings(self) -> dict[str, float]:
         """Frees the program's state, runs the reference, compares."""
         last = self._close()
-        self.ref, ref_last = self.reference(self.precision, last,
-                                            self._reference_data())
+        data = self.family.inputs(self.data, self.device)
+        self.ref, ref_last = self.reference(self.precision, last, data)
         return self.readings(self.losses, self.start, self.end, last,
                              self.ref, ref_last)
 
@@ -262,7 +250,7 @@ class Session:
         its step from the state the window left), against the
         reference."""
         last = self._close()
-        data = self._reference_data()
+        data = self.family.inputs(self.data, self.device)
         low, low_last = self.reference(BELOW[self.precision], last, data)
         ref, ref_last = self.reference(self.precision, last, data)
         return self.readings(low.losses, low.start, low.end,

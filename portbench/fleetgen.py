@@ -169,14 +169,21 @@ def to_host(arrays: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return out
 
 
-def training_dump(fleet: Fleet, traffic: Mapping[str, Any],
-                  gen: torch.Generator, device: torch.device,
-                  count: int, zone_names: list[str]) -> dict[str, Any]:
-    """The Aggregator's training dumps of ``count`` windows, joined as
-    ``cmd.train.load_windows`` joins them: each window's RAPL rows, their
-    inputs and their ratio-split watts as labels (``label_valid`` where
-    the workload and the zone are valid)."""
-    win = windows(fleet, traffic, gen, device, count, history=False)
+def training_dump(config: Mapping[str, Any], traffic: Mapping[str, Any],
+                  gen: torch.Generator, device: torch.device
+                  ) -> dict[str, Any]:
+    """The Aggregator's training dumps of the configuration's
+    ``dump_windows`` windows, joined as ``cmd.train.load_windows`` joins
+    them: each window's RAPL rows, their inputs and their ratio-split
+    watts as labels (``label_valid`` where the workload and the zone are
+    valid). Where the configuration's ``model`` is ``temporal`` they
+    carry the rows' histories too (``feat_hist [R, W, T, F]``,
+    ``t_valid [R, W, T]``, T its ``history_window``), as the Aggregator
+    dumps them in temporal mode; every other family's draws no history."""
+    fleet = Fleet.of(config)
+    count = int(config["dump_windows"])
+    win = windows(fleet, traffic, gen, device, count,
+                  history=config["model"] == "temporal")
     rapl = np.zeros(fleet.n, bool)
     rapl[:fleet.nodes] = ~fleet.model_nodes()
     rapl = torch.as_tensor(rapl, device=device)
@@ -197,8 +204,9 @@ def training_dump(fleet: Fleet, traffic: Mapping[str, Any],
         "target_watts": split["wl_power_uw"] / 1e6,
         "label_valid": (flat["workload_valid"][..., None]
                         & flat["zone_valid"][:, None, :]),
+        **{k: flat[k] for k in ("feat_hist", "t_valid") if k in flat},
     })
-    data["zone_names"] = list(zone_names)
+    data["zone_names"] = list(config["zones"])
     return data
 
 

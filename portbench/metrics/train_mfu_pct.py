@@ -1,19 +1,18 @@
 """The whole train step's share of the card's bf16 peak: forward and
-backward FLOPs of every feature row of the dumps (RAPL rows × padded
-workload slots; ``costs.mlp_train_flops``) × steps, over the traced
-window's seconds × 989 TFLOP/s, in %."""
+backward FLOPs (``costs.mlp_train_flops``) of the rows the step computes
+on, the window's ``samples ÷ steps`` (the dumps' labelled rows, which
+``cmd.train.build_trainer`` gathers once; not every padded slot of the
+dumps), × steps, over the traced window's seconds × 989 TFLOP/s, in %."""
 
-from portbench import costs, fleetgen
+from portbench import costs
 
 
 def read(r):
     steps = r.window.counts.get("steps")
-    if r.trace is None or not steps:
+    samples = r.window.counts.get("samples")
+    if r.trace is None or not steps or samples is None:
         return None
-    fleet = fleetgen.Fleet.of(r.config)
-    rapl_nodes = fleet.nodes - int(fleet.model_nodes().sum())
-    rows = r.config["dump_windows"] * rapl_nodes * fleet.w
     est = r.config["estimator"]
-    flops = costs.mlp_train_flops(rows, est["n_features"], est["hidden"],
-                                  fleet.zones)
+    flops = costs.mlp_train_flops(samples // steps, est["n_features"],
+                                  est["hidden"], len(r.config["zones"]))
     return 100.0 * flops * steps / (r.trace.window_s * costs.BF16_FLOP_PER_S)

@@ -1,4 +1,4 @@
-"""The MLP estimator's refit, plainly: forward, loss, gradient, AdamW.
+"""The MLP estimator, plainly: its start, forward, loss and gradient.
 
 The estimator (kepler-model-server's MLP, ``models/mlp.py`` of the
 port): ``F → H → H → Z`` with tanh-GELU after the first two products
@@ -10,22 +10,20 @@ f32. The loss is the mean squared error in watts over the labelled
 
 The refit's start (``cmd.train``): a CPU ``torch.Generator`` seeded with
 the job's seed draws W0 then W1, Glorot-normal (N(0, 2 / (fan_in +
-fan_out))); every other leaf starts at zero. The optimizer is AdamW
-(Loshchilov & Hutter) with optax's defaults: β = (0.9, 0.999), ε = 1e-8,
-decoupled weight decay on every leaf, biases included.
+fan_out))); every other leaf starts at zero. The refit steps it with
+``adamw`` (``refit_mlp`` is the family's entry).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, NamedTuple
+from typing import Mapping
 
 import torch
 
+from portbench.reference.adamw import Params
 from portbench.reference.precision import Rounding, exact_f32
 from portbench.reference.temporal import gelu_tanh
-
-Params = dict[str, torch.Tensor]
 
 # rows a block of the loss and its gradient takes at a time: the
 # reference's memory, not its result (the blocks' sums add up)
@@ -76,73 +74,3 @@ def loss_and_grad(p: Params, feats: torch.Tensor,  # [R, W, F]
             part.backward()
             total += float(part.detach())
     return total, {k: v.grad.detach() for k, v in leaves.items()}
-
-
-class AdamW(NamedTuple):
-    lr: float
-    weight_decay: float = 1e-4
-    b1: float = 0.9
-    b2: float = 0.999
-    eps: float = 1e-8
-
-    def step(self, p: Params, g: Params, m: Params, v: Params,
-             t: int) -> None:
-        """Step ``t`` (from 1) in place over every leaf."""
-        for k in p:
-            p[k] = p[k] * (1.0 - self.lr * self.weight_decay)
-            m[k] = self.b1 * m[k] + (1.0 - self.b1) * g[k]
-            v[k] = self.b2 * v[k] + (1.0 - self.b2) * g[k] ** 2
-            m_hat = m[k] / (1.0 - self.b1 ** t)
-            v_hat = v[k] / (1.0 - self.b2 ** t)
-            p[k] = p[k] - self.lr * m_hat / (torch.sqrt(v_hat) + self.eps)
-
-
-class Refit(NamedTuple):
-    """The first steps of a refit: each step's loss and gradient (before
-    it updates), the params it started from and those after the last."""
-
-    losses: list[float]
-    grads: list[Params]
-    start: Params
-    end: Params
-
-
-def refit(start: Params, feats: torch.Tensor, valid: torch.Tensor,
-          targets: torch.Tensor, label_valid: torch.Tensor,
-          opt: AdamW, steps: int, rnd: Rounding) -> Refit:
-    """``steps`` full-batch AdamW steps from ``start`` (moved to the
-    data's device)."""
-    dev = feats.device
-    p = {k: v.to(dev) for k, v in start.items()}
-    m = {k: torch.zeros_like(v) for k, v in p.items()}
-    v = {k: torch.zeros_like(x) for k, x in p.items()}
-    losses, grads = [], []
-    for t in range(1, steps + 1):
-        loss, g = loss_and_grad(p, feats, valid, targets, label_valid, rnd)
-        losses.append(loss)
-        grads.append(g)
-        with torch.no_grad(), exact_f32():
-            opt.step(p, g, m, v, t)
-    return Refit(losses, grads, {k: x.to(dev) for k, x in start.items()}, p)
-
-
-class Step(NamedTuple):
-    """One step from a given state: its loss and gradient (before it
-    updates) and the params after it."""
-
-    loss: float
-    grad: Params
-    end: Params
-
-
-def step_from(p: Params, m: Params, v: Params, t: int,
-              feats: torch.Tensor, valid: torch.Tensor,
-              targets: torch.Tensor, label_valid: torch.Tensor,
-              opt: AdamW, rnd: Rounding) -> Step:
-    """Step ``t`` (from 1) of a refit whose params were ``p`` and whose
-    moments were ``m`` and ``v`` after step t − 1 (none is changed)."""
-    p, m, v = dict(p), dict(m), dict(v)  # the step rebinds each leaf
-    loss, g = loss_and_grad(p, feats, valid, targets, label_valid, rnd)
-    with torch.no_grad(), exact_f32():
-        opt.step(p, g, m, v, t)
-    return Step(loss, g, p)

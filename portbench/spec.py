@@ -5,8 +5,16 @@ configuration and traffic. The configuration's file is the one its
 entry names; the traffic is ``traffic/<traffic>.json``; the limits of
 the comparison are ``limits/<cell>.json``; a metric is read by
 ``metrics/<metric>.py``; a traffic file's ``driver`` is
-``drivers/<driver>.py``. A new cell, mix or metric is new files and new
-entries: nothing here changes.
+``drivers/<driver>.py``; a refit's plain reference is the
+configuration's ``model``'s ``reference/refit_<model>.py``. A new cell,
+mix, family or metric is new files and new entries: nothing here
+changes.
+
+A per-layer metric lists its cells (``workloads``). An end-to-end metric
+lists none: it is read in every cell, and its reader returns ``None``
+where the cell's driver keeps no count it reads (``run.py`` prints only
+what is not ``None``), so a new cell reports the end-to-end metrics
+whose counts its driver keeps without an edit to an entry.
 """
 
 from __future__ import annotations
@@ -64,6 +72,17 @@ def cell(name: str, bench: dict | None = None, root: Path = ROOT) -> Cell:
 
 def driver(name: str) -> ModuleType:
     return importlib.import_module(f"portbench.drivers.{name}")
+
+
+def refit_reference(model: str) -> ModuleType:
+    """The plain refit of estimator family ``model``
+    (``reference/refit_<model>.py``); ``FileNotFoundError``, naming that
+    file, where it is not there."""
+    path = HERE / "reference" / f"refit_{model}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no plain refit for model {model!r}: {path} is not there")
+    return importlib.import_module(f"portbench.reference.refit_{model}")
 
 
 def metric(name: str) -> ModuleType:

@@ -2,9 +2,12 @@
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import pytest
 
-from portbench import costs
+from portbench import costs, spec
+from portbench.harness import Reading, Window
 
 
 def test_b1_bytes_and_operations():
@@ -46,3 +49,19 @@ def test_mlp_train_flops():
 def test_bound_takes_the_larger_side():
     assert costs.bound_s(0, int(67e12)) == pytest.approx(1.0)
     assert costs.bound_s(int(3.35e12), 0) == pytest.approx(1.0)
+
+
+def test_train_mfu_counts_the_rows_the_step_computes_on():
+    """``samples ÷ steps`` rows a step (the labelled rows), not every
+    padded slot of the dumps; nothing without samples or a trace."""
+    read = spec.metric("train_mfu_pct").read
+    config = spec.cell("mlp-refit").config
+    trace = SimpleNamespace(window_s=2.0)
+    window = Window(seconds=1.0, counts={"steps": 3, "samples": 3 * 1000},
+                    attempted=3)
+    want = 100 * 3 * costs.mlp_train_flops(1000, 7, 128, 4) / (2.0 * 989e12)
+    assert read(Reading(config, {}, 0.0, window, trace)) == pytest.approx(
+        want)
+    assert read(Reading(config, {}, 0.0, window)) is None
+    steps_only = Window(seconds=1.0, counts={"steps": 3}, attempted=3)
+    assert read(Reading(config, {}, 0.0, steps_only, trace)) is None

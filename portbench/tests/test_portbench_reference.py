@@ -15,7 +15,7 @@ import torch
 
 from portbench import fleetgen
 from portbench.harness import max_rel_gap
-from portbench.reference import attribution, fleet, mlp, temporal
+from portbench.reference import adamw, attribution, fleet, mlp, temporal
 from portbench.reference.precision import rounding
 
 TOL = 1e-5
@@ -117,11 +117,9 @@ def test_fleet_window_matches_the_port(tiny):
 
 def _dump(tiny, seed: int = 6):
     cell = tiny("mlp-refit")
-    f = fleetgen.Fleet.of(cell.config)
     gen = torch.Generator().manual_seed(seed)
-    data = fleetgen.training_dump(f, cell.traffic, gen, torch.device("cpu"),
-                                  cell.config["dump_windows"],
-                                  cell.config["zones"])
+    data = fleetgen.training_dump(cell.config, cell.traffic, gen,
+                                  torch.device("cpu"))
     return data, cell
 
 
@@ -167,10 +165,10 @@ def test_refit_matches_the_port(tiny, monkeypatch):
         torch.from_numpy(data["usage_ratio"]),
         torch.from_numpy(data["dt_s"]))
     monkeypatch.setattr(mlp, "BLOCK_ROWS", 5)  # sums over several blocks
-    ref = mlp.refit(mlp.init(11, 4, 128, 7), feats, valid,
-                    torch.from_numpy(data["target_watts"]),
-                    torch.from_numpy(data["label_valid"]),
-                    mlp.AdamW(lr=1e-2), 3, rounding("bfloat16"))
+    ref = adamw.refit(mlp.loss_and_grad, mlp.init(11, 4, 128, 7),
+                      (feats, valid, torch.from_numpy(data["target_watts"]),
+                       torch.from_numpy(data["label_valid"])),
+                      adamw.AdamW(lr=1e-2), 3, rounding("bfloat16"))
     np.testing.assert_allclose(losses, ref.losses, rtol=TOL)
     start = mlp.init(11, 4, 128, 7)
     change = {k: v.detach() - start[k] for k, v in state.params.items()}
@@ -205,10 +203,10 @@ def test_a_step_from_a_later_state_matches_the_port(tiny, monkeypatch):
         torch.from_numpy(data["usage_ratio"]),
         torch.from_numpy(data["dt_s"]))
     monkeypatch.setattr(mlp, "BLOCK_ROWS", 5)
-    ref = mlp.step_from(*before, state.step, feats, valid,
-                        torch.from_numpy(data["target_watts"]),
-                        torch.from_numpy(data["label_valid"]),
-                        mlp.AdamW(lr=1e-2), rounding("bfloat16"))
+    inputs = (feats, valid, torch.from_numpy(data["target_watts"]),
+              torch.from_numpy(data["label_valid"]))
+    ref = adamw.step_from(mlp.loss_and_grad, *before, state.step, inputs,
+                          adamw.AdamW(lr=1e-2), rounding("bfloat16"))
     assert state.step == 9
     np.testing.assert_allclose(float(loss), ref.loss, rtol=TOL)
     change = {k: v.detach() - before[0][k] for k, v in state.params.items()}

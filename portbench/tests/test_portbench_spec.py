@@ -76,6 +76,17 @@ def test_names_and_lengths():
     assert len(json.dumps(BENCH)) < 64 * 1024
 
 
+def test_no_end_to_end_metric_lists_cells():
+    """An end-to-end metric is read in every cell; its reader returns
+    ``None`` where the cell's driver keeps no count it reads."""
+    assert all("workloads" not in m for m in BENCH["end_to_end"])
+
+
+def test_mlp_refit_reports_its_rate_and_setup():
+    names = {m["name"] for m in spec.cell("mlp-refit").end_to_end}
+    assert {"train_samples_per_s", "setup_s"} <= names
+
+
 def test_per_layer_lists_cells_that_report_its_end_to_end_metric():
     for m in BENCH["per_layer"]:
         for name in m.get("workloads", []):
