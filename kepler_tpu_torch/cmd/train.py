@@ -131,7 +131,9 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
     gradient are the padded step's up to f32 summation order. The counter
     is logged once at INFO: "stepping on R labelled rows of S slots
     (x%)", the rows the step computes on over the dumps' slots. The
-    temporal family steps on the padded ``[B, W, T, F]`` histories."""
+    temporal family steps on the padded ``[B, W, T, F]`` histories, and
+    logs once at INFO "stepping on S padded slots × T ticks, R labelled
+    (x%)"."""
     import torch
 
     from kepler_tpu_torch.models import build_features, initializer
@@ -164,6 +166,11 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
         feat_hist = put(data["feat_hist"], np.float32)
         t_valid = put(data["t_valid"])
         t_max = int(feat_hist.shape[2])
+        slots = feat_hist.shape[0] * feat_hist.shape[1]
+        rows = int(label_valid.any(-1).sum())
+        log.info("stepping on %d padded slots × %d ticks, %d labelled "
+                 "(%.2f%%)", slots, t_max, rows,
+                 100.0 * rows / max(slots, 1))
         params = initializer("temporal")(
             n_zones, t_max=max(t_max, 128), generator=gen, device=device)
         state = create_train_state(params, optimizer)

@@ -15,6 +15,13 @@ biases and softmax stay f32. Dense serving (no ``attention_fn``) takes the
 single-query fast path; ``attention_fn`` (``ops.cuda_attention.
 pallas_attention_fn``, kernel B3) runs the full-sequence trunk. GELU is
 the tanh approximation, ``jax.nn.gelu``'s default.
+
+Both trunks open two telemetry spans (profiler ranges while a profiler
+records, nested under the caller's: ``train.forward`` in a refit,
+``fleet.estimator`` in the served window): ``temporal.ticks``, the work
+done at every tick (in-projection, positions, LN1, the K and V
+projections; the full trunk's q too), and ``temporal.attention``, the
+attention over the window (the single-query path's query included).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.features import NUM_FEATURES
 from kepler_tpu_torch.models.nn import acc_matmul, glorot, layer_norm
 from kepler_tpu_torch.ops.attention import full_attention, round_to
@@ -154,12 +162,14 @@ def temporal_trunk(
     plain PyTorch. The sequence-parallel programs call the two halves
     per shard instead (``parallel.sequence``).
     """
-    x, q, k, v = trunk_qkv(params, feat_hist, t_valid, compute_dtype)
-    if attention_fn is None:
-        attn = full_attention(q, k, v, causal=True, t_valid=t_valid,
-                              compute_dtype=compute_dtype)
-    else:
-        attn = attention_fn(q, k, v, t_valid)
+    with telemetry.span("temporal.ticks"):
+        x, q, k, v = trunk_qkv(params, feat_hist, t_valid, compute_dtype)
+    with telemetry.span("temporal.attention"):
+        if attention_fn is None:
+            attn = full_attention(q, k, v, causal=True, t_valid=t_valid,
+                                  compute_dtype=compute_dtype)
+        else:
+            attn = attention_fn(q, k, v, t_valid)
     return trunk_out(params, x, attn, compute_dtype)
 
 
@@ -185,26 +195,30 @@ def _last_query_trunk(
     dh = d // h
     cd = compute_dtype
 
-    x = _embed(params, feat_hist, t_valid, cd)
-    last = torch.clamp(t_valid.sum(dim=-1) - 1, min=0)
+    with telemetry.span("temporal.ticks"):
+        x = _embed(params, feat_hist, t_valid, cd)
+        y = layer_norm(x, params["ln1_scale"], params["ln1_bias"])
+        k = acc_matmul(y, params["wk"], cd).reshape(b, t, h, dh)
+        v = acc_matmul(y, params["wv"], cd).reshape(b, t, h, dh)
 
-    y = layer_norm(x, params["ln1_scale"], params["ln1_bias"])
-    q = acc_matmul(_take_last(y, last), params["wq"], cd).reshape(b, h, dh)
-    k = acc_matmul(y, params["wk"], cd).reshape(b, t, h, dh)
-    v = acc_matmul(y, params["wv"], cd).reshape(b, t, h, dh)
-    scores = torch.einsum("bhd,bthd->bht", round_to(q, cd), round_to(k, cd))
-    scores = scores / torch.sqrt(torch.tensor(dh, dtype=torch.float32,
-                                              device=scores.device))
-    # finite mask value: an all-invalid window yields 0 attention, not
-    # softmax(-inf…) = NaN
-    causal = (torch.arange(t, device=last.device)[None, :]
-              <= last[:, None])
-    scores = torch.where((t_valid & causal)[:, None, :], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    any_valid = t_valid.any(dim=-1)
-    probs = torch.where(any_valid[:, None, None], probs, 0.0)
-    attn = torch.einsum("bht,bthd->bhd", round_to(probs, cd),
-                        round_to(v, cd)).reshape(b, d)
+    with telemetry.span("temporal.attention"):
+        last = torch.clamp(t_valid.sum(dim=-1) - 1, min=0)
+        q = acc_matmul(_take_last(y, last), params["wq"],
+                       cd).reshape(b, h, dh)
+        scores = torch.einsum("bhd,bthd->bht", round_to(q, cd),
+                              round_to(k, cd))
+        scores = scores / torch.sqrt(torch.tensor(
+            dh, dtype=torch.float32, device=scores.device))
+        # finite mask value: an all-invalid window yields 0 attention,
+        # not softmax(-inf…) = NaN
+        causal = (torch.arange(t, device=last.device)[None, :]
+                  <= last[:, None])
+        scores = torch.where((t_valid & causal)[:, None, :], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        any_valid = t_valid.any(dim=-1)
+        probs = torch.where(any_valid[:, None, None], probs, 0.0)
+        attn = torch.einsum("bht,bthd->bhd", round_to(probs, cd),
+                            round_to(v, cd)).reshape(b, d)
 
     x_last = _take_last(x, last) + acc_matmul(attn, params["wo"], cd)
     x_last = _mlp_block(params, x_last, cd)

@@ -6,7 +6,10 @@ no profiler range without a recording profiler, spans as nested
 recorder enabled and disabled, an exception closing both, and the fleet
 program's ``fleet.*`` spans: present under a profiler, stages of an
 enclosing ``aggregator.window`` cycle, and the published tensors
-bit-equal traced and untraced."""
+bit-equal traced and untraced; the temporal estimator's
+``temporal.ticks`` and ``temporal.attention``: once each a step inside
+``train.forward``, on the full trunk too, and the estimator's output and
+a train step's loss and params bit-equal traced and untraced."""
 
 from __future__ import annotations
 
@@ -23,7 +26,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.mlp import init_mlp
-from kepler_tpu_torch.models.temporal import init_temporal
+from kepler_tpu_torch.models.temporal import (
+    init_temporal,
+    predict_temporal,
+    temporal_trunk,
+)
+from kepler_tpu_torch.models.train import (
+    create_train_state,
+    make_optimizer,
+    make_temporal_train_step,
+)
 from kepler_tpu_torch.parallel import aggregator_core
 from kepler_tpu_torch.parallel.fleet import MODE_MODEL, MODE_RATIO, FleetBatch
 from kepler_tpu_torch.parallel.mesh import make_mesh
@@ -31,6 +43,7 @@ from kepler_tpu_torch.telemetry import SpanRecorder
 
 FLEET_SPANS = ("fleet.pack", "fleet.h2d", "fleet.launch", "fleet.attribute",
                "fleet.estimator", "fleet.mix")
+TEMPORAL_SPANS = ("temporal.ticks", "temporal.attention")
 
 
 def ranges(prof, tmp_path) -> list[dict]:
@@ -248,6 +261,13 @@ def test_fleet_spans_and_bit_equal_windows(tmp_path, case):
     assert set(want) <= set(got)
     for name in ("fleet.attribute", "fleet.estimator", "fleet.mix"):
         assert within(got[name], got["fleet.launch"])
+    # the temporal estimator's own spans, inside the estimator's
+    if case == 1:
+        for name in TEMPORAL_SPANS:
+            assert within(got[name], got["fleet.estimator"])
+        want = want + TEMPORAL_SPANS
+    else:
+        assert not set(TEMPORAL_SPANS) & set(got)
     # the operators' stages, nested in the window's cycle
     (trace,) = rec.recent_traces()
     assert trace.name == "aggregator.window"
@@ -284,3 +304,77 @@ def test_the_debug_torch_trace_holds_the_window_thread_s_spans():
     assert th.native_id in {e.get("tid") for e in events
                         if e.get("cat") == "user_annotation"
                         and e["name"] == "fleet.launch"}
+
+
+# -- the temporal estimator's spans ------------------------------------------------------
+
+def temporal_inputs(seed: int, n: int = 3, w: int = 5, t: int = 4):
+    """(params, feat_hist [n, w, t, 7], workload_valid, t_valid, targets
+    [n, w, 3]): right-padded histories of 1 … t ticks."""
+    params = random_params(init_temporal(3, d_model=16, t_max=8), seed)
+    rng = np.random.default_rng(seed)
+    t_valid = np.arange(t)[None, None] < rng.integers(1, t + 1, (n, w))[
+        ..., None]
+    feat = np.where(t_valid[..., None], rng.normal(0, 1, (n, w, t, 7)), 0)
+    return (params, torch.from_numpy(feat.astype(np.float32)),
+            torch.from_numpy(rng.random((n, w)) > 0.2),
+            torch.from_numpy(t_valid),
+            torch.from_numpy(rng.uniform(0, 5, (n, w, 3)).astype(np.float32)))
+
+
+def temporal_steps(seed: int, steps: int = 2):
+    """``steps`` temporal train steps → (losses, params after them)."""
+    params, feat, valid, t_valid, targets = temporal_inputs(seed)
+    state = create_train_state(params, make_optimizer(1e-2))
+    step = make_temporal_train_step()
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, feat, valid, t_valid, targets)
+        losses.append(loss)
+    return losses, {k: v.detach() for k, v in state.params.items()}
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_temporal_spans_nest_in_the_forward_once_a_step(tmp_path, enabled):
+    with telemetry.installed(SpanRecorder(enabled=enabled)), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        temporal_steps(4)
+    got = ranges(prof, tmp_path)
+    forwards = [e for e in got if e["name"] == "train.forward"]
+    assert len(forwards) == 2
+    for name in TEMPORAL_SPANS:
+        inner = [e for e in got if e["name"] == name]
+        assert len(inner) == 2, name
+        assert all(sum(within(e, f) for e in inner) == 1 for f in forwards)
+    ticks, attention = ([e for e in got if e["name"] == n]
+                        for n in TEMPORAL_SPANS)
+    assert all(a["ts"] >= k["ts"] + k["dur"]
+               for k, a in zip(ticks, attention))
+
+
+def test_temporal_spans_on_the_full_trunk(tmp_path):
+    """The full-sequence trunk (B3's seam) opens the same two names, the
+    ticks' before the attention's."""
+    params, feat, _, t_valid, _ = temporal_inputs(6)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        temporal_trunk(params, feat.flatten(0, 1), t_valid.flatten(0, 1))
+    got = [e for e in ranges(prof, tmp_path) if e["name"] in TEMPORAL_SPANS]
+    assert [e["name"] for e in got] == list(TEMPORAL_SPANS)
+    assert got[1]["ts"] >= got[0]["ts"] + got[0]["dur"]
+
+
+@pytest.mark.parametrize("path", ["predict", "train"])
+def test_temporal_outputs_bit_equal_traced_and_untraced(path):
+    def run():
+        if path == "predict":
+            params, feat, valid, t_valid, _ = temporal_inputs(8)
+            return [predict_temporal(params, feat, valid, t_valid)]
+        losses, params = temporal_steps(8)
+        return losses + list(params.values())
+
+    plain = run()
+    with telemetry.installed(SpanRecorder(enabled=True)), \
+            profile(activities=[ProfilerActivity.CPU]):
+        traced = run()
+    assert len(plain) == len(traced) > 0
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))

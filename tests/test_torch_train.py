@@ -613,6 +613,30 @@ def test_build_trainer_logs_the_rows_it_keeps(tmp_path, caplog, dump):
     assert (share == "100.00") == (dump == "every_slot_valid")
 
 
+def test_build_trainer_logs_the_temporal_slots_it_steps_on(tmp_path,
+                                                          caplog):
+    """The temporal counter: the padded slots and ticks the step
+    computes on, and the labelled rows among them, logged once at
+    INFO."""
+    import logging
+    import re
+
+    data, _ = pcmd.load_windows(dump_windows(tmp_path, model_mode="temporal"))
+    args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--model",
+                            "temporal", "--device", "cpu"])
+    with caplog.at_level(logging.INFO, logger="kepler.train"):
+        pcmd.build_trainer(args, data, torch.device("cpu"))
+    found = re.findall(r"stepping on (\d+) padded slots × (\d+) ticks, "
+                       r"(\d+) labelled \(([0-9.]+)%\)", caplog.text)
+    assert len(found) == 1
+    slots, ticks, rows = (int(x) for x in found[0][:3])
+    fh = data["feat_hist"]
+    assert slots == fh.shape[0] * fh.shape[1] and ticks == fh.shape[2] == 4
+    assert 0 < rows == int(data["label_valid"].any(-1).sum()) < slots
+    assert found[0][3] == f"{100 * rows / slots:.2f}"
+    assert "labelled rows of" not in caplog.text
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_train_cli_end_to_end_on_cpu(tmp_path, family):
     """Dumps from the port's Aggregator → ``cmd.train --device cpu`` → an
