@@ -115,8 +115,9 @@ zones, buckets N = 1024, W = 256):
    functions, and its device tier's programs run on the card — B1 in
    ``ops.pallas_attribution`` and ``packed.pallas_dense`` (once per
    shard), B2 in ``window.fused_pallas``, the row scatter in the
-   ``window.update`` entries — each case's fingerprint
-   against the same case run on the CPU, the kernel cases' outputs
+   ``window.update`` entries, the hi/lo split in ``trainer.train_step`` —
+   each case's fingerprint against the same case run on the CPU (its
+   bf16 products on the card's route), the kernel cases' outputs
    bit-equal to their plain versions;
 16. the Aggregator's whole-mesh programs per node block (``main_mesh``,
    phase ``mesh``), on 8 virtual shards of the card as an 8-shard
@@ -154,7 +155,12 @@ row scatter (``kt_scatter_rows``, a repair kernel: the reference's
 update is XLA's scatter, not a Pallas kernel) is held bit-equal to its
 plain version at N = 16,384 and DB = 8, 512 and 1,024, pads and a
 duplicate index included, and timed beside ``index_put_``; every packed
-window's update on paths 2, 3, 9, 11 and 13 launches it.
+window's update on paths 2, 3, 9, 11 and 13 launches it. The hi/lo split
+of a bf16 backward's incoming gradient (``kt_hi_lo``, no TPU kernel) is
+held bit-equal to its plain version at the refit cells' five gradient
+shapes and timed beside its byte bound; path 10's bf16 train steps, the
+DP×TP steps of paths 14 and 17 at bf16 and path 15's train step launch
+it, and no f32 step does.
 
 ``--phases a,b`` runs only the named phases (of ``PHASES``: ``kernels``,
 ``ratio``, ``mixed``, ``serial_mlp``, ``aggregator``, ``temporal``,
@@ -590,6 +596,65 @@ def kernel_scatter_rows(dev: torch.device, db: int) -> dict:
         "bytes": nbytes,
     }
     emit({"phase": "kernel_scatter_rows", **row})
+    return row
+
+
+# the incoming gradients a bf16 refit step splits (``models.nn.HalfProduct``)
+# in the benchmark's refit cells: the MLP's hidden and output products over
+# 9,830,400 labelled rows, and the temporal estimator's K and V over
+# 655,360 slots × 16 ticks, its scores and its per-head values
+HI_LO_SHAPES = {"temporal_kv": (10_485_760, 128),
+                "mlp_hidden": (9_830_400, 128), "mlp_out": (9_830_400, 4),
+                "temporal_scores": (655_360, 16, 4),
+                "temporal_values": (655_360, 4, 128)}
+
+
+def kernel_hi_lo(dev: torch.device) -> dict:
+    """The backward's hi/lo split (a kernel with no TPU counterpart) at
+    the refit cells' gradient shapes: the pair bit-equal to its plain
+    version, both timed beside the byte bound (the gradient read once,
+    its two bf16 halves written once). → the row at the temporal K/V
+    shape, the others under ``by_shape``."""
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops import hi_lo as hl
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows: dict = {}
+    for name, shape in HI_LO_SHAPES.items():
+        g = torch.randn(shape, device=dev, generator=gen)
+        g.mul_(torch.randn(shape, device=dev, generator=gen).mul_(4).exp_())
+        before = hl.LAUNCHES["hi_lo"]
+        got = hl.hi_lo(g, bf)
+        want = hl.hi_lo_ref(g, bf)
+        torch.cuda.synchronize()
+        check(hl.LAUNCHES["hi_lo"] == before + 1,
+              "the hi/lo split did not launch once")
+        check(same_bits(got, want),
+              f"the hi/lo split differs from its plain version at {shape}")
+        del got, want
+        nbytes = 8 * g.numel()
+        bound, by = ca.bound_ms(nbytes, 0)
+        kern = lambda: hl.hi_lo(g, bf)  # noqa: E731
+        plain = lambda: hl.hi_lo_ref(g, bf)  # noqa: E731
+        rows[name] = {
+            "shape": {"g": list(shape)}, "max_abs_err": 0.0,
+            "ms": time_ms(kern),
+            "device_ms": device_ms(kern, tries=DEVICE_MS_TRIES,
+                                   match="hi_lo")[0],
+            "plain_ms": time_ms(plain),
+            "plain_device_ms": device_ms(plain, tries=DEVICE_MS_TRIES)[0],
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+        del g
+        torch.cuda.empty_cache()
+    main = rows["temporal_kv"]
+    row = {
+        "name": "hi_lo", "route": "cuda", "kind": "backward kernel",
+        "source": "kepler_tpu_torch/ops/csrc/hi_lo.cu",
+        "replaces": "no TPU kernel: the transpose of the reference's "
+                    "f32-result dot takes the f32 cotangent as it is",
+        **main, "parity": "bit-equal", "by_shape": rows}
+    emit({"phase": "kernel_hi_lo", **row})
     return row
 
 
@@ -1911,8 +1976,10 @@ def host_result(res) -> list[np.ndarray]:
 def reset_launches() -> None:
     from kepler_tpu_torch.ops import cuda_attention as cat
     from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops import hi_lo as hl
 
-    for table in (ca.LAUNCHES, cat.LAUNCHES, cat.TILED_PATH_LAUNCHES):
+    for table in (ca.LAUNCHES, cat.LAUNCHES, cat.TILED_PATH_LAUNCHES,
+                  hl.LAUNCHES):
         for name in table:
             table[name] = 0
 
@@ -1922,10 +1989,18 @@ def read_launches() -> dict:
     ``flash_block_tiled_<path>``."""
     from kepler_tpu_torch.ops import cuda_attention as cat
     from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops import hi_lo as hl
 
-    return {**ca.LAUNCHES, **cat.LAUNCHES,
+    return {**ca.LAUNCHES, **cat.LAUNCHES, **hl.LAUNCHES,
             **{f"flash_block_tiled_{path}": n
                for path, n in cat.TILED_PATH_LAUNCHES.items()}}
+
+
+def kernels_but_split(launches: dict) -> dict:
+    """The kernels of ``launches`` that launched, but for the hi/lo split
+    (``ops.hi_lo``), which a bf16 train step's backward on the card
+    launches (``models.nn.HalfProduct``) and an f32 one does not."""
+    return {k: n for k, n in launches.items() if n and k != "hi_lo"}
 
 
 def profile_top(fn, k: int = 8, match: str | None = None) -> dict:
@@ -2443,8 +2518,12 @@ def main_train(dev: torch.device) -> dict:
     trunks round their operands after sums taken in another order); the
     output ``.npz`` serves in the Aggregator on the card (moe's and
     deep's through the aggregator binary too); and the binary ``python -m
-    kepler_tpu_torch.cmd.train`` exits 0. Training launches
-    no kernel (as in JAX); the dumps and the serving windows launch B1."""
+    kepler_tpu_torch.cmd.train`` exits 0. The dumps and the serving
+    windows launch B1; a bf16 train step's backward launches the hi/lo
+    split (``ops.hi_lo``) once for each product it takes to tensor cores
+    (``models.nn.HalfProduct``), the same number every step, and linear's,
+    which has none, launches nothing."""
+    from kepler_tpu_torch.ops import hi_lo as hl
     from kepler_tpu_torch.cmd.train import load_windows
     from kepler_tpu_torch.fleet import wire
     from kepler_tpu_torch.models.estimator import load_params, param_leaves
@@ -2474,9 +2553,15 @@ def main_train(dev: torch.device) -> dict:
             base = ["--data", data, "--model", fam, "--lr", TRAIN_LR,
                     "--log-every", "1"]
             t0 = time.perf_counter()
+            split0 = hl.LAUNCHES["hi_lo"]
             straight = train_cli(base + ["--steps", str(TRAIN_STEPS),
                                          "--out", f"{out}-straight.npz"])
             card_s = time.perf_counter() - t0
+            splits = hl.LAUNCHES["hi_lo"] - split0
+            check(splits % TRAIN_STEPS == 0
+                  and (splits > 0) == (fam != "linear"),
+                  f"{fam}: the hi/lo split launched {splits} times in "
+                  f"{TRAIN_STEPS} steps")
             losses = straight.losses
             check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
                   f"{fam}: the loss did not fall ({losses[:1]} → "
@@ -2517,6 +2602,7 @@ def main_train(dev: torch.device) -> dict:
                 "loss_at_cpu_steps": [losses[TRAIN_CPU_STEPS - 1],
                                       cpu.losses[-1]],
                 "resume_max_abs_diff": resume_diff,
+                "hi_lo_per_step": splits // TRAIN_STEPS,
                 "ms_per_step": ms, "peak_mib": peak,
                 "straight_run_s": card_s, "cpu_run_s": cpu_s,
                 "served": served}
@@ -4629,8 +4715,10 @@ def parallel_trainer(dev: torch.device) -> dict:
                     lambda: step(state, feats, valid, targets))
                 losses.append(float(loss))
                 ms.append(step_ms)
-            check(not any(read_launches().values()),
-                  "trainer: a kernel launched")
+            launches = read_launches()
+            check(not kernels_but_split(launches)
+                  and (launches["hi_lo"] > 0) == (cd == torch.bfloat16),
+                  f"trainer ({name}): launched {launches}")
             whole = (gather_params(state) if label == "dp_tp"
                      else train.detached(state.params))
             runs[label] = (losses, whole, statistics.median(ms))
@@ -4993,8 +5081,11 @@ def main_dist(dev: torch.device) -> dict:
                                      for key, val in one[label].items()),
                   f"rank {r['rank']}'s {label} differs from one process's")
         for label, row in r["calls"].items():
-            check(label == "ring_b3" or not any(row["launches"].values()),
-                  f"rank {r['rank']}'s {label} launched a kernel")
+            split = row["launches"]["hi_lo"] > 0  # a bf16 backward
+            check(label == "ring_b3"
+                  or (not kernels_but_split(row["launches"])
+                      and split == label.startswith("dp_tp_bf16")),
+                  f"rank {r['rank']}'s {label} launched {row['launches']}")
     launches = {key: sum(r["calls"]["ring_b3"]["launches"][key]
                          for r in ranks)
                 for key in ranks[0]["calls"]["ring_b3"]["launches"]}
@@ -5072,10 +5163,12 @@ def main_analysis(dev: torch.device) -> dict:
     protocol tier's models over the port's fleet functions; the device
     tier's registered programs run on the card — KTL120-122 clean, each
     case's fingerprint equal to the same case run on the CPU in this
-    process, its kernels and collectives equal to the committed snapshot
-    (a histogram drift, a torch-version effect, is printed), and the
-    kernel entries' outputs (B1, B2, the row scatter) bit-equal to their
-    plain versions on the same inputs."""
+    process (whose bf16 products take the card's route,
+    ``analysis.device.trace.card_route``), its kernels and collectives
+    equal to the committed snapshot (a histogram drift, a torch-version
+    effect, is printed), and the kernel entries' outputs (B1, B2, the row
+    scatter) bit-equal to their plain versions on the same inputs; the
+    train step's entry launches the hi/lo split."""
     import contextlib
     import io
 
@@ -5158,7 +5251,8 @@ def main_analysis(dev: torch.device) -> dict:
             kernel_cases[got.key] = list(got.spec.kernels)
     check(row["launches"]["outer_product_attribution"] >= 1
           and row["launches"]["fused_window_step"] >= 1
-          and row["launches"]["scatter_rows"] >= 1,
+          and row["launches"]["scatter_rows"] >= 1
+          and row["launches"]["hi_lo"] >= 1,
           f"device tier launched {row['launches']}")
     row["cases"] = len(cuda_reports)
     row["kernel_cases_bit_equal"] = kernel_cases
@@ -5256,6 +5350,7 @@ def main(argv: list[str] | None = None) -> int:
     b3_wide: dict = {}
     b3_widepath: dict = {}
     scatter_rows: dict = {}
+    hi_lo_row = None
     if "kernels" in on:
         b1 = kernel_b1(dev)
         b2_rows = {db: kernel_b2(dev, db) for db in (8, N_NODES)}
@@ -5267,6 +5362,7 @@ def main(argv: list[str] | None = None) -> int:
                        for cd in (torch.bfloat16, torch.float32)}
         scatter_rows = {db: kernel_scatter_rows(dev, db)
                         for db in SCATTER_DBS}
+        hi_lo_row = kernel_hi_lo(dev)
     lap("kernels")
     main_db = 512  # the ratio schedule's flush DB, when it does not run
     if "ratio" in on:
@@ -5426,6 +5522,9 @@ def main(argv: list[str] | None = None) -> int:
     check(not ran_scatter_paths or sum(scatter_paths.values()) > 0,
           f"the row scatter launched no time on the main paths "
           f"{sorted(ran_scatter_paths)}: {scatter_paths}")
+    split_paths = launches_of(r, "hi_lo")
+    check(not {"train", "analysis"} & on or sum(split_paths.values()) > 0,
+          f"the hi/lo split launched no time in training: {split_paths}")
     scatter_extra: dict = {}
     if scatter_rows:
         scatter_extra["by_db"] = {
@@ -5443,7 +5542,8 @@ def main(argv: list[str] | None = None) -> int:
         kernel_line(tiled_row, "flash_block_tiled", tiled_paths,
                     **tiled_extra),
         kernel_line(scatter_rows.get(512), "scatter_rows", scatter_paths,
-                    **scatter_extra)]
+                    **scatter_extra),
+        kernel_line(hi_lo_row, "hi_lo", split_paths)]
     emit({"phase": "total", "phases": phases,
           "seconds": time.perf_counter() - t_script,
           "phase_seconds": laps})

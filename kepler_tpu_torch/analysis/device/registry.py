@@ -19,10 +19,12 @@ does on one card. The contract the KTL120-123 checks enforce:
   only cross-shard step in a fleet window is the caller's result fetch.
 - ``allowed_half_casts`` — the half-precision cast pairs that are
   DECLARED boundaries (the packed f16 wire quantizer; the bf16 operand
-  rounding of ``models.nn.acc_matmul``, which in the port rounds an f32
-  operand to bf16 and back before an f32 product, so both directions
-  appear). Any other half cast — and any half product or reduction,
-  which no entry may allow — is a KTL120 finding.
+  rounding of ``models.nn.acc_matmul``, which on the CPU rounds an f32
+  operand to bf16 and back before an f32 product, and on the card casts
+  it once for a tensor-core product with an f32 result and rounds the
+  gradients the same way, so both directions appear). Any other half
+  cast — and any half product or reduction, which no entry may allow —
+  is a KTL120 finding.
 - ``require_shard_map`` — the program runs per-shard bodies (the
   counterpart of a ``shard_map``): losing them fails KTL122.
 

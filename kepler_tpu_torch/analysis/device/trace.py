@@ -7,6 +7,8 @@ once, on seeded inputs at the case's tiny shapes, inside a
 ``TorchDispatchMode`` recorder (:class:`OpRecorder`) that sees every aten
 op the run dispatches, its backward included. The run happens on the
 device the caller names: ``cuda`` by default, ``cpu`` only when asked.
+A CPU run takes the card's route for the half-operand products
+(:func:`card_route`), so that both record the same program.
 
 What a run yields (:class:`TraceReport`):
 
@@ -129,6 +131,47 @@ def flat_leaves(arg: Any) -> list[torch.Tensor]:
 
 def _aval(t: torch.Tensor) -> str:
     return f"{dtype_name(t.dtype)}[{','.join(str(d) for d in t.shape)}]"
+
+
+_CPU_PRODUCTS: list[torch.library.Library] = []  # registered once
+
+
+def _register_cpu_products() -> None:
+    """CPU kernels for ``aten::mm.dtype`` and ``aten::bmm.dtype``, which
+    the CPU backend lacks: the f32 product of the half operands' values
+    (exact products, f32 sums), as the card's tensor cores give it. Under
+    the recorder each call is one ``mm`` or ``bmm``, as on the card."""
+    if _CPU_PRODUCTS or torch._C._dispatch_has_kernel_for_dispatch_key(
+            "aten::mm.dtype", "CPU"):
+        return
+    lib = torch.library.Library("aten", "IMPL")
+    for name, op in (("mm", torch.mm), ("bmm", torch.bmm)):
+        lib.impl(f"{name}.dtype",
+                 lambda a, b, out_dtype, op=op: op(a.to(out_dtype),
+                                                   b.to(out_dtype)),
+                 "CPU")
+    _CPU_PRODUCTS.append(lib)
+
+
+@contextlib.contextmanager
+def card_route(dev: torch.device) -> Iterator[None]:
+    """On a CPU run, the bf16 products of ``models.nn`` take the card's
+    route (``TENSOR_CORE_DEVICES``): ``HalfProduct`` with its products
+    on the kernels above and the hi/lo split's plain version, which the
+    recorder counts as the card's ``kernel:hi_lo``. On the card, nothing
+    changes."""
+    if dev.type == "cuda":
+        yield
+        return
+    from kepler_tpu_torch.models import nn
+
+    _register_cpu_products()
+    saved = nn.TENSOR_CORE_DEVICES
+    nn.TENSOR_CORE_DEVICES = (*saved, dev.type)
+    try:
+        yield
+    finally:
+        nn.TENSOR_CORE_DEVICES = saved
 
 
 class OpRecorder(TorchDispatchMode):
@@ -280,6 +323,12 @@ def trace_case(spec: "ProgramSpec", case: "ProgramCase",
     from kepler_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
+    with card_route(dev):
+        return _trace(spec, case, dev)
+
+
+def _trace(spec: "ProgramSpec", case: "ProgramCase",
+           dev: torch.device) -> TraceReport:
     fn, args = spec.build(case, dev)
     leaves = [flat_leaves(a) for a in args]
     flat = [t for group in leaves for t in group]

@@ -12,6 +12,7 @@ import math
 import torch
 
 from kepler_tpu_torch.ops.attention import round_to
+from kepler_tpu_torch.ops.hi_lo import hi_lo
 
 LN_EPS = 1e-6
 
@@ -35,16 +36,125 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
+def _cuda_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` of half tensors (2-D, or 3-D with one batch axis) on
+    tensor cores with an f32 accumulator and an f32 result."""
+    if x.dim() == 2:
+        return torch.mm(x, y, out_dtype=torch.float32)
+    return torch.bmm(x, y, out_dtype=torch.float32)
+
+
+class HalfProduct(torch.autograd.Function):
+    """``a @ b`` on half operands with an f32 result: ``a`` [..., M, K]
+    and ``b`` [..., K, N] (2-D, or 3-D with one batch axis), each cast
+    once to ``half`` and saved so for the backward. Every product is
+    ``_cuda_product``: half operands, f32 accumulator, f32 result. The
+    backward feeds the incoming f32 gradient ``g`` as its hi/lo pair
+    (``ops.hi_lo``: ``[hi | lo]`` [..., M, 2N]), so no product rounds
+    ``g``. For M ≥ N, ``g @ bᵀ`` is ``[hi | lo] @ [bᵀ; bᵀ]``, one product
+    over 2N, and ``aᵀ @ g`` is ``aᵀ @ [hi | lo]`` with its two halves
+    summed in f32; for M < N the pair is read as 2M rows (hi and lo of
+    each row in turn), so ``g @ bᵀ`` gives 2M rows summed in pairs and
+    ``aᵀ @ g`` takes each row of ``a`` twice. Either way the duplicated
+    operand is the smaller one. Each operand's gradient is then rounded
+    to ``half`` and returned in its own dtype, as the backward of
+    ``round_to`` does.
+    """
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor,
+                half: torch.dtype) -> torch.Tensor:
+        a_h, b_h = a.to(half), b.to(half)
+        ctx.save_for_backward(a_h, b_h)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return _cuda_product(a_h, b_h)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple:
+        a_h, b_h = ctx.saved_tensors
+        mul, half = _cuda_product, a_h.dtype
+        *lead, m, n = g.shape
+        k = a_h.shape[-1]
+        pair = hi_lo(g, half)  # [..., M, 2N]: hi | lo
+        grad_a = grad_b = None
+        if m >= n:
+            if ctx.needs_input_grad[0]:
+                bt = b_h.transpose(-1, -2)
+                grad_a = mul(pair, torch.cat((bt, bt), dim=-2)).to(half)
+            if ctx.needs_input_grad[1]:
+                halves = mul(a_h.transpose(-1, -2), pair)
+                grad_b = (halves[..., :n] + halves[..., n:]).to(half)
+        else:
+            rows = pair.view(*lead, 2 * m, n)  # row 2i hi[i], 2i + 1 lo[i]
+            if ctx.needs_input_grad[0]:
+                grad_a = mul(rows, b_h.transpose(-1, -2)).view(
+                    *lead, m, 2, k).sum(dim=-2).to(half)
+            if ctx.needs_input_grad[1]:
+                a2 = a_h.unsqueeze(-2).expand(*lead, m, 2, k)
+                grad_b = mul(a2.reshape(*lead, 2 * m, k).transpose(-1, -2),
+                             rows).to(half)
+        del pair  # before the f32 copies of the gradients
+        if grad_a is not None:
+            grad_a = grad_a.to(ctx.dtypes[0])
+        if grad_b is not None:
+            grad_b = grad_b.to(ctx.dtypes[1])
+        return grad_a, grad_b, None
+
+
+def half_product(a: torch.Tensor, b: torch.Tensor,
+                 half: torch.dtype) -> torch.Tensor:
+    """:class:`HalfProduct` of ``a`` [..., K] and ``b`` [K, N] (the
+    leading axes of ``a`` flattened into M), or of ``a`` [E, M, K] and
+    ``b`` [E, K, N] → f32 [..., N]."""
+    if b.dim() == 2:
+        out = HalfProduct.apply(a.reshape(-1, a.shape[-1]), b, half)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return HalfProduct.apply(a, b, half)
+
+
+#: the device types whose bf16 products take :class:`HalfProduct`: the
+#: card's. The device tier adds ``cpu`` while it traces a program on the
+#: CPU (``analysis.device.trace``), so that it records the card's route.
+TENSOR_CORE_DEVICES: tuple[str, ...] = ("cuda",)
+
+
+def tensor_cores(x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
+    """Whether a product whose left operand is ``x`` [..., K], laid out
+    as the product takes it, with ``compute_dtype`` operands runs
+    :class:`HalfProduct` on tensor cores: bf16 on the card, with K a
+    multiple of 8. An f16 pair cannot carry an f32 gradient's exponent
+    range; the CPU keeps the plain product, which the tests hold to the
+    JAX package; and a K such as the 7 features leaves bf16 rows that are
+    not 16-byte aligned, whose weight gradient the card computes faster
+    in f32."""
+    return (x.device.type in TENSOR_CORE_DEVICES
+            and compute_dtype == torch.bfloat16 and x.shape[-1] % 8 == 0)
+
+
 def acc_matmul(a: torch.Tensor, b: torch.Tensor,
                compute_dtype: torch.dtype) -> torch.Tensor:
-    """Half-operand, f32-accumulator matmul → f32.
+    """Half-operand, f32-accumulator matmul → f32: ``a`` [..., K] with
+    ``b`` [K, N], or ``a`` [E, M, K] with ``b`` [E, K, N].
 
     The JAX package casts the operands to ``compute_dtype`` and pins an f32
-    result (``preferred_element_type``). ``torch.matmul`` on bf16 tensors
-    would round the result to bf16 instead, so the operands are rounded to
-    ``compute_dtype`` and multiplied as f32 (TF32 off: ``device``). A
-    product of two bf16 values is exact in f32, so only the summation
-    order can differ from the JAX result.
+    result (``preferred_element_type``). Two routes give that result:
+
+    - on the card at bf16 (:func:`tensor_cores`), :class:`HalfProduct`:
+      the operands cast once to bf16 and multiplied on tensor cores into
+      f32; the backward carries the incoming gradient as a bf16 hi/lo
+      pair, so it keeps 16 significant bits in every product, and rounds
+      each operand's gradient to bf16 as ``round_to``'s backward does;
+    - elsewhere (the CPU, f16, f32 accuracy mode, and a contracted
+      width that is no multiple of 8, such as the 7 features), the
+      plain product: the operands rounded to ``compute_dtype``
+      (``round_to``, a no-op at f32) and multiplied as f32 (TF32 off:
+      ``device``).
+
+    A product of two bf16 values is exact in f32, so the routes differ
+    from each other and from the JAX result in summation order only.
     """
+    if tensor_cores(a, compute_dtype) and (b.dim() == 2
+                                           or a.dim() == b.dim() == 3):
+        return half_product(a, b, compute_dtype)
     return torch.matmul(round_to(a, compute_dtype),
                         round_to(b, compute_dtype))

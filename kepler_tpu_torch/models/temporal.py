@@ -34,7 +34,8 @@ from torch import nn
 
 from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.features import NUM_FEATURES
-from kepler_tpu_torch.models.nn import acc_matmul, glorot, layer_norm
+from kepler_tpu_torch.models.nn import (acc_matmul, glorot, half_product,
+                                        layer_norm, tensor_cores)
 from kepler_tpu_torch.ops.attention import full_attention, round_to
 
 # TemporalParams keys, as the JAX package's TypedDict names them
@@ -173,6 +174,43 @@ def temporal_trunk(
     return trunk_out(params, x, attn, compute_dtype)
 
 
+def _query_scores(q: torch.Tensor, k: torch.Tensor,
+                  cd: torch.dtype) -> torch.Tensor:
+    """q [B, H, Dh] · k [B, T, H, Dh] → unscaled scores [B, H, T].
+
+    On tensor cores (``nn.tensor_cores``) K stays in its projection's
+    layout [B, T, H·Dh] and meets q laid out block-diagonally, [H·Dh, H]
+    with head h's query in rows h·Dh … (h+1)·Dh − 1 of column h: one
+    product per sequence, whose other terms are exact zeros."""
+    b, t, h, dh = k.shape
+    keys = k.reshape(b, t, h * dh)
+    if not tensor_cores(keys, cd):
+        return torch.einsum("bhd,bthd->bht", round_to(q, cd),
+                            round_to(k, cd))
+    blocks = q.unsqueeze(2) * torch.eye(h, dtype=q.dtype,
+                                        device=q.device)[:, :, None]
+    scores = half_product(keys, blocks.reshape(b, h, h * dh).transpose(1, 2),
+                          cd)
+    return scores.transpose(1, 2)
+
+
+def _weighted_values(probs: torch.Tensor, v: torch.Tensor,
+                     cd: torch.dtype) -> torch.Tensor:
+    """probs [B, H, T] × v [B, T, H, Dh] → attention's output [B, H·Dh].
+
+    On tensor cores V stays in its projection's layout [B, T, H·Dh]:
+    each head's weights meet every head's values in one product per
+    sequence, and head h's output is the block of row h at columns
+    h·Dh … (h+1)·Dh − 1."""
+    b, t, h, dh = v.shape
+    if not tensor_cores(probs, cd):  # K = T, the history's ticks
+        return torch.einsum("bht,bthd->bhd", round_to(probs, cd),
+                            round_to(v, cd)).reshape(b, h * dh)
+    out = half_product(probs, v.reshape(b, t, h * dh), cd)
+    return out.view(b, h, h, dh).diagonal(dim1=1, dim2=2).transpose(
+        1, 2).reshape(b, h * dh)
+
+
 def _last_query_trunk(
     params: dict[str, torch.Tensor],
     feat_hist: torch.Tensor,  # f32 [B, T, F]
@@ -205,8 +243,7 @@ def _last_query_trunk(
         last = torch.clamp(t_valid.sum(dim=-1) - 1, min=0)
         q = acc_matmul(_take_last(y, last), params["wq"],
                        cd).reshape(b, h, dh)
-        scores = torch.einsum("bhd,bthd->bht", round_to(q, cd),
-                              round_to(k, cd))
+        scores = _query_scores(q, k, cd)
         scores = scores / torch.sqrt(torch.tensor(
             dh, dtype=torch.float32, device=scores.device))
         # finite mask value: an all-invalid window yields 0 attention,
@@ -217,8 +254,7 @@ def _last_query_trunk(
         probs = torch.softmax(scores, dim=-1)
         any_valid = t_valid.any(dim=-1)
         probs = torch.where(any_valid[:, None, None], probs, 0.0)
-        attn = torch.einsum("bht,bthd->bhd", round_to(probs, cd),
-                            round_to(v, cd)).reshape(b, d)
+        attn = _weighted_values(probs, v, cd)
 
     x_last = _take_last(x, last) + acc_matmul(attn, params["wo"], cd)
     x_last = _mlp_block(params, x_last, cd)

@@ -24,7 +24,12 @@ _NEG_INF = -1e30  # large-but-finite: keeps exp() exactly 0 without NaN risk
 
 def round_to(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """``x`` rounded to ``compute_dtype`` and held in f32 (a no-op for
-    f32): the operand of a half-operand, f32-accumulator product."""
+    f32): the operand of a half-operand, f32-accumulator product on its
+    plain route (the CPU, f16, f32, a contracted width that is no
+    multiple of 8; ``models.nn.acc_matmul``) and in B3's plain attention.
+    Its backward rounds the f32 gradient to ``compute_dtype`` the same
+    way. On the card at bf16 the products cast each operand once instead
+    and keep that backward (``models.nn.HalfProduct``)."""
     if compute_dtype == torch.float32:
         return x
     return x.to(compute_dtype).to(torch.float32)

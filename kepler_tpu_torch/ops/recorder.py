@@ -18,8 +18,10 @@ them here:
 - a per-shard body reports the index of its shard (:func:`shard`), the
   counterpart of a ``shard_map``.
 
-The recorder is per thread. With none active each hook is one
-thread-local read.
+The recorder is per thread, and reaches the threads that run under its
+dispatch mode: autograd runs a CUDA backward on a thread of its own,
+which inherits the mode but not the caller's thread-locals. With none
+active each hook is one thread-local read and one test of an empty set.
 
 :class:`OutputShapes` is a recorder of another kind, for structural
 checks of a run: the shape of every floating-point tensor each aten op
@@ -34,28 +36,38 @@ import functools
 import threading
 from typing import Any, Callable, Iterator, TypeVar
 
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                         _get_current_dispatch_mode)
 from torch.utils._pytree import tree_flatten
 
 F = TypeVar("F", bound=Callable[..., Any])
 
 _LOCAL = threading.local()
+_RECORDING: dict[int, Any] = {}  # id → every recorder inside recording()
 
 
 def active() -> Any:
-    """The recorder of this thread, or None."""
-    return getattr(_LOCAL, "recorder", None)
+    """The recorder of this thread, or else the recorder whose dispatch
+    mode this thread runs under (an autograd thread), or None."""
+    rec = getattr(_LOCAL, "recorder", None)
+    if rec is None and _RECORDING:
+        mode = _get_current_dispatch_mode()
+        rec = _RECORDING.get(id(mode))
+    return rec
 
 
 @contextlib.contextmanager
 def recording(recorder: Any) -> Iterator[Any]:
     """Make ``recorder`` this thread's recorder for the block."""
-    prev = active()
+    prev = getattr(_LOCAL, "recorder", None)
     _LOCAL.recorder = recorder
+    _RECORDING[id(recorder)] = recorder
     try:
         yield recorder
     finally:
         _LOCAL.recorder = prev
+        if prev is not recorder:
+            _RECORDING.pop(id(recorder), None)
 
 
 def records_kernel(name: str) -> Callable[[F], F]:

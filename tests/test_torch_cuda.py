@@ -1127,3 +1127,200 @@ def test_pipeline_and_experts_across_two_nccl_ranks_on_the_card(
             np.testing.assert_array_equal(out[key], want[key], err_msg=key)
         for name in ("ppermute", "broadcast", "all_to_all", "all_gather"):
             assert int(out[f"crossing/{name}/calls"]) > 0, name
+
+
+# -- the half-operand product on tensor cores ------------------------------
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at ``|x|`` (8 significant bits)."""
+    _, exp = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), exp - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10_000, 128), (10_000, 4), (999, 512),
+                                   (655, 4, 16), (1001, 7), (3, 5)])
+def test_hi_lo_kernel_equals_plain(cuda_device, shape):
+    """The pair's kernel equals its plain version bit for bit, on every
+    path (8 and 4 elements a thread, one element) and with infinities,
+    zeros of both signs and an unaligned ``g``."""
+    from kepler_tpu_torch.ops import hi_lo as hl
+
+    gen = torch.Generator().manual_seed(17)
+    g = (torch.randn(shape, generator=gen)
+         * torch.exp(5 * torch.randn(shape, generator=gen)))
+    g.view(-1)[:3] = torch.tensor([float("inf"), 0.0, -0.0])
+    g = g.to(cuda_device)
+    before = hl.LAUNCHES["hi_lo"]
+    got = hl.hi_lo(g, torch.bfloat16)
+    assert hl.LAUNCHES["hi_lo"] == before + 1
+    want = hl.hi_lo_ref(g, torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    flat = torch.cat([torch.zeros(1, device=cuda_device),
+                      g.reshape(-1)])[1:].view(shape)  # 4-byte offset
+    assert torch.equal(hl.hi_lo(flat, torch.bfloat16).view(torch.int16),
+                       want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mlp_hidden", "mlp_out", "temporal_kv",
+                                  "temporal_scores", "temporal_values"])
+def test_acc_matmul_on_tensor_cores_matches_plain(cuda_device, case):
+    """The card's route at bf16 against the plain route (``round_to`` and
+    an f32 product, TF32 off) on the card, at the refits' shapes: the
+    forward to f32 summation error; every gradient bf16-valued and within
+    one bf16 ulp, plus what the hi/lo pair (2⁻¹⁷ of the incoming gradient)
+    and f32 sums may move a sum that cancels."""
+    from kepler_tpu_torch.device import resolve_device
+    from kepler_tpu_torch.models import nn, temporal
+    from kepler_tpu_torch.ops.attention import round_to
+
+    dev = resolve_device(cuda_device)
+    bf = torch.bfloat16
+    shapes = {"mlp_hidden": ((20_000, 128), (128, 128)),
+              "mlp_out": ((20_000, 128), (128, 4)),
+              "temporal_kv": ((2_000 * 16, 128), (128, 128)),
+              "temporal_scores": ((2_000, 4, 32), (2_000, 16, 4, 32)),
+              "temporal_values": ((2_000, 4, 16), (2_000, 16, 4, 32))}
+    run = {"temporal_scores": temporal._query_scores,
+           "temporal_values": temporal._weighted_values}.get(
+               case, nn.acc_matmul)
+    sa, sb = shapes[case]
+    k = sa[-1] if run is nn.acc_matmul else sb[-1] * sb[-2]
+    gen = torch.Generator().manual_seed(23)
+    a = torch.randn(sa, generator=gen).to(dev).requires_grad_()
+    b = (torch.randn(sb, generator=gen) / sb[-2] ** 0.5).to(
+        dev).requires_grad_()
+    g = (torch.randn(run(a, b, bf).shape, generator=gen) * 3).to(dev)
+    from kepler_tpu_torch.ops import hi_lo as hl
+
+    before = hl.LAUNCHES["hi_lo"]
+    got = run(a, b, bf)
+    grads = torch.autograd.grad(got, (a, b), g)
+    assert hl.LAUNCHES["hi_lo"] == before + 1  # the route ran
+    # the plain route: a bf16 compute dtype off the card's route
+    plain = {"temporal_scores": lambda q, kk, cd: torch.einsum(
+                 "bhd,bthd->bht", round_to(q, cd), round_to(kk, cd)),
+             "temporal_values": lambda p, v, cd: torch.einsum(
+                 "bht,bthd->bhd", round_to(p, cd),
+                 round_to(v, cd)).reshape(p.shape[0], -1)}.get(
+                     case, lambda x, y, cd: torch.matmul(round_to(x, cd),
+                                                         round_to(y, cd)))
+    want = plain(a, b, bf)
+    wants = torch.autograd.grad(want, (a, b), g)
+    ar, br = round_to(a, bf).detach(), round_to(b, bf).detach()
+    abs_a, abs_b = ar.abs().requires_grad_(), br.abs().requires_grad_()
+    mag = plain(abs_a, abs_b, torch.float32)
+    assert (got - want).abs().le(k * 2.0 ** -23 * mag + 1e-30).all()
+    spread = torch.autograd.grad(mag, (abs_a, abs_b), g.abs())
+    for got_g, want_g, room in zip(grads, wants, spread):
+        assert torch.equal(got_g, got_g.to(bf).float())
+        diff = (got_g - want_g).abs()
+        limit = (bf16_ulp(torch.maximum(got_g.abs(), want_g.abs()))
+                 + (2.0 ** -16 + k * 2.0 ** -23) * room)
+        assert diff.le(limit).all(), float((diff - limit).max())
+        assert diff.le(bf16_ulp(want_g.abs())).float().mean() > 0.99
+
+
+class _Products(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every matrix product a block dispatches: (op, operand dtypes,
+    operand shapes, result dtype), its backward included."""
+
+    OPS = ("mm", "bmm", "addmm", "baddbmm", "addbmm", "dot", "mv")
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.seen: list[tuple] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name in self.OPS:
+            ins = [t for t in args if isinstance(t, torch.Tensor)]
+            self.seen.append((name, tuple(t.dtype for t in ins),
+                              tuple(tuple(t.shape) for t in ins), out.dtype))
+        return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mlp", "temporal"])
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+def test_refit_step_runs_bf16_products_on_tensor_cores(cuda_device, family,
+                                                       cd):
+    """One refit step of each family at a small size. At bf16 every
+    product with f32 operands is one the model keeps in f32 or an edge
+    that keeps the plain route (a 7-wide feature side, the 4-wide head and
+    skip path), every bf16 product gives an f32 result, and the step's
+    kernels hold no more f32 GEMMs (``f32f32``, ``sgemm``) than those
+    products; accuracy mode (f32) takes no bf16 product at all."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kepler_tpu_torch.device import resolve_device
+    from kepler_tpu_torch.models import mlp, temporal, train
+
+    dev = resolve_device(cuda_device)
+    gen = torch.Generator().manual_seed(29)
+    if family == "mlp":
+        params = mlp.init_mlp(4, generator=gen)
+        params["w2"] = torch.randn(128, 4, generator=gen) * 0.1
+        args = (torch.rand(4096, 100, 7, generator=gen),
+                torch.rand(4096, 100, generator=gen) < 0.5)
+        step = train.make_train_step(
+            functools.partial(mlp.predict_mlp, compute_dtype=cd))
+    else:
+        params = temporal.init_temporal(4, generator=gen)
+        params["w_head"] = torch.randn(128, 4, generator=gen) * 0.1
+        args = (torch.rand(256, 100, 16, 7, generator=gen),
+                torch.rand(256, 100, generator=gen) < 0.5,
+                torch.rand(256, 100, 16, generator=gen) < 0.9)
+        step = train.make_temporal_train_step(None, cd)
+    targets = torch.rand(*args[1].shape, 4, generator=gen) * 5
+    put = [a.to(dev) for a in (*args, targets)]
+    state = train.create_train_state(
+        {k: v.to(dev) for k, v in params.items()}, train.make_optimizer())
+    state, _ = step(state, *put)  # builds and warms what the step runs
+    torch.cuda.synchronize()
+    rec = _Products()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, rec:
+        state, _ = step(state, *put)
+        torch.cuda.synchronize()
+    f32 = [p for p in rec.seen if set(p[1]) == {torch.float32}]
+    half = [p for p in rec.seen if torch.bfloat16 in p[1]]
+    if cd == torch.float32:
+        assert not half and f32
+        return
+    assert half and all(p[3] == torch.float32 for p in half), half
+    for p in f32:
+        assert any(d in (4, 7) for shape in p[2] for d in shape), p
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    sgemm = [n for n in kernels if "f32f32" in n or "sgemm" in n]
+    assert len(sgemm) <= len(f32), (sgemm, f32)
+    assert any("hi_lo" in n for n in kernels)
+
+
+@pytest.mark.cuda
+def test_device_tier_records_one_program_on_the_card_and_the_cpu(
+        cuda_device):
+    """Every registered device program's fingerprint on the card equals
+    the CPU's, whose bf16 products take the card's route
+    (``analysis.device.trace.card_route``): the same casts, one product
+    op a product and ``kernel:hi_lo`` a split; on the card the train
+    step's entry launches the split."""
+    from kepler_tpu_torch.analysis.device import DEVICE_PROGRAMS
+    from kepler_tpu_torch.analysis.device.trace import (fingerprint,
+                                                        trace_case)
+    from kepler_tpu_torch.ops import hi_lo as hl
+
+    before = hl.LAUNCHES["hi_lo"]
+    for spec in DEVICE_PROGRAMS:
+        for case in spec.cases:
+            card = fingerprint(trace_case(spec, case, cuda_device))
+            cpu = fingerprint(trace_case(spec, case, "cpu"))
+            assert card == cpu, (spec.name, case.name, {
+                k: (card[k], cpu[k]) for k in card if card[k] != cpu[k]})
+            if spec.name == "trainer.train_step":
+                assert card["ops"]["kernel:hi_lo"] > 0
+    assert hl.LAUNCHES["hi_lo"] > before

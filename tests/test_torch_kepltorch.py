@@ -190,6 +190,62 @@ def test_acc_matmul_pattern_is_clean():
     assert _run(spec, {"KTL120"}) == []
 
 
+@pytest.mark.parametrize("k", [8, 7])
+def test_cpu_trace_records_the_card_route(k):
+    """A CPU trace takes the card's bf16 product route where the card
+    would (a contracted width that is a multiple of 8): one ``mm`` a
+    product with an f32 result and one ``kernel:hi_lo`` a backward, KTL120
+    clean; the 7-wide product keeps the plain route. Outside the trace the
+    CPU is back on the plain route."""
+    from kepler_tpu_torch.models import nn
+
+    def step(x, w):
+        w = w.detach().requires_grad_()
+        out = acc_matmul(x, w, torch.bfloat16)
+        (grad,) = torch.autograd.grad(out.square().sum(), (w,))
+        return out, grad
+
+    spec = _spec("fx.product_step", step, lambda: (_f32(16, k), _f32(k, 8)),
+                 allowed_half_casts=frozenset({"float32->bfloat16",
+                                               "bfloat16->float32"}))
+    assert _run(spec, {"KTL120"}) == []
+    (report,), errors = trace_all((spec,), "cpu")
+    assert not errors and not report.half_products
+    ops = report.op_counts
+    assert ops.get("kernel:hi_lo", 0) == (k % 8 == 0)
+    assert ops["mm"] == 2  # the forward and the weight gradient
+    assert nn.TENSOR_CORE_DEVICES == ("cuda",)
+    assert not nn.tensor_cores(_f32(16, 8), torch.bfloat16)
+
+
+def test_recorder_reaches_a_thread_under_its_dispatch_mode():
+    """Autograd runs a CUDA backward on a thread of its own, which
+    inherits the dispatch mode but not the caller's thread-locals: a
+    kernel wrapper there still finds the recorder, and with no recording
+    on, none."""
+    import threading
+
+    from kepler_tpu_torch.analysis.device.trace import OpRecorder
+    from kepler_tpu_torch.ops import recorder as hooks
+
+    rec = OpRecorder([])
+    found = []
+
+    def backward_thread():
+        with rec:  # the mode, as autograd hands it over
+            found.append(hooks.active())
+
+    with hooks.recording(rec):
+        worker = threading.Thread(target=backward_thread)
+        worker.start()
+        worker.join()
+    assert found == [rec]
+    worker = threading.Thread(target=backward_thread)
+    worker.start()
+    worker.join()
+    assert found == [rec, None] and hooks.active() is None
+
+
 # ---------------------------------------------------------------------------
 # KTL121 donation-alias
 # ---------------------------------------------------------------------------

@@ -238,7 +238,8 @@ def test_build_all_runs_one_nvcc_per_source_at_once(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "ok")
     libs = build.build_all()
-    assert set(libs) == set(build.sources()) == {"attention", "attribution"}
+    assert set(libs) == set(build.sources()) == {"attention", "attribution",
+                                                 "hi_lo"}
     assert all(path.exists() and path.parent == tmp_path / "ok"
                for path in libs.values())
     assert build.build_all() == libs  # built: nothing runs again
@@ -251,3 +252,4 @@ def test_build_all_runs_one_nvcc_per_source_at_once(tmp_path, monkeypatch):
         build.build_all()
     leftover = {p.suffix for p in (tmp_path / "failing").iterdir()}
     assert ".tmp" in leftover  # attribution's nvcc ran to its end
+
