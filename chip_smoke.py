@@ -1733,7 +1733,7 @@ def kernel_b3(dev: torch.device, b: int, t: int) -> dict:
     want = cat.flash_block_ref(q, k, v, valid, 0, 0)
     sync()
     err = b3_check(got, want, v, bf16, f"B3 (tc) at B={b}, T={t}")
-    tiled = cat.tiled_plan(b, t, t, N_HEADS, d)
+    tiled = cat.tiled_plan(b, t, t, d)
     tiled_bf16 = lambda: cat.flash_block_launch(  # noqa: E731
         tiled, q, k, v, valid, 0, 0)
     before = read_launches()
@@ -4551,8 +4551,8 @@ def parallel_temporal(dev: torch.device) -> dict:
             ("sp_remat", make_sequence_parallel_train_step(
                 parallel_mesh(dev, PARALLEL_SHARDS), remat=True)),
             # the whole-tensor trunk around the ring
-            ("whole_trunk_remat", train.temporal_step_fn(
-                None, torch.float32, remat=True,
+            ("whole_trunk_remat", train.make_temporal_train_step(
+                torch.float32, remat=True,
                 attention_fn=ring_attention_shardmap(
                     parallel_mesh(dev, PARALLEL_SHARDS),
                     compute_dtype=torch.float32))),
@@ -5164,7 +5164,7 @@ def main_analysis(dev: torch.device) -> dict:
     tier's registered programs run on the card — KTL120-122 clean, each
     case's fingerprint equal to the same case run on the CPU in this
     process (whose bf16 products take the card's route,
-    ``analysis.device.trace.card_route``), its kernels and collectives
+    ``models.nn.card_route``), its kernels and collectives
     equal to the committed snapshot (a histogram drift, a torch-version
     effect, is printed), and the kernel entries' outputs (B1, B2, the row
     scatter) bit-equal to their plain versions on the same inputs; the

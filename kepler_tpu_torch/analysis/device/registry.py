@@ -413,7 +413,7 @@ def _build_sequence(case: ProgramCase, dev: torch.device) -> tuple:
     data = (_t(_feats(rng, w, t), dev), _t(np.ones(w, bool), dev),
             _t(t_valid, dev))
     if d.get("train"):
-        step = make_sequence_parallel_train_step(mesh, make_optimizer())
+        step = make_sequence_parallel_train_step(mesh)
         state = create_train_state(params, make_optimizer())
         return step, (state,) + data + (
             _t(rng.uniform(0, 20, (w, z)).astype(np.float32), dev),)
@@ -430,7 +430,7 @@ def _build_trainer(case: ProgramCase, dev: torch.device) -> tuple:
     n, w, z = d["n"], d["w"], d["z"]
     rng = _rng(case)
     mesh = _mesh(8, dev, ("node", "model"), shape=(4, 2))
-    step = make_distributed_train_step(mesh, make_optimizer())
+    step = make_distributed_train_step(mesh)
     state = shard_train_state(create_train_state(
         _params("mlp", z, rng, dev), make_optimizer()), mesh)
     return step, (state, _t(_feats(rng, n, w), dev),

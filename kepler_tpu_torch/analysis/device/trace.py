@@ -8,7 +8,9 @@ once, on seeded inputs at the case's tiny shapes, inside a
 op the run dispatches, its backward included. The run happens on the
 device the caller names: ``cuda`` by default, ``cpu`` only when asked.
 A CPU run takes the card's route for the half-operand products
-(:func:`card_route`), so that both record the same program.
+(``models.nn.card_route``), so that both record the same program: the
+recorder counts the hi/lo split's plain version as the card's
+``kernel:hi_lo``.
 
 What a run yields (:class:`TraceReport`):
 
@@ -131,47 +133,6 @@ def flat_leaves(arg: Any) -> list[torch.Tensor]:
 
 def _aval(t: torch.Tensor) -> str:
     return f"{dtype_name(t.dtype)}[{','.join(str(d) for d in t.shape)}]"
-
-
-_CPU_PRODUCTS: list[torch.library.Library] = []  # registered once
-
-
-def _register_cpu_products() -> None:
-    """CPU kernels for ``aten::mm.dtype`` and ``aten::bmm.dtype``, which
-    the CPU backend lacks: the f32 product of the half operands' values
-    (exact products, f32 sums), as the card's tensor cores give it. Under
-    the recorder each call is one ``mm`` or ``bmm``, as on the card."""
-    if _CPU_PRODUCTS or torch._C._dispatch_has_kernel_for_dispatch_key(
-            "aten::mm.dtype", "CPU"):
-        return
-    lib = torch.library.Library("aten", "IMPL")
-    for name, op in (("mm", torch.mm), ("bmm", torch.bmm)):
-        lib.impl(f"{name}.dtype",
-                 lambda a, b, out_dtype, op=op: op(a.to(out_dtype),
-                                                   b.to(out_dtype)),
-                 "CPU")
-    _CPU_PRODUCTS.append(lib)
-
-
-@contextlib.contextmanager
-def card_route(dev: torch.device) -> Iterator[None]:
-    """On a CPU run, the bf16 products of ``models.nn`` take the card's
-    route (``TENSOR_CORE_DEVICES``): ``HalfProduct`` with its products
-    on the kernels above and the hi/lo split's plain version, which the
-    recorder counts as the card's ``kernel:hi_lo``. On the card, nothing
-    changes."""
-    if dev.type == "cuda":
-        yield
-        return
-    from kepler_tpu_torch.models import nn
-
-    _register_cpu_products()
-    saved = nn.TENSOR_CORE_DEVICES
-    nn.TENSOR_CORE_DEVICES = (*saved, dev.type)
-    try:
-        yield
-    finally:
-        nn.TENSOR_CORE_DEVICES = saved
 
 
 class OpRecorder(TorchDispatchMode):
@@ -321,6 +282,7 @@ def trace_case(spec: "ProgramSpec", case: "ProgramCase",
     """Build one registry case on ``device`` and run it once under the
     recorder → its report."""
     from kepler_tpu_torch.device import resolve_device
+    from kepler_tpu_torch.models.nn import card_route
 
     dev = resolve_device(device)
     with card_route(dev):

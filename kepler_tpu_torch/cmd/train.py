@@ -131,7 +131,8 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
     gradient are the padded step's up to f32 summation order. The counter
     is logged once at INFO: "stepping on R labelled rows of S slots
     (x%)", the rows the step computes on over the dumps' slots. The
-    temporal family steps on the padded ``[B, W, T, F]`` histories, and
+    temporal family steps on the padded ``[B, W, T, F]`` histories, its
+    inputs ``(feat_hist, valid, t_valid, targets, label_valid)``, and
     logs once at INFO "stepping on S padded slots × T ticks, R labelled
     (x%)"."""
     import torch
@@ -152,7 +153,6 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
     valid = put(data["workload_valid"])
     targets = put(data["target_watts"], np.float32)
     label_valid = put(data["label_valid"])
-    optimizer = make_optimizer(args.lr)
     gen = torch.Generator().manual_seed(args.seed)
 
     if args.model == "temporal":
@@ -173,14 +173,8 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
                  100.0 * rows / max(slots, 1))
         params = initializer("temporal")(
             n_zones, t_max=max(t_max, 128), generator=gen, device=device)
-        state = create_train_state(params, optimizer)
-        temporal_step = make_temporal_train_step(optimizer)
-
-        def step_fn(state, feats_, valid_, targets_, label_valid_):
-            return temporal_step(state, feat_hist, valid_, t_valid,
-                                 targets_, label_valid_)
-
-        feats = None
+        step_fn = make_temporal_train_step()
+        inputs = (feat_hist, valid, t_valid, targets, label_valid)
     else:
         feats = build_features(
             put(data["cpu_deltas"], np.float32), valid,
@@ -197,9 +191,9 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
                  rows, slots, 100.0 * rows / max(slots, 1))
         params = initializer(args.model)(n_zones, generator=gen,
                                          device=device)
-        state = create_train_state(params, optimizer)
-        step_fn = make_train_step(predictor(args.model), optimizer)
-    return state, step_fn, (feats, valid, targets, label_valid)
+        step_fn = make_train_step(predictor(args.model))
+        inputs = (feats, valid, targets, label_valid)
+    return create_train_state(params, make_optimizer(args.lr)), step_fn, inputs
 
 
 def main(argv: Sequence[str] | None = None) -> int:

@@ -7,7 +7,9 @@ conventions, epsilons or where half precision enters.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator
 
 import torch
 
@@ -42,6 +44,26 @@ def _cuda_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if x.dim() == 2:
         return torch.mm(x, y, out_dtype=torch.float32)
     return torch.bmm(x, y, out_dtype=torch.float32)
+
+
+_CPU_PRODUCTS: list[torch.library.Library] = []  # registered once
+
+
+def _register_cpu_products() -> None:
+    """CPU kernels for ``aten::mm.dtype`` and ``aten::bmm.dtype``, which
+    the CPU backend lacks: the f32 product of the half operands' values
+    (exact products, f32 sums), as the card's tensor cores give it. Each
+    call dispatches as one ``mm`` or ``bmm``, as on the card."""
+    if _CPU_PRODUCTS or torch._C._dispatch_has_kernel_for_dispatch_key(
+            "aten::mm.dtype", "CPU"):
+        return
+    lib = torch.library.Library("aten", "IMPL")
+    for name, op in (("mm", torch.mm), ("bmm", torch.bmm)):
+        lib.impl(f"{name}.dtype",
+                 lambda a, b, out_dtype, op=op: op(a.to(out_dtype),
+                                                   b.to(out_dtype)),
+                 "CPU")
+    _CPU_PRODUCTS.append(lib)
 
 
 class HalfProduct(torch.autograd.Function):
@@ -113,21 +135,39 @@ def half_product(a: torch.Tensor, b: torch.Tensor,
 
 
 #: the device types whose bf16 products take :class:`HalfProduct`: the
-#: card's. The device tier adds ``cpu`` while it traces a program on the
-#: CPU (``analysis.device.trace``), so that it records the card's route.
-TENSOR_CORE_DEVICES: tuple[str, ...] = ("cuda",)
+#: card's, and the CPU's under :func:`card_route`
+_route_devices: tuple[str, ...] = ("cuda",)
+
+
+@contextlib.contextmanager
+def card_route(dev: torch.device) -> Iterator[None]:
+    """Under it, bf16 products of tensors on ``dev`` take the card's
+    route: :class:`HalfProduct`, with its products on the CPU kernels of
+    ``aten::mm.dtype`` and ``aten::bmm.dtype`` registered here and the
+    hi/lo split's plain version. On the card, nothing changes."""
+    global _route_devices
+    if dev.type == "cuda":
+        yield
+        return
+    _register_cpu_products()
+    saved = _route_devices
+    _route_devices = (*saved, dev.type)
+    try:
+        yield
+    finally:
+        _route_devices = saved
 
 
 def tensor_cores(x: torch.Tensor, compute_dtype: torch.dtype) -> bool:
     """Whether a product whose left operand is ``x`` [..., K], laid out
     as the product takes it, with ``compute_dtype`` operands runs
-    :class:`HalfProduct` on tensor cores: bf16 on the card, with K a
-    multiple of 8. An f16 pair cannot carry an f32 gradient's exponent
-    range; the CPU keeps the plain product, which the tests hold to the
-    JAX package; and a K such as the 7 features leaves bf16 rows that are
-    not 16-byte aligned, whose weight gradient the card computes faster
-    in f32."""
-    return (x.device.type in TENSOR_CORE_DEVICES
+    :class:`HalfProduct` on tensor cores: bf16 on the card (or under
+    :func:`card_route`), with K a multiple of 8. An f16 pair cannot carry
+    an f32 gradient's exponent range; the CPU keeps the plain product,
+    which the tests hold to the JAX package; and a K such as the 7
+    features leaves bf16 rows that are not 16-byte aligned, whose weight
+    gradient the card computes faster in f32."""
+    return (x.device.type in _route_devices
             and compute_dtype == torch.bfloat16 and x.shape[-1] % 8 == 0)
 
 

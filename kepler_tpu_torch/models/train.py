@@ -133,51 +133,51 @@ def create_train_state(params: Params, optimizer: Optimizer) -> TrainState:
     return TrainState(own, optimizer(param_leaves(own)), 0)
 
 
-def _update(state: TrainState, loss_fn: Callable[[Params], torch.Tensor]
-            ) -> tuple[TrainState, torch.Tensor]:
-    """One AdamW step on ``loss_fn(params)`` → (state, detached loss)."""
+def _step(state: TrainState, forward: Callable[[Params], torch.Tensor],
+          workload_valid: torch.Tensor, target_watts: torch.Tensor,
+          label_valid: torch.Tensor | None
+          ) -> tuple[TrainState, torch.Tensor]:
+    """One AdamW step on the masked MSE of ``forward(params)`` → (state,
+    detached loss)."""
     opt = state.opt_state
     with telemetry.span("train.step"):
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(state.params)
+        with telemetry.span("train.forward"):
+            pred = forward(state.params)
+        with telemetry.span("train.loss"):
+            loss = masked_mse(pred, target_watts, workload_valid,
+                              label_valid)
+        del pred  # the backward does not read it: free it before
         with telemetry.span("train.backward"):
             loss.backward()
         opt.step()
     return TrainState(state.params, opt, state.step + 1), loss.detach()
 
 
-def make_train_step(predict_fn: Callable[..., torch.Tensor],
-                    optimizer: Optimizer | None = None) -> Callable:
+def make_train_step(predict_fn: Callable[..., torch.Tensor]) -> Callable:
     """→ ``(state, features, valid, targets, label_valid=None) → (state,
     loss)``. ``predict_fn`` must accept ``clamp=``: the loss runs on
     unclamped outputs so the serve-time floor cannot zero the gradients.
-    The state carries its optimizer (``create_train_state``); the
-    ``optimizer`` argument is the JAX signature's and is not needed."""
-    del optimizer
+    The state carries its optimizer (``create_train_state``)."""
 
     def train_step(state: TrainState, features: torch.Tensor,
                    workload_valid: torch.Tensor, target_watts: torch.Tensor,
                    label_valid: torch.Tensor | None = None
                    ) -> tuple[TrainState, torch.Tensor]:
-        def loss_fn(params: Params) -> torch.Tensor:
-            with telemetry.span("train.forward"):
-                pred = predict_fn(params, features, workload_valid,
-                                  clamp=False)
-            with telemetry.span("train.loss"):
-                return masked_mse(pred, target_watts, workload_valid,
-                                  label_valid)
-
-        return _update(state, loss_fn)
+        return _step(state, lambda params: predict_fn(
+            params, features, workload_valid, clamp=False),
+            workload_valid, target_watts, label_valid)
 
     return train_step
 
 
-def temporal_step_fn(optimizer: Optimizer | None = None,
-                     compute_dtype: torch.dtype | None = None,
-                     attention_fn: Callable | None = None,
-                     remat: bool = False) -> Callable:
-    """The temporal train step: ``(state, feat_hist, workload_valid,
-    t_valid, target_watts, label_valid=None) → (state, loss)``.
+def make_temporal_train_step(compute_dtype: torch.dtype | None = None,
+                             attention_fn: Callable | None = None,
+                             remat: bool = False) -> Callable:
+    """Train step of the TEMPORAL estimator: ``(state, feat_hist [.., W,
+    T, F], workload_valid [.., W], t_valid [.., W, T], target_watts [..,
+    W, Z], label_valid=None) → (state, loss)``; the targets are the
+    current tick's RAPL-ratio watts.
 
     ``compute_dtype`` defaults to bf16. ``attention_fn`` None takes the
     single-query path (as the JAX step does; no kernel). ``remat``
@@ -186,16 +186,10 @@ def temporal_step_fn(optimizer: Optimizer | None = None,
     """
     from kepler_tpu_torch.models.temporal import predict_temporal
 
-    del optimizer
-    cd = torch.bfloat16 if compute_dtype is None else compute_dtype
-
-    def forward(params: Params, feat_hist: torch.Tensor,
-                workload_valid: torch.Tensor,
-                t_valid: torch.Tensor) -> torch.Tensor:
-        return predict_temporal(params, feat_hist, workload_valid, t_valid,
-                                clamp=False, compute_dtype=cd,
-                                attention_fn=attention_fn)
-
+    forward = functools.partial(
+        predict_temporal, clamp=False,
+        compute_dtype=torch.bfloat16 if compute_dtype is None
+        else compute_dtype, attention_fn=attention_fn)
     run = (functools.partial(checkpoint, forward, use_reentrant=False)
            if remat else forward)
 
@@ -204,26 +198,11 @@ def temporal_step_fn(optimizer: Optimizer | None = None,
                    target_watts: torch.Tensor,
                    label_valid: torch.Tensor | None = None
                    ) -> tuple[TrainState, torch.Tensor]:
-        def loss_fn(params: Params) -> torch.Tensor:
-            with telemetry.span("train.forward"):
-                pred = run(params, feat_hist, workload_valid, t_valid)
-            with telemetry.span("train.loss"):
-                return masked_mse(pred, target_watts, workload_valid,
-                                  label_valid)
-
-        return _update(state, loss_fn)
+        return _step(state, lambda params: run(
+            params, feat_hist, workload_valid, t_valid),
+            workload_valid, target_watts, label_valid)
 
     return train_step
-
-
-def make_temporal_train_step(optimizer: Optimizer | None = None,
-                             compute_dtype: torch.dtype | None = None
-                             ) -> Callable:
-    """Train step of the TEMPORAL estimator: ``(state, feat_hist [.., W,
-    T, F], workload_valid [.., W], t_valid [.., W, T], target_watts [..,
-    W, Z]) → (state, loss)``; the targets are the current tick's
-    RAPL-ratio watts."""
-    return temporal_step_fn(optimizer, compute_dtype)
 
 
 def fit(predict_fn: Callable, params: Params, features: torch.Tensor,
@@ -231,9 +210,8 @@ def fit(predict_fn: Callable, params: Params, features: torch.Tensor,
         steps: int = 200, learning_rate: float = 1e-2
         ) -> tuple[Params, float]:
     """Small full-batch fit loop → (params, final loss)."""
-    optimizer = make_optimizer(learning_rate)
-    state = create_train_state(params, optimizer)
-    step_fn = make_train_step(predict_fn, optimizer)
+    state = create_train_state(params, make_optimizer(learning_rate))
+    step_fn = make_train_step(predict_fn)
     loss = torch.tensor(float("inf"))
     for _ in range(steps):
         state, loss = step_fn(state, features, workload_valid, target_watts)

@@ -214,9 +214,6 @@ class PowerMonitor:
             if ctx.wait(self._interval):
                 return
 
-    def shutdown(self) -> None:
-        self.join_prewarm()
-
     # -- read API (reference PowerDataProvider) ----------------------------
 
     def zone_names(self) -> Sequence[str]:
@@ -425,13 +422,6 @@ class PowerMonitor:
         return (host[:6 * z].reshape(6, z),
                 host[6 * z:(6 + w) * z].reshape(w, z),
                 host[(6 + w) * z:].reshape(w, z))
-
-    def join_prewarm(self, timeout: float | None = None) -> None:
-        """API kept from the reference monitor, which compiles the next
-        workload bucket's program on a background thread: eager PyTorch
-        compiles nothing, so no thread is started and there is nothing to
-        wait for."""
-        del timeout
 
     def _zone_batch_plan(self):
         """(paths, per-zone slices) when EVERY zone supports batched raw

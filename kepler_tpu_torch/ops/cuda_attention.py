@@ -231,9 +231,8 @@ def _round16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def tiled_plan(b: int, tq: int, tk: int, h: int, d: int,
-               compute_dtype: torch.dtype = torch.bfloat16,
-               contiguous: bool = True) -> FlashPlan:
+def tiled_plan(b: int, tq: int, tk: int, d: int,
+               compute_dtype: torch.dtype = torch.bfloat16) -> FlashPlan:
     """The KV-tiled variant's path and blocking for this call.
 
     - D above the widest padded head dim: the wide path, one warp a
@@ -253,9 +252,9 @@ def tiled_plan(b: int, tq: int, tk: int, h: int, d: int,
       ``TILED_BLOCK_SMEM`` (dp <= 64, and bf16 at any dp) or
       ``MAX_SMEM``.
 
-    Every path copies rows whatever their layout, so ``contiguous`` does
-    not change the plan. Raises ValueError for D, Tq or Tk below 1."""
-    del contiguous, h  # the plan is the same for every layout and H
+    Every path copies rows whatever their layout, so the plan is the
+    same for every layout and head count. Raises ValueError for D, Tq or
+    Tk below 1."""
     if d < 1:
         raise ValueError(f"B3 needs D >= 1, got {d}")
     if tq < 1 or tk < 1:
@@ -306,7 +305,7 @@ def flash_block_plan(b: int, tq: int, tk: int, h: int, d: int,
     1."""
     if takes_tensor_cores(tq, tk, d, compute_dtype):
         return _tc_plan(b, tq, h, d, contiguous)
-    return tiled_plan(b, tq, tk, h, d, compute_dtype, contiguous)
+    return tiled_plan(b, tq, tk, d, compute_dtype)
 
 
 def flash_block_info(variant: str, t: int, d: int,
@@ -323,7 +322,7 @@ def flash_block_info(variant: str, t: int, d: int,
     if variant == "tc":
         key, bf16, code = d, 1, 0
     else:
-        plan = tiled_plan(1, t, t, 1, d, compute_dtype)
+        plan = tiled_plan(1, t, t, d, compute_dtype)
         key, code = plan.dp, _PATHS[path or plan.path]
     out = (_c_int * 4)()
     rc = _lib().kt_flash_block_info(int(variant == "tc"), t, key, bf16,

@@ -72,7 +72,6 @@ def make_expert_parallel_moe(
     *,
     axis_name: str = EXPERT_AXIS,
     capacity_factor: float = 1.0,
-    rows_per_device: int | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> Callable:
     """→ ``(params, features [B, F], expert_id [B], gate_prob [B]) →
@@ -82,12 +81,10 @@ def make_expert_parallel_moe(
     size (rows and experts split evenly over the shards).
     ``expert_id`` is each row's routing (node type, or
     :func:`top1_route`'s argmax) and ``gate_prob`` its combine weight
-    (1.0 for explicit routing). ``rows_per_device`` is the JAX
-    signature's and is not needed. The output lies on the first shard's
+    (1.0 for explicit routing). The output lies on the first shard's
     device (on a mesh of several processes, every rank passes the same
     whole inputs and gets the whole output on its first shard's device).
     """
-    del rows_per_device
     devices = axis_devices(mesh, axis_name)
     n = len(devices)
 

@@ -53,7 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from kepler_tpu_torch.models.temporal import _take_last, trunk_out, trunk_qkv
-from kepler_tpu_torch.models.train import Optimizer, TrainState, masked_mse
+from kepler_tpu_torch.models.train import TrainState, masked_mse
 from kepler_tpu_torch.parallel.collectives import (axis_devices,
                                                    local_indices, local_map,
                                                    psum)
@@ -193,7 +193,6 @@ def make_temporal_program(
 
 def make_sequence_parallel_train_step(
     mesh: Mesh,
-    optimizer: Optimizer | None = None,
     *,
     axis_name: str = SEQ_AXIS,
     compute_dtype: torch.dtype = torch.float32,
@@ -213,10 +212,8 @@ def make_sequence_parallel_train_step(
     non-reentrant, over the whole sharded forward). As the port's other
     train steps, the step updates the state's tensors in place (JAX
     donates the state); the state's params also keep the summed
-    gradients in ``.grad``. ``optimizer`` is the JAX signature's: the
-    state carries its own.
+    gradients in ``.grad``.
     """
-    del optimizer
     devices = axis_devices(mesh, axis_name)
     core = ring_core(devices, compute_dtype)
     forward = functools.partial(sharded_predict, devices=devices, core=core,

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from kepler_tpu_torch.models.nn import acc_matmul
-from kepler_tpu_torch.models.train import Optimizer, TrainState
+from kepler_tpu_torch.models.train import TrainState
 from kepler_tpu_torch.parallel.collectives import (AxisDevices, gather_whole,
                                                    grid_devices,
                                                    local_indices, local_map,
@@ -65,10 +65,9 @@ class ShardedTrainState(NamedTuple):
     mesh: Mesh
 
 
-def mlp_param_shardings(mesh: Mesh | None = None) -> dict[str, Spec]:
+def mlp_param_shardings() -> dict[str, Spec]:
     """Megatron TP layout of the MLP params: per dimension, the mesh axis
-    it is split over (None: whole). ``mesh`` is the JAX signature's."""
-    del mesh
+    it is split over (None: whole)."""
     return {
         "w0": (None, MODEL_AXIS),  # column-parallel
         "b0": (MODEL_AXIS,),
@@ -116,7 +115,7 @@ def shard_train_state(state: TrainState, mesh: Mesh) -> ShardedTrainState:
     moments."""
     grid, _ = _grid(mesh)
     m = len(grid[0])
-    layout = mlp_param_shardings(mesh)
+    layout = mlp_param_shardings()
     opt = state.opt_state
 
     def place(row: AxisDevices, j: int) -> tuple[dict, torch.optim.Optimizer]:
@@ -152,7 +151,7 @@ def gather_params(state: ShardedTrainState,
     ``model`` slices join by an ``all_gather`` where the row spans
     ranks, so every rank gets whole params."""
     grid, _ = _grid(state.mesh)
-    layout = mlp_param_shardings(state.mesh)
+    layout = mlp_param_shardings()
     out: dict[str, torch.Tensor] = {}
     for r in _firsts(grid):  # every rank joins each row it has a shard of
         row, cells = grid[r], state.params[r]
@@ -180,7 +179,6 @@ def _axis(grid: list[AxisDevices], cells: list[tuple[int, int]]
 
 def make_distributed_train_step(
     mesh: Mesh,
-    optimizer: Optimizer | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> Callable:
     """→ ``(state, features [B, W, F], valid [B, W], targets [B, W, Z])
@@ -189,13 +187,12 @@ def make_distributed_train_step(
     The leading batch axis splits over ``node`` (B must divide by its
     size). The MLP trunk computes in ``compute_dtype`` (bf16, as JAX's
     ``predict_mlp`` default) on the unclamped output. The state carries
-    its optimizers; ``optimizer`` is the JAX signature's. The state's
-    tensors are updated in place, as the port's other train steps do.
+    its optimizers. The state's tensors are updated in place, as the
+    port's other train steps do.
     """
-    del optimizer
     grid, mine = _grid(mesh)
     n, m = len(grid), len(grid[0])
-    layout = mlp_param_shardings(mesh)
+    layout = mlp_param_shardings()
     cd = compute_dtype
 
     def step(state: ShardedTrainState, features: torch.Tensor,

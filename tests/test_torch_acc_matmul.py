@@ -1,10 +1,10 @@
 """The half-operand product's two routes (``models.nn.acc_matmul``).
 
 The tensor-core route (:class:`~kepler_tpu_torch.models.nn.HalfProduct`)
-runs on the card at bf16. Here, on the CPU, it runs as the device tier
-records the card's route (``analysis.device.trace.card_route``): its
-product step ``torch.mm``/``torch.bmm(..., out_dtype=torch.float32)`` is
-the plain f32 product of the bf16 operands. At the shapes both refits use
+runs on the card at bf16. Here, on the CPU, it runs under
+``models.nn.card_route``, as the device tier records the card's route:
+its product step ``torch.mm``/``torch.bmm(..., out_dtype=torch.float32)``
+is the plain f32 product of the bf16 operands. At the shapes both refits use
 it is held against the plain route (``round_to`` and ``torch.matmul``):
 
 - the forward agrees to f32 summation error;
@@ -24,8 +24,8 @@ import contextlib
 import pytest
 import torch
 
-from kepler_tpu_torch.analysis.device.trace import card_route
 from kepler_tpu_torch.models import mlp, nn, temporal, train
+from kepler_tpu_torch.models.nn import card_route
 from kepler_tpu_torch.ops.attention import round_to
 from kepler_tpu_torch.ops.hi_lo import hi_lo, hi_lo_ref
 

@@ -519,4 +519,4 @@ def test_flash_block_launch_refuses_a_plan_its_inputs_do_not_fit():
     strided = torch.zeros((2, 16, 5, 32))[:, :, 1:]
     with pytest.raises(ValueError, match="contiguous"):
         tcat.flash_block_launch(plan, strided, k, v, valid, 0, 0)
-    assert tcat.tiled_plan(2, 16, 16, 4, 32).variant == "tiled"
+    assert tcat.tiled_plan(2, 16, 16, 32).variant == "tiled"

@@ -424,7 +424,7 @@ def test_tiled_kernel_takes_strided_views_and_forced_plans(cuda_device, cd):
         assert_b3_close(got, cat.flash_block_ref(
             q, view, view, valid, 7, 3, compute_dtype=cd), view, cd)
     q, k, v, valid = attention_inputs(6, 8, 128, 128, 4, 32, cuda_device)
-    plan = cat.tiled_plan(8, 128, 128, 4, 32, cd)
+    plan = cat.tiled_plan(8, 128, 128, 32, cd)
     before = dict(cat.LAUNCHES)
     got = cat.flash_block_launch(plan, q, k, v, valid, 256, 128,
                                  compute_dtype=cd)
@@ -766,7 +766,7 @@ def test_train_steps_on_the_card_match_the_cpu(cuda_device, family):
 
     args, targets, lv = family_batch(family, 7)
     if family == "temporal":
-        step = train.make_temporal_train_step(None, torch.float32)
+        step = train.make_temporal_train_step(torch.float32)
     else:
         fn = predictor(family)
         if family != "linear":
@@ -1275,7 +1275,7 @@ def test_refit_step_runs_bf16_products_on_tensor_cores(cuda_device, family,
         args = (torch.rand(256, 100, 16, 7, generator=gen),
                 torch.rand(256, 100, generator=gen) < 0.5,
                 torch.rand(256, 100, 16, generator=gen) < 0.9)
-        step = train.make_temporal_train_step(None, cd)
+        step = train.make_temporal_train_step(cd)
     targets = torch.rand(*args[1].shape, 4, generator=gen) * 5
     put = [a.to(dev) for a in (*args, targets)]
     state = train.create_train_state(
@@ -1306,7 +1306,7 @@ def test_device_tier_records_one_program_on_the_card_and_the_cpu(
         cuda_device):
     """Every registered device program's fingerprint on the card equals
     the CPU's, whose bf16 products take the card's route
-    (``analysis.device.trace.card_route``): the same casts, one product
+    (``models.nn.card_route``): the same casts, one product
     op a product and ``kernel:hi_lo`` a split; on the card the train
     step's entry launches the split."""
     from kepler_tpu_torch.analysis.device import DEVICE_PROGRAMS

@@ -214,7 +214,8 @@ def test_cpu_trace_records_the_card_route(k):
     ops = report.op_counts
     assert ops.get("kernel:hi_lo", 0) == (k % 8 == 0)
     assert ops["mm"] == 2  # the forward and the weight gradient
-    assert nn.TENSOR_CORE_DEVICES == ("cuda",)
+    with nn.card_route(torch.device("cpu")):
+        assert nn.tensor_cores(_f32(16, 8), torch.bfloat16)
     assert not nn.tensor_cores(_f32(16, 8), torch.bfloat16)
 
 

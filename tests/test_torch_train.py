@@ -240,11 +240,10 @@ def trajectories(family: str, cd: str | None, steps: int = 10):
         jstep = jax.jit(jtrain.temporal_step_fn(
             opt, None if cd is None else jnp.float32))
         pstep = ptrain.make_temporal_train_step(
-            ptrain.make_optimizer(1e-2),
             None if cd is None else torch.float32)
     else:
         jstep = jtrain.make_train_step(jpred, opt)
-        pstep = ptrain.make_train_step(ppred, ptrain.make_optimizer(1e-2))
+        pstep = ptrain.make_train_step(ppred)
     jstate = jtrain.create_train_state(jtree(params), opt)
     pstate = ptrain.create_train_state(
         port_est.params_from_numpy(family, params),
@@ -288,8 +287,8 @@ def test_fit_and_remat_step():
     tp = port_est.params_from_numpy("temporal", family_params("temporal"))
     out = []
     for remat in (False, True):
-        step = ptrain.temporal_step_fn(compute_dtype=torch.float32,
-                                       remat=remat)
+        step = ptrain.make_temporal_train_step(compute_dtype=torch.float32,
+                                               remat=remat)
         state = ptrain.create_train_state(tp, ptrain.make_optimizer())
         state, loss = step(state, t(hist), t(valid), t(tv), t(targets))
         out.append((float(loss), ptrain.param_leaves(state.params)))
@@ -307,7 +306,7 @@ STEP_STAGES = ("train.forward", "train.loss", "train.backward",
 
 
 def spanned_step(case: str, tmp_path=None):
-    """One step of ``make_train_step`` (mlp) or ``temporal_step_fn``
+    """One step of ``make_train_step`` (mlp) or ``make_temporal_train_step``
     (with or without remat) → (loss, params after it, the step's
     ``train.*`` and AdamW profiler ranges: None untraced)."""
     from torch.profiler import ProfilerActivity, profile
@@ -317,8 +316,8 @@ def spanned_step(case: str, tmp_path=None):
     if case == "mlp":
         step = ptrain.make_train_step(port_est.predictor("mlp"))
     else:
-        step = ptrain.temporal_step_fn(compute_dtype=torch.float32,
-                                       remat=case == "temporal-remat")
+        step = ptrain.make_temporal_train_step(
+            compute_dtype=torch.float32, remat=case == "temporal-remat")
     state = ptrain.create_train_state(
         port_est.params_from_numpy(family, family_params(family)),
         ptrain.make_optimizer(1e-2))

@@ -126,7 +126,7 @@ def test_f32_losses_equal_one_shard(shape):
 
 
 def test_layout_and_shard_placement():
-    layout = mlp_param_shardings(grid_mesh())
+    layout = mlp_param_shardings()
     assert layout["w0"] == (None, "model")
     assert layout["w1"] == ("model", None)
     assert layout["b0"] == ("model",)

@@ -442,14 +442,17 @@ def spawn(suite: str, layout: str, inputs: pathlib.Path,
     """Run ``suite`` on ``world`` ranks over gloo on 127.0.0.1 (the
     ``*_cuda`` suites: gloo and NCCL) → each rank's outputs (suite ``alone``: rank 0 only).
     ``host_ids`` gives each rank its own ``NCCL_HOSTID``, so that NCCL
-    takes two ranks on one card. Every rank is killed at ``limit_s``; a
-    rank that fails fails the spawn with its stderr."""
+    takes two ranks on one card. Each rank runs one intra-op thread, so
+    that the ranks beside other test processes do not contend for the
+    host's cores. Every rank is killed at ``limit_s``; a rank that fails
+    fails the spawn with its stderr."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         addr = f"127.0.0.1:{s.getsockname()[1]}"
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
     started = 1 if suite == "alone" else world
     outs = [tmp / f"{suite}-{layout}-rank{r}.npz" for r in range(started)]
     procs = [subprocess.Popen(
