@@ -125,16 +125,17 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
     loaded windows → (state, step_fn, step_fn's inputs after the state),
     or None when temporal training finds no history in the dumps.
 
-    The single-tick families step on the labelled rows alone (a slot
-    with a label in some zone), gathered once here: ``[R, F]`` features,
-    ``[R]`` valid, ``[R, Z]`` targets and label mask. The loss and every
-    gradient are the padded step's up to f32 summation order. The counter
-    is logged once at INFO: "stepping on R labelled rows of S slots
-    (x%)", the rows the step computes on over the dumps' slots. The
-    temporal family steps on the padded ``[B, W, T, F]`` histories, its
-    inputs ``(feat_hist, valid, t_valid, targets, label_valid)``, and
-    logs once at INFO "stepping on S padded slots × T ticks, R labelled
-    (x%)"."""
+    Every family steps on the labelled rows alone (a slot with a label in
+    some zone), gathered once here: the single-tick families' ``[R, F]``
+    features (built over every slot first: a row's ``share`` is its
+    node's) and ``[R]`` valid, the temporal family's ``[R, T, F]``
+    histories, ``[R]`` valid and ``[R, T]`` tick mask, and both's ``[R,
+    Z]`` targets and label mask. Each row's output reads only its own
+    inputs, so the loss and every gradient are the padded step's up to
+    f32 summation order. The counter is logged once at INFO: "stepping
+    on R labelled rows of S slots (x%)", the rows the step computes on
+    over the dumps' slots, with " × T ticks" after the slots for the
+    temporal family."""
     import torch
 
     from kepler_tpu_torch.models import build_features, initializer
@@ -149,10 +150,18 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
     def put(x: np.ndarray, dtype: Any = None) -> torch.Tensor:
         return torch.from_numpy(np.asarray(x, dtype)).to(device)
 
-    n_zones = data["target_watts"].shape[-1]
-    valid = put(data["workload_valid"])
-    targets = put(data["target_watts"], np.float32)
     label_valid = put(data["label_valid"])
+    keep = label_valid.any(-1)
+    rows, slots = int(keep.sum()), keep.numel()
+
+    def labelled(key: str, dtype: Any = None) -> torch.Tensor:
+        """``data[key]``'s labelled rows, in dump order (the padded copy
+        is dropped here)."""
+        return put(data[key], dtype)[keep]
+
+    n_zones = data["target_watts"].shape[-1]
+    targets = labelled("target_watts", np.float32)
+    label_valid = label_valid[keep]
     gen = torch.Generator().manual_seed(args.seed)
 
     if args.model == "temporal":
@@ -163,36 +172,28 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
                 "trainingDumpDir so ratio nodes' feature histories are "
                 "captured (fleet/aggregator.py:_dump_training_window)")
             return None
-        feat_hist = put(data["feat_hist"], np.float32)
-        t_valid = put(data["t_valid"])
-        t_max = int(feat_hist.shape[2])
-        slots = feat_hist.shape[0] * feat_hist.shape[1]
-        rows = int(label_valid.any(-1).sum())
-        log.info("stepping on %d padded slots × %d ticks, %d labelled "
-                 "(%.2f%%)", slots, t_max, rows,
-                 100.0 * rows / max(slots, 1))
+        feat_hist = labelled("feat_hist", np.float32)
+        t_max = int(feat_hist.shape[1])
+        ticks = f" × {t_max} ticks"
         params = initializer("temporal")(
             n_zones, t_max=max(t_max, 128), generator=gen, device=device)
         step_fn = make_temporal_train_step()
-        inputs = (feat_hist, valid, t_valid, targets, label_valid)
+        inputs = (feat_hist, labelled("workload_valid"), labelled("t_valid"),
+                  targets, label_valid)
     else:
         feats = build_features(
-            put(data["cpu_deltas"], np.float32), valid,
+            put(data["cpu_deltas"], np.float32), put(data["workload_valid"]),
             put(data["node_cpu_delta"], np.float32),
             put(data["usage_ratio"], np.float32),
-            put(data["dt_s"], np.float32))
-        # after the features: ``share`` is a node's, over all its slots
-        keep = label_valid.any(-1)
-        feats, targets, label_valid = (
-            feats[keep], targets[keep], label_valid[keep])
-        rows, slots = feats.shape[0], keep.numel()
-        valid = torch.ones(rows, dtype=torch.bool, device=device)
-        log.info("stepping on %d labelled rows of %d slots (%.2f%%)",
-                 rows, slots, 100.0 * rows / max(slots, 1))
+            put(data["dt_s"], np.float32))[keep]
+        ticks = ""
         params = initializer(args.model)(n_zones, generator=gen,
                                          device=device)
         step_fn = make_train_step(predictor(args.model))
-        inputs = (feats, valid, targets, label_valid)
+        inputs = (feats, torch.ones(rows, dtype=torch.bool, device=device),
+                  targets, label_valid)
+    log.info("stepping on %d labelled rows of %d slots%s (%.2f%%)", rows,
+             slots, ticks, 100.0 * rows / max(slots, 1))
     return create_train_state(params, make_optimizer(args.lr)), step_fn, inputs
 
 

@@ -536,16 +536,43 @@ def padded_inputs(data: dict) -> tuple[torch.Tensor, ...]:
             torch.from_numpy(data["label_valid"]))
 
 
+def assert_steps_as_padded(state, step_fn, inputs, params, lr, ref_step,
+                           padded) -> None:
+    """Three steps of ``step_fn`` on ``inputs`` are three steps of
+    ``ref_step`` on every padded slot from ``params``, the state's own
+    start: the losses within rtol 1e-5, each leaf's change by the norm
+    within 1e-5 of the larger of that leaf's change and the median
+    leaf's (AdamW's first steps may move an element with a near-zero
+    gradient either way)."""
+    start = [v.detach().clone() for v in ptrain.param_leaves(state.params)]
+    ref = ptrain.create_train_state(params, ptrain.make_optimizer(lr))
+    assert all(torch.equal(v, s)
+               for v, s in zip(ptrain.param_leaves(ref.params), start))
+    losses, ref_losses = [], []
+    for _ in range(3):
+        state, loss = step_fn(state, *inputs)
+        ref, ref_loss = ref_step(ref, *padded)
+        losses.append(float(loss))
+        ref_losses.append(float(ref_loss))
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+
+    got, want = ([float(torch.linalg.vector_norm((v.detach() - s).double()))
+                  for v, s in zip(ptrain.param_leaves(st.params), start)]
+                 for st in (state, ref))
+    median = float(np.median(want))
+    assert median > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert abs(a - b) <= 1e-5 * max(b, median), i
+
+
 @pytest.mark.parametrize("dump", REFIT_DUMPS)
 @pytest.mark.parametrize("family", ("linear", "mlp", "moe", "deep"))
 def test_build_trainer_steps_on_labelled_rows_as_the_padded_step(
         tmp_path, family, dump):
     """``build_trainer``'s inputs are the labelled rows of the dumps, in
     dump order, and three of its steps are three steps of
-    ``make_train_step`` on every slot from the same seed: the losses
-    within rtol 1e-5, each leaf's change by the norm within 1e-5 of the
-    larger of that leaf's change and the median leaf's (AdamW's first
-    steps may move an element with a near-zero gradient either way)."""
+    ``make_train_step`` on every slot from the same seed
+    (``assert_steps_as_padded``)."""
     data, _ = pcmd.load_windows(refit_dump(tmp_path, dump))
     args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--model",
                             family, "--seed", "5", "--device", "cpu"])
@@ -565,28 +592,11 @@ def test_build_trainer_steps_on_labelled_rows_as_the_padded_step(
                                                 padded[3])):
         assert torch.equal(got, want[keep])
 
-    start = [v.detach().clone() for v in ptrain.param_leaves(state.params)]
     params = port_est.initializer(family)(
         2, generator=torch.Generator().manual_seed(5))
-    ref = ptrain.create_train_state(params, ptrain.make_optimizer(args.lr))
-    assert all(torch.equal(v, s)
-               for v, s in zip(ptrain.param_leaves(ref.params), start))
-    ref_step = ptrain.make_train_step(port_est.predictor(family))
-    losses, ref_losses = [], []
-    for _ in range(3):
-        state, loss = step_fn(state, *inputs)
-        ref, ref_loss = ref_step(ref, *padded)
-        losses.append(float(loss))
-        ref_losses.append(float(ref_loss))
-    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
-
-    got, want = ([float(torch.linalg.vector_norm((v.detach() - s).double()))
-                  for v, s in zip(ptrain.param_leaves(st.params), start)]
-                 for st in (state, ref))
-    median = float(np.median(want))
-    assert median > 0
-    for i, (a, b) in enumerate(zip(got, want)):
-        assert abs(a - b) <= 1e-5 * max(b, median), i
+    assert_steps_as_padded(state, step_fn, inputs, params, args.lr,
+                           ptrain.make_train_step(port_est.predictor(family)),
+                           padded)
 
 
 @pytest.mark.parametrize("dump", REFIT_DUMPS)
@@ -614,9 +624,8 @@ def test_build_trainer_logs_the_rows_it_keeps(tmp_path, caplog, dump):
 
 def test_build_trainer_logs_the_temporal_slots_it_steps_on(tmp_path,
                                                           caplog):
-    """The temporal counter: the padded slots and ticks the step
-    computes on, and the labelled rows among them, logged once at
-    INFO."""
+    """The temporal counter: the labelled rows the step computes on over
+    the dumps' slots and their ticks, logged once at INFO."""
     import logging
     import re
 
@@ -625,15 +634,51 @@ def test_build_trainer_logs_the_temporal_slots_it_steps_on(tmp_path,
                             "temporal", "--device", "cpu"])
     with caplog.at_level(logging.INFO, logger="kepler.train"):
         pcmd.build_trainer(args, data, torch.device("cpu"))
-    found = re.findall(r"stepping on (\d+) padded slots × (\d+) ticks, "
-                       r"(\d+) labelled \(([0-9.]+)%\)", caplog.text)
+    found = re.findall(r"stepping on (\d+) labelled rows of (\d+) slots × "
+                       r"(\d+) ticks \(([0-9.]+)%\)", caplog.text)
     assert len(found) == 1
-    slots, ticks, rows = (int(x) for x in found[0][:3])
+    rows, slots, ticks = (int(x) for x in found[0][:3])
     fh = data["feat_hist"]
     assert slots == fh.shape[0] * fh.shape[1] and ticks == fh.shape[2] == 4
     assert 0 < rows == int(data["label_valid"].any(-1).sum()) < slots
     assert found[0][3] == f"{100 * rows / slots:.2f}"
-    assert "labelled rows of" not in caplog.text
+
+
+TEMPORAL_DUMPS = {"three_windows": dict(seed=0),
+                  "five_windows": dict(seed=7, n_windows=5)}
+
+
+@pytest.mark.parametrize("dump", sorted(TEMPORAL_DUMPS))
+def test_build_trainer_steps_the_temporal_family_on_labelled_rows(
+        tmp_path, dump):
+    """``build_trainer(--model temporal)``'s inputs are the labelled rows
+    of the padded dumps, in dump order, and three of its steps are three
+    steps of ``make_temporal_train_step`` on every padded slot from the
+    same seed (``assert_steps_as_padded``)."""
+    data, _ = pcmd.load_windows(dump_windows(
+        tmp_path, model_mode="temporal", **TEMPORAL_DUMPS[dump]))
+    args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--model",
+                            "temporal", "--seed", "5", "--device", "cpu"])
+    state, step_fn, inputs = pcmd.build_trainer(args, data,
+                                                torch.device("cpu"))
+    padded = tuple(torch.from_numpy(data[k]) for k in (
+        "feat_hist", "workload_valid", "t_valid", "target_watts",
+        "label_valid"))
+    keep = padded[4].any(-1)
+    rows = int(keep.sum())
+    assert 0 < rows < keep.numel()
+    _, _, t, f = padded[0].shape
+    z = padded[3].shape[-1]
+    assert [tuple(x.shape) for x in inputs] == [
+        (rows, t, f), (rows,), (rows, t), (rows, z), (rows, z)]
+    for got, want in zip(inputs, padded):
+        assert got.dtype == want.dtype and torch.equal(got, want[keep])
+    assert bool(inputs[1].all())
+
+    params = port_est.initializer("temporal")(
+        z, t_max=max(t, 128), generator=torch.Generator().manual_seed(5))
+    assert_steps_as_padded(state, step_fn, inputs, params, args.lr,
+                           ptrain.make_temporal_train_step(), padded)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
