@@ -135,7 +135,8 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
     f32 summation order. The counter is logged once at INFO: "stepping
     on R labelled rows of S slots (x%)", the rows the step computes on
     over the dumps' slots, with " × T ticks" after the slots for the
-    temporal family."""
+    temporal family and ", each through E experts" for the moe family
+    (every expert runs on every row)."""
     import torch
 
     from kepler_tpu_torch.models import build_features, initializer
@@ -174,7 +175,7 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
             return None
         feat_hist = labelled("feat_hist", np.float32)
         t_max = int(feat_hist.shape[1])
-        ticks = f" × {t_max} ticks"
+        detail = f" × {t_max} ticks"
         params = initializer("temporal")(
             n_zones, t_max=max(t_max, 128), generator=gen, device=device)
         step_fn = make_temporal_train_step()
@@ -186,14 +187,15 @@ def build_trainer(args: argparse.Namespace, data: dict, device: Any):
             put(data["node_cpu_delta"], np.float32),
             put(data["usage_ratio"], np.float32),
             put(data["dt_s"], np.float32))[keep]
-        ticks = ""
         params = initializer(args.model)(n_zones, generator=gen,
                                          device=device)
+        detail = (f", each through {params['w0'].shape[0]} experts"
+                 if args.model == "moe" else "")
         step_fn = make_train_step(predictor(args.model))
         inputs = (feats, torch.ones(rows, dtype=torch.bool, device=device),
                   targets, label_valid)
     log.info("stepping on %d labelled rows of %d slots%s (%.2f%%)", rows,
-             slots, ticks, 100.0 * rows / max(slots, 1))
+             slots, detail, 100.0 * rows / max(slots, 1))
     return create_train_state(params, make_optimizer(args.lr)), step_fn, inputs
 
 

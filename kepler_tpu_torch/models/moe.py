@@ -10,10 +10,18 @@ Each expert is a small ``F → H → Z`` GELU MLP plus a wide f32 linear path
 (``w_skip``); expert weights stack on a leading ``E`` axis, so the whole
 mixture is three batched products. The trunk's two products take operands
 rounded to ``compute_dtype`` (bf16 by default) with f32 results
-(``nn.acc_matmul``); the skip path and the gate stay f32. GELU is the tanh
-approximation, ``jax.nn.gelu``'s default. Parameters are a dict with the
-JAX package's keys and stacked ``[E, ...]`` tensors, so ``.npz`` files load
-across packages.
+(``nn.acc_matmul``); the skip path (``acc_matmul`` at f32) and the gate
+stay f32. GELU is the tanh approximation, ``jax.nn.gelu``'s default.
+Parameters are a dict with the JAX package's keys and stacked ``[E, ...]``
+tensors, so ``.npz`` files load across packages.
+
+The mixture opens three telemetry spans (profiler ranges while a profiler
+records, nested under the caller's: ``train.forward`` in a refit,
+``fleet.estimator`` in the served window), one after another:
+``moe.experts`` (:func:`expert_forward`, which the expert-parallel step
+opens too), ``moe.gate`` (the router's logits and softmax, or the one-hot
+of ``expert_id``) and ``moe.combine`` (the gate-weighted sum over
+experts, the clamp and the mask).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.features import NUM_FEATURES
 from kepler_tpu_torch.models.nn import acc_matmul, glorot
 
@@ -55,11 +64,13 @@ def expert_forward(params: dict[str, torch.Tensor],
     """Batched per-expert MLP → f32 [E, C, Z]: the GELU trunk with
     ``compute_dtype`` operands, plus each expert's f32 linear path."""
     cd = compute_dtype
-    h = F.gelu(acc_matmul(x, params["w0"], cd) + params["b0"][:, None, :],
-               approximate="tanh")
-    return (acc_matmul(h, params["w1"], cd)
-            + x.to(torch.float32) @ params["w_skip"]
-            + params["b1"][:, None, :])
+    with telemetry.span("moe.experts"):
+        h = F.gelu(acc_matmul(x, params["w0"], cd)
+                   + params["b0"][:, None, :], approximate="tanh")
+        return (acc_matmul(h, params["w1"], cd)
+                + acc_matmul(x.to(torch.float32), params["w_skip"],
+                             torch.float32)
+                + params["b1"][:, None, :])
 
 
 def gate_logits(params: dict[str, torch.Tensor],
@@ -89,19 +100,23 @@ def predict_moe(
     e = params["w0"].shape[0]
     per_expert = expert_forward(params, x.expand(e, *x.shape[1:]),
                                 compute_dtype)
-    if expert_id is not None:
-        wl = features.ndim - expert_id.ndim - 1  # workload axes
-        ids = expert_id.reshape(*expert_id.shape, *([1] * wl))
-        gates = (ids[..., None] == torch.arange(e, device=ids.device)
-                 ).to(torch.float32)
-        gates = gates.expand(*lead, e)
-    else:
-        gates = torch.softmax(gate_logits(params, features), dim=-1)
-    watts = torch.einsum("enz,ne->nz", per_expert, gates.reshape(-1, e))
-    watts = watts.reshape(*lead, -1)
-    if clamp:
-        watts = torch.clamp(watts, min=0.0)
-    return torch.where(workload_valid[..., None], watts, 0.0)
+    with telemetry.span("moe.gate"):
+        if expert_id is not None:
+            wl = features.ndim - expert_id.ndim - 1  # workload axes
+            ids = expert_id.reshape(*expert_id.shape, *([1] * wl))
+            gates = (ids[..., None] == torch.arange(e, device=ids.device)
+                     ).to(torch.float32)
+            gates = gates.expand(*lead, e)
+        else:
+            gates = torch.softmax(gate_logits(params, features), dim=-1)
+    with telemetry.span("moe.combine"):
+        # Σ_e gates_e · y_e as one broadcast product and a sum over E:
+        # an einsum runs it as N batched [Z, E] · [E, 1] products
+        weights = gates.reshape(-1, e).t()[..., None]  # [E, N, 1]
+        watts = (per_expert * weights).sum(dim=0).reshape(*lead, -1)
+        if clamp:
+            watts = torch.clamp(watts, min=0.0)
+        return torch.where(workload_valid[..., None], watts, 0.0)
 
 
 class MoEEstimator(nn.Module):

@@ -64,6 +64,14 @@ def linear(m: int, k: int, n: int):
     return (m, k), (k, n), run, True
 
 
+def stacked(e: int, m: int, k: int, n: int):
+    """The mixture's expert products: ``a`` [E, M, K] @ ``b`` [E, K, N]
+    by ``acc_matmul``."""
+    def run(a, b, cd):
+        return nn.acc_matmul(a, b, cd)
+    return (e, m, k), (e, k, n), run, True
+
+
 def scores(bsz: int):
     """The single-query scores: q [b, 4, 32] · k [b, 16, 4, 32]."""
     def run(q, k, cd):
@@ -85,6 +93,7 @@ CASES = {
     "temporal_kv_128x128": linear(40 * 16, 128, 128),
     "temporal_scores": scores(40),
     "temporal_values": values(40),
+    "moe_experts_128x4": stacked(8, 300, 128, 4),
 }
 
 
@@ -126,6 +135,55 @@ def test_tensor_core_route_matches_the_plain_product(case):
             + (2.0 ** -16 + k * 2.0 ** -23) * room
         assert diff.le(limit).all(), (case, float((diff - limit).max()))
         assert diff.le(bf16_ulp(want_g.abs())).float().mean() > 0.99
+
+
+def test_a_long_contraction_s_gradient_is_one_product_a_matrix():
+    """``_gradient_product``: a right operand's gradient whose contracted
+    rows outnumber the batch's matrices (the mixture's experts) is one
+    2-D product a matrix, stacked; a batch with more matrices than rows
+    (the temporal single-query products: 16 ticks over the sequences) or
+    a 2-D product is the one product it was."""
+    gen = torch.Generator().manual_seed(9)
+    calls = []
+
+    def mul(x, y):
+        calls.append(tuple(x.shape))
+        return x @ y
+
+    for shape_x, shape_y, want_calls in (
+            ((8, 128, 300), (8, 300, 8), [(128, 300)] * 8),
+            ((40, 32, 16), (40, 16, 8), [(40, 32, 16)]),
+            ((128, 300), (300, 8), [(128, 300)])):
+        x = torch.randn(shape_x, generator=gen)
+        y = torch.randn(shape_y, generator=gen)
+        calls.clear()
+        got = nn._gradient_product(mul, x, y)
+        assert calls == want_calls
+        want = (torch.stack([a @ b for a, b in zip(x, y)])
+                if len(want_calls) > 1 else x @ y)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shapes", [((8, 300, 7), (8, 7, 128)),
+                                    ((8, 300, 7), (8, 7, 4)),
+                                    ((40, 4, 16), (40, 16, 8))])
+def test_the_batched_plain_product_is_bmm_with_its_gradients(shapes):
+    """:class:`nn.BatchedProduct`, the plain route's batched pair (the
+    mixture's 7-wide first layer and skip path): the forward is
+    ``torch.bmm`` bit for bit; both gradients are ``torch.bmm``'s own to
+    f32 summation order (rtol 1e-5), ``b``'s taken a matrix at a time
+    where the rows outnumber the matrices."""
+    gen = torch.Generator().manual_seed(13)
+    a = torch.randn(shapes[0], generator=gen).requires_grad_()
+    b = torch.randn(shapes[1], generator=gen).requires_grad_()
+    a0, b0 = (x.detach().clone().requires_grad_() for x in (a, b))
+    got = nn.BatchedProduct.apply(a, b)
+    want = torch.bmm(a0, b0)
+    assert torch.equal(got, want)
+    g = torch.randn(got.shape, generator=gen)
+    for x, y in zip(torch.autograd.grad(got, (a, b), g),
+                    torch.autograd.grad(want, (a0, b0), g)):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(300, 128), (300, 4), (5, 7), (3, 4, 16)])

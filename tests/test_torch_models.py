@@ -152,6 +152,32 @@ def test_predict_moe_matches_jax(cd, routing, clamp):
         assert (got < 0).any() or routing == "expert_id"
 
 
+@pytest.mark.parametrize("routing", ["gate", "explicit"])
+def test_moe_combine_is_the_gated_sum_over_experts(routing):
+    """The combine, a broadcast product summed over the expert axis, is
+    the contraction ``einsum("enz,ne->nz")`` of the experts' outputs and
+    the gates to f32 summation order (rtol 1e-6), and exactly it where a
+    one-hot gate picks one expert."""
+    p = port_est.params_from_numpy("moe", moe_params(5))
+    feats, valid = inputs(6)
+    feats, valid = t(feats), t(valid)
+    eid = torch.tensor([0, 2, 1, 5, 2]) if routing == "explicit" else None
+    got = moe.predict_moe(p, feats, valid, clamp=False, expert_id=eid)
+    x = feats.reshape(1, -1, NUM_FEATURES)
+    per_expert = moe.expert_forward(p, x.expand(E, *x.shape[1:]))
+    if eid is None:
+        gates = torch.softmax(moe.gate_logits(p, feats), dim=-1)
+    else:
+        gates = torch.nn.functional.one_hot(
+            eid[:, None].expand(valid.shape), 8)[..., :E].float()
+    want = torch.einsum("enz,ne->nz", per_expert, gates.reshape(-1, E))
+    want = torch.where(valid[..., None], want.reshape(got.shape), 0.0)
+    if eid is None:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert torch.equal(got, want)
+
+
 def test_moe_module_and_registry():
     p = port_est.params_from_numpy("moe", moe_params(7))
     feats, valid = (t(x) for x in inputs(8))

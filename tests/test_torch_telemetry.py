@@ -9,7 +9,10 @@ enclosing ``aggregator.window`` cycle, and the published tensors
 bit-equal traced and untraced; the temporal estimator's
 ``temporal.ticks`` and ``temporal.attention``: once each a step inside
 ``train.forward``, on the full trunk too, and the estimator's output and
-a train step's loss and params bit-equal traced and untraced."""
+a train step's loss and params bit-equal traced and untraced; the
+mixture's ``moe.experts``, ``moe.gate`` and ``moe.combine``: once each
+a step inside ``train.forward``, in that order, ``moe.experts`` in the
+expert-parallel step too, and outputs bit-equal traced and untraced."""
 
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.mlp import init_mlp
+from kepler_tpu_torch.models.moe import init_moe, predict_moe
 from kepler_tpu_torch.models.temporal import (
     init_temporal,
     predict_temporal,
@@ -35,6 +39,7 @@ from kepler_tpu_torch.models.train import (
     create_train_state,
     make_optimizer,
     make_temporal_train_step,
+    make_train_step,
 )
 from kepler_tpu_torch.parallel import aggregator_core
 from kepler_tpu_torch.parallel.fleet import MODE_MODEL, MODE_RATIO, FleetBatch
@@ -44,6 +49,7 @@ from kepler_tpu_torch.telemetry import SpanRecorder
 FLEET_SPANS = ("fleet.pack", "fleet.h2d", "fleet.launch", "fleet.attribute",
                "fleet.estimator", "fleet.mix")
 TEMPORAL_SPANS = ("temporal.ticks", "temporal.attention")
+MOE_SPANS = ("moe.experts", "moe.gate", "moe.combine")
 
 
 def ranges(prof, tmp_path) -> list[dict]:
@@ -370,6 +376,86 @@ def test_temporal_outputs_bit_equal_traced_and_untraced(path):
             params, feat, valid, t_valid, _ = temporal_inputs(8)
             return [predict_temporal(params, feat, valid, t_valid)]
         losses, params = temporal_steps(8)
+        return losses + list(params.values())
+
+    plain = run()
+    with telemetry.installed(SpanRecorder(enabled=True)), \
+            profile(activities=[ProfilerActivity.CPU]):
+        traced = run()
+    assert len(plain) == len(traced) > 0
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
+
+
+# -- the mixture-of-experts estimator's spans ------------------------------------------
+
+def moe_inputs(seed: int, n: int = 3, w: int = 5):
+    """(params with every leaf non-zero, features [n, w, 7],
+    workload_valid, targets [n, w, 3]) for a mixture of 4 experts, 16
+    wide."""
+    params = random_params(init_moe(3, n_experts=4, hidden=16), seed)
+    rng = np.random.default_rng(seed)
+    return (params,
+            torch.from_numpy(rng.uniform(0, 2, (n, w, 7)).astype(np.float32)),
+            torch.from_numpy(rng.random((n, w)) > 0.2),
+            torch.from_numpy(rng.uniform(0, 5, (n, w, 3)).astype(np.float32)))
+
+
+def moe_steps(seed: int, steps: int = 2):
+    """``steps`` refit steps of the learned-gate mixture → (losses,
+    params after them)."""
+    params, feats, valid, targets = moe_inputs(seed)
+    state = create_train_state(params, make_optimizer(1e-2))
+    step = make_train_step(predict_moe)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, feats, valid, targets)
+        losses.append(loss)
+    return losses, {k: v.detach() for k, v in state.params.items()}
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_moe_spans_nest_in_the_forward_once_a_step(tmp_path, enabled):
+    with telemetry.installed(SpanRecorder(enabled=enabled)), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        moe_steps(4)
+    got = ranges(prof, tmp_path)
+    forwards = [e for e in got if e["name"] == "train.forward"]
+    assert len(forwards) == 2
+    for f in forwards:
+        inner = [e for e in got if e["name"] in MOE_SPANS and within(e, f)]
+        assert [e["name"] for e in inner] == list(MOE_SPANS)
+        assert all(b["ts"] >= a["ts"] + a["dur"]
+                   for a, b in zip(inner, inner[1:]))
+    assert sum(e["name"] in MOE_SPANS for e in got) == 2 * len(MOE_SPANS)
+
+
+def test_the_expert_parallel_step_opens_moe_experts(tmp_path):
+    """``parallel/expert.py`` runs ``expert_forward`` once a shard: one
+    ``moe.experts`` range each, and no gate or combine of the dense
+    mixture."""
+    from kepler_tpu_torch.parallel import (make_expert_parallel_moe,
+                                           make_mesh, top1_route)
+
+    params, feats, _, _ = moe_inputs(5, n=8, w=1)
+    feats = feats[:, 0]
+    eid, prob = top1_route(params, feats)
+    step = make_expert_parallel_moe(make_mesh([2], ["expert"],
+                                              devices=["cpu"] * 2))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = step(params, feats, eid, prob)
+    assert out.shape == (8, 3)
+    got = [e["name"] for e in ranges(prof, tmp_path)
+           if e["name"] in MOE_SPANS]
+    assert got == ["moe.experts"] * 2
+
+
+@pytest.mark.parametrize("path", ["predict", "train"])
+def test_moe_outputs_bit_equal_traced_and_untraced(path):
+    def run():
+        if path == "predict":
+            params, feats, valid, _ = moe_inputs(8)
+            return [predict_moe(params, feats, valid)]
+        losses, params = moe_steps(8)
         return losses + list(params.values())
 
     plain = run()

@@ -644,6 +644,102 @@ def test_build_trainer_logs_the_temporal_slots_it_steps_on(tmp_path,
     assert found[0][3] == f"{100 * rows / slots:.2f}"
 
 
+@pytest.mark.parametrize("dump", REFIT_DUMPS)
+def test_build_trainer_logs_the_experts_each_moe_row_goes_through(
+        tmp_path, caplog, dump):
+    """The moe counter: the labelled rows, the dumps' slots and the
+    experts every row runs through (the learned gate mixes them all),
+    logged once at INFO."""
+    import logging
+    import re
+
+    data, _ = pcmd.load_windows(refit_dump(tmp_path, dump))
+    args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--model",
+                            "moe", "--device", "cpu"])
+    with caplog.at_level(logging.INFO, logger="kepler.train"):
+        pcmd.build_trainer(args, data, torch.device("cpu"))
+    found = re.findall(r"stepping on (\d+) labelled rows of (\d+) slots, "
+                       r"each through (\d+) experts \(([0-9.]+)%\)",
+                       caplog.text)
+    assert len(found) == 1
+    rows, slots, experts = (int(x) for x in found[0][:3])
+    lv = data["label_valid"]
+    assert rows == int(lv.any(-1).sum()) and slots == lv[..., 0].size == 64
+    assert experts == 8  # init_moe's default, which cmd.train builds
+    assert found[0][3] == f"{100 * rows / slots:.2f}"
+
+
+@pytest.mark.parametrize("family", ("linear", "mlp", "deep"))
+def test_the_other_single_tick_families_log_their_rows_alone(
+        tmp_path, caplog, family):
+    import logging
+
+    data, _ = pcmd.load_windows(refit_dump(tmp_path, "padded_slots"))
+    args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--model",
+                            family, "--device", "cpu"])
+    with caplog.at_level(logging.INFO, logger="kepler.train"):
+        pcmd.build_trainer(args, data, torch.device("cpu"))
+    rows = int(data["label_valid"].any(-1).sum())
+    assert [r.getMessage() for r in caplog.records
+            if r.getMessage().startswith("stepping on")] == [
+        f"stepping on {rows} labelled rows of 64 slots "
+        f"({100 * rows / 64:.2f}%)"]
+
+
+@pytest.mark.parametrize("route", ("plain", "card"))
+@pytest.mark.parametrize("dump", REFIT_DUMPS)
+def test_the_moe_refit_is_the_plain_refit(tmp_path, dump, route):
+    """Three steps of ``build_trainer(--model moe)`` against the
+    benchmark's plain refit (``portbench/reference/refit_moe.py``,
+    stepped by its plain AdamW) from the same seed and dumps, on the
+    CPU's plain route and under ``nn.card_route`` (the card's
+    ``HalfProduct`` with its hi/lo backward): the start bit for bit; the
+    losses within rtol 1e-5 (f32 summation order; measured equal); each
+    leaf's change by its norm within 1e-5 of the larger of the
+    reference leaf's change and the median leaf's (measured ≤ 6.6e-7:
+    both sides round the same operands and gradients to bf16, and sum
+    in another order). The first step moves only ``w1``, ``b1`` and
+    ``w_skip`` (``w1`` starts at zero); the other leaves' gradients
+    reach them from the second."""
+    import contextlib
+    import statistics
+
+    from kepler_tpu_torch.models import nn as pnn
+    from portbench.reference import adamw, refit_moe
+    from portbench.reference.precision import rounding
+
+    cpu = torch.device("cpu")
+    seed = 2**31 + 9
+    data, _ = pcmd.load_windows(refit_dump(tmp_path, dump))
+    args = pcmd.parse_args(["--data", ".", "--out", "p.npz", "--model",
+                            "moe", "--seed", str(seed), "--device", "cpu"])
+    route_ctx = (pnn.card_route(cpu) if route == "card"
+                 else contextlib.nullcontext())
+    with route_ctx:
+        state, step_fn, inputs = pcmd.build_trainer(args, data, cpu)
+        start = {k: v.detach().clone() for k, v in state.params.items()}
+        losses = []
+        for _ in range(3):
+            state, loss = step_fn(state, *inputs)
+            losses.append(float(loss))
+    config = {"zones": data["zone_names"],
+              "estimator": {"n_experts": 8, "hidden": 128, "n_features": 7}}
+    ref = adamw.refit(refit_moe.loss_and_grad, refit_moe.start(seed, config),
+                      refit_moe.inputs(data, cpu), adamw.AdamW(lr=args.lr), 3,
+                      rounding("bfloat16"))
+    assert sorted(ref.start) == sorted(start)
+    assert all(torch.equal(start[k], ref.start[k]) for k in start)
+    np.testing.assert_allclose(losses, ref.losses, rtol=1e-5)
+    end = {k: v.detach() for k, v in state.params.items()}
+    got, want = ({k: float(torch.linalg.vector_norm((e[k] - s[k]).double()))
+                  for k in start}
+                 for e, s in ((end, start), (ref.end, ref.start)))
+    median = statistics.median(want.values())
+    assert median > 0 and all(want[k] > 0 for k in want)
+    for k in start:
+        assert abs(got[k] - want[k]) <= 1e-5 * max(want[k], median), k
+
+
 TEMPORAL_DUMPS = {"three_windows": dict(seed=0),
                   "five_windows": dict(seed=7, n_windows=5)}
 
