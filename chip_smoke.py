@@ -115,7 +115,8 @@ zones, buckets N = 1024, W = 256):
    functions, and its device tier's programs run on the card — B1 in
    ``ops.pallas_attribution`` and ``packed.pallas_dense`` (once per
    shard), B2 in ``window.fused_pallas``, the row scatter in the
-   ``window.update`` entries, the hi/lo split in ``trainer.train_step`` —
+   ``window.update`` entries, the hi/lo split and the boundary's pair in
+   ``trainer.train_step`` —
    each case's fingerprint against the same case run on the CPU (its
    bf16 products on the card's route), the kernel cases' outputs
    bit-equal to their plain versions;
@@ -160,7 +161,13 @@ of a bf16 backward's incoming gradient (``kt_hi_lo``, no TPU kernel) is
 held bit-equal to its plain version at the refit cells' five gradient
 shapes and timed beside its byte bound; path 10's bf16 train steps, the
 DP×TP steps of paths 14 and 17 at bf16 and path 15's train step launch
-it, and no f32 step does.
+it, and no f32 step does. The hidden layer's boundary (``kt_gelu_operand``
+and its backward, no TPU kernel: the bias add, tanh GELU and bf16 cast of
+the next product's operand, and their backward) is held against its plain
+version at the refit cells' shapes and timed beside its byte bounds; every
+bf16 step and forward on the card's route launches it once a hidden layer
+(path 10's families, the bf16 programs of paths 14 and 17), and no f32
+one does.
 
 ``--phases a,b`` runs only the named phases (of ``PHASES``: ``kernels``,
 ``ratio``, ``mixed``, ``serial_mlp``, ``aggregator``, ``temporal``,
@@ -244,6 +251,10 @@ TRAIN_W = 128
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_LR = "3e-3"  # deep diverges at cmd.train's default 1e-2
 FAMILIES = ("linear", "mlp", "moe", "deep", "temporal")
+# the hidden layers a train step of each family takes through the
+# boundary's kernels (``models.nn.gelu_operand``) at bf16 on the card
+TRAIN_BOUNDARIES = {"linear": 0, "mlp": 2, "moe": 1, "deep": 4,
+                    "temporal": 1}
 
 
 def emit(obj: dict) -> None:
@@ -655,6 +666,136 @@ def kernel_hi_lo(dev: torch.device) -> dict:
                     "f32-result dot takes the f32 cotangent as it is",
         **main, "parity": "bit-equal", "by_shape": rows}
     emit({"phase": "kernel_hi_lo", **row})
+    return row
+
+
+# the hidden-layer boundaries a bf16 refit step takes through
+# ``models.nn.gelu_operand`` in the benchmark's refit cells, as [E, M, H]:
+# the MLP's two over 9,830,400 labelled rows, the temporal MLP block's
+# over 256,000 last-tick rows, the mixture's 8 experts over 4,915,200
+GELU_OPERAND_SHAPES = {"mlp_hidden": (1, 9_830_400, 128),
+                       "temporal_mlp": (1, 256_000, 512),
+                       "moe_experts": (8, 4_915_200, 128)}
+
+
+def f32_ulps(a: torch.Tensor, b: torch.Tensor,
+             chunk: int = 1 << 27) -> int:
+    """Largest distance between f32 tensors of one shape in f32 ulps
+    (monotone integer mapping), ``chunk`` elements at a time."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst = 0
+    for i in range(0, a.numel(), chunk):
+        ia, ib = (x[i:i + chunk].view(torch.int32).long() for x in (a, b))
+        ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+        ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+        worst = max(worst, int((ia - ib).abs().max()))
+    return worst
+
+
+def kernel_gelu_operand(dev: torch.device) -> dict:
+    """The hidden layer's boundary (a kernel pair with no TPU
+    counterpart) at the refit cells' shapes: the forward's ``h`` and the
+    backward's ``dz`` and bias gradient against the plain version one
+    expert at a time (``h`` bit-equal, ``dz`` within 2 f32 ulps, the bias
+    gradient within rtol 1e-5 and bit-equal from call to call), each call
+    launching once; both timed beside their byte bounds (forward 6 bytes
+    an element, backward 10) and beside the plain versions, which run one
+    expert at a time. → the row at the mixture's shape, the others under
+    ``by_shape``."""
+    from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops import gelu_operand as go
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows: dict = {}
+    for name, shape in GELU_OPERAND_SHAPES.items():
+        e, _, h = shape
+        z = torch.randn(shape, device=dev, generator=gen).mul_(3)
+        bias = torch.randn((e, h), device=dev, generator=gen)
+        g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        n = z.numel()
+        experts = [(z[i:i + 1], bias[i:i + 1], g[i:i + 1]) for i in range(e)]
+        row: dict = {"shape": {"z": list(shape)}}
+        before = dict(go.LAUNCHES)
+        got = go.gelu_operand(z, bias)
+        h_diff = 0
+        for i, (zi, bi, _) in enumerate(experts):
+            want = go.gelu_operand_ref(zi, bi)
+            h_diff += int((got[i:i + 1].view(torch.int16)
+                           != want.view(torch.int16)).sum())
+            del want
+        check(h_diff == 0, f"the boundary's h differs from its plain "
+              f"version in {h_diff} elements at {shape}")
+        row["h_differing"] = h_diff
+        del got
+        dz, db = go.gelu_operand_backward(g, z, bias)
+        again = go.gelu_operand_backward(g, z, bias)[1]
+        torch.cuda.synchronize()
+        check(all(go.LAUNCHES[k] == before[k] + calls for k, calls in
+                  (("gelu_operand", 1), ("gelu_operand_backward", 2))),
+              f"the boundary's kernels did not launch once a call at {shape}")
+        check(same_bits(again, db), f"the boundary's bias gradient differs "
+              f"from call to call at {shape}")
+        del again
+        ulps, want_db = 0, torch.empty_like(db)
+        for i, (zi, bi, gi) in enumerate(experts):
+            want_dz, want_db[i:i + 1] = go.gelu_operand_backward_ref(
+                gi, zi, bi)
+            ulps = max(ulps, f32_ulps(dz[i:i + 1], want_dz))
+            del want_dz
+        db_rel = float(((db - want_db).abs()
+                        / want_db.abs().max(dim=1, keepdim=True).values)
+                       .max())
+        check(ulps <= 2, f"the boundary's dz is {ulps} f32 ulps off "
+              f"its plain version at {shape}")
+        check(db_rel <= 1e-5, f"the boundary's bias gradient is "
+              f"{db_rel:.2e} off its plain version at {shape}")
+        row.update({"dz_max_ulps": ulps, "bias_grad_max_rel": db_rel})
+        del dz, db
+        torch.cuda.empty_cache()
+
+        def plain() -> None:
+            for zi, bi, _ in experts:
+                go.gelu_operand_ref(zi, bi)
+
+        def plain_bwd() -> None:
+            for zi, bi, gi in experts:
+                go.gelu_operand_backward_ref(gi, zi, bi)
+
+        fwd = lambda: go.gelu_operand(z, bias)  # noqa: E731
+        bwd = lambda: go.gelu_operand_backward(g, z, bias)  # noqa: E731
+        bound, by = ca.bound_ms(6 * n, 0)
+        bwd_bound, bwd_by = ca.bound_ms(10 * n, 0)
+        row.update({
+            "ms": time_ms(fwd, reps=5, batch=4),
+            "device_ms": device_ms(fwd, calls=4, tries=DEVICE_MS_TRIES,
+                                   match="gelu_operand")[0],
+            "bound_ms": bound, "bound_by": by, "bytes": 6 * n,
+            "backward_ms": time_ms(bwd, reps=5, batch=4),
+            "backward_device_ms": device_ms(
+                bwd, calls=4, tries=DEVICE_MS_TRIES,
+                match="gelu_operand")[0],
+            "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_by,
+            "backward_bytes": 10 * n,
+            "plain_ms": time_ms(plain, reps=5, batch=4),
+            "plain_device_ms": device_ms(plain, calls=4,
+                                         tries=DEVICE_MS_TRIES)[0],
+            "plain_backward_ms": time_ms(plain_bwd, reps=5, batch=4),
+            "plain_backward_device_ms": device_ms(
+                plain_bwd, calls=4, tries=DEVICE_MS_TRIES)[0]})
+        rows[name] = row
+        del z, bias, g, experts
+        torch.cuda.empty_cache()
+    main = rows["moe_experts"]
+    row = {
+        "name": "gelu_operand", "route": "cuda",
+        "kind": "forward and backward kernels",
+        "source": "kepler_tpu_torch/ops/csrc/gelu_operand.cu",
+        "replaces": "no TPU kernel: XLA fuses the bias add, the tanh GELU "
+                    "and the next dot's bf16 operand cast",
+        **main, "parity": "h bit-equal, dz within 2 f32 ulps, the bias "
+                          "gradient within rtol 1e-5, at every shape",
+        "by_shape": rows}
+    emit({"phase": "kernel_gelu_operand", **row})
     return row
 
 
@@ -1976,10 +2117,11 @@ def host_result(res) -> list[np.ndarray]:
 def reset_launches() -> None:
     from kepler_tpu_torch.ops import cuda_attention as cat
     from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops import gelu_operand as go
     from kepler_tpu_torch.ops import hi_lo as hl
 
     for table in (ca.LAUNCHES, cat.LAUNCHES, cat.TILED_PATH_LAUNCHES,
-                  hl.LAUNCHES):
+                  hl.LAUNCHES, go.LAUNCHES):
         for name in table:
             table[name] = 0
 
@@ -1989,18 +2131,27 @@ def read_launches() -> dict:
     ``flash_block_tiled_<path>``."""
     from kepler_tpu_torch.ops import cuda_attention as cat
     from kepler_tpu_torch.ops import cuda_attribution as ca
+    from kepler_tpu_torch.ops import gelu_operand as go
     from kepler_tpu_torch.ops import hi_lo as hl
 
-    return {**ca.LAUNCHES, **cat.LAUNCHES, **hl.LAUNCHES,
+    return {**ca.LAUNCHES, **cat.LAUNCHES, **hl.LAUNCHES, **go.LAUNCHES,
             **{f"flash_block_tiled_{path}": n
                for path, n in cat.TILED_PATH_LAUNCHES.items()}}
 
 
-def kernels_but_split(launches: dict) -> dict:
-    """The kernels of ``launches`` that launched, but for the hi/lo split
-    (``ops.hi_lo``), which a bf16 train step's backward on the card
-    launches (``models.nn.HalfProduct``) and an f32 one does not."""
-    return {k: n for k, n in launches.items() if n and k != "hi_lo"}
+# the kernels of a bf16 model step on the card's route: the hi/lo split
+# of a product's backward (``ops.hi_lo``) and a hidden layer's boundary,
+# forward and backward (``ops.gelu_operand``)
+STEP_KERNELS = ("hi_lo", "gelu_operand", "gelu_operand_backward")
+
+
+def kernels_but_step(launches: dict) -> dict:
+    """The kernels of ``launches`` that launched, but for the model
+    step's (``STEP_KERNELS``), which a bf16 step on the card launches
+    (``models.nn.HalfProduct``, ``models.nn.gelu_operand``) and an f32
+    one does not."""
+    return {k: n for k, n in launches.items()
+            if n and k not in STEP_KERNELS}
 
 
 def profile_top(fn, k: int = 8, match: str | None = None) -> dict:
@@ -2522,7 +2673,10 @@ def main_train(dev: torch.device) -> dict:
     windows launch B1; a bf16 train step's backward launches the hi/lo
     split (``ops.hi_lo``) once for each product it takes to tensor cores
     (``models.nn.HalfProduct``), the same number every step, and linear's,
-    which has none, launches nothing."""
+    which has none, launches nothing; each of its hidden layers' boundaries
+    (``models.nn.gelu_operand``) launches the boundary's forward and
+    backward kernels once a step (``TRAIN_BOUNDARIES``)."""
+    from kepler_tpu_torch.ops import gelu_operand as go
     from kepler_tpu_torch.ops import hi_lo as hl
     from kepler_tpu_torch.cmd.train import load_windows
     from kepler_tpu_torch.fleet import wire
@@ -2554,6 +2708,7 @@ def main_train(dev: torch.device) -> dict:
                     "--log-every", "1"]
             t0 = time.perf_counter()
             split0 = hl.LAUNCHES["hi_lo"]
+            bound0 = dict(go.LAUNCHES)
             straight = train_cli(base + ["--steps", str(TRAIN_STEPS),
                                          "--out", f"{out}-straight.npz"])
             card_s = time.perf_counter() - t0
@@ -2562,6 +2717,12 @@ def main_train(dev: torch.device) -> dict:
                   and (splits > 0) == (fam != "linear"),
                   f"{fam}: the hi/lo split launched {splits} times in "
                   f"{TRAIN_STEPS} steps")
+            bounds = {k: go.LAUNCHES[k] - n for k, n in bound0.items()}
+            check(all(n == TRAIN_BOUNDARIES[fam] * TRAIN_STEPS
+                      for n in bounds.values()),
+                  f"{fam}: the boundary's kernels launched {bounds} in "
+                  f"{TRAIN_STEPS} steps, not {TRAIN_BOUNDARIES[fam]} a "
+                  f"step each")
             losses = straight.losses
             check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
                   f"{fam}: the loss did not fall ({losses[:1]} → "
@@ -2603,6 +2764,8 @@ def main_train(dev: torch.device) -> dict:
                                       cpu.losses[-1]],
                 "resume_max_abs_diff": resume_diff,
                 "hi_lo_per_step": splits // TRAIN_STEPS,
+                "gelu_operand_per_step": {k: n // TRAIN_STEPS
+                                          for k, n in bounds.items()},
                 "ms_per_step": ms, "peak_mib": peak,
                 "straight_run_s": card_s, "cpu_run_s": cpu_s,
                 "served": served}
@@ -4522,8 +4685,9 @@ def parallel_temporal(dev: torch.device) -> dict:
         got, ms = timed_call(lambda: program(params, hist, wv, tv))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = read_launches()
-        check(not any(launches.values()), f"{label}: a kernel launched "
-              f"({launches}); JAX's program runs none")
+        check({k for k, n in launches.items() if n} == {"gelu_operand"},
+              f"{label}: launched {launches}; JAX's program runs no "
+              f"kernel, and the bf16 trunk the boundary's forward alone")
         _, warm_ms = timed_call(lambda: program(params, hist, wv, tv))
         want, dense_ms = timed_call(
             lambda: predict_temporal(params, hist, wv, tv))
@@ -4632,7 +4796,9 @@ def parallel_rows(dev: torch.device) -> dict:
                                n_microbatches=4)
     reset_launches()
     got, ms = timed_call(lambda: pipe(deep, feats, valid))
-    check(not any(read_launches().values()), "pipeline: a kernel launched")
+    launches = read_launches()
+    check({k for k, n in launches.items() if n} == {"gelu_operand"},
+          f"pipeline: launched {launches}, not the boundary's forward alone")
     want, dense_ms = timed_call(lambda: predict_deep(deep, feats, valid))
     a, r = got.cpu().numpy(), want.cpu().numpy()
     check(np.isfinite(a).all() and bf16_close(a, r), "pipelined deep off "
@@ -4661,7 +4827,9 @@ def parallel_rows(dev: torch.device) -> dict:
             ("top1", learned, lambda: picked * learned[1][:, None])):
         reset_launches()
         got, ms = timed_call(lambda: ep(moe, feats, ids, gate))
-        check(not any(read_launches().values()), "EP: a kernel launched")
+        launches = read_launches()
+        check({k for k, n in launches.items() if n} == {"gelu_operand"},
+              f"EP: launched {launches}, not the boundary's forward alone")
         a, r = got.cpu().numpy(), ref().cpu().numpy()
         check(np.isfinite(a).all() and bf16_close(a, r), f"EP ({label}) off "
               f"the dense MoE by {float(np.abs(a - r).max())} W")
@@ -4716,8 +4884,9 @@ def parallel_trainer(dev: torch.device) -> dict:
                 losses.append(float(loss))
                 ms.append(step_ms)
             launches = read_launches()
-            check(not kernels_but_split(launches)
-                  and (launches["hi_lo"] > 0) == (cd == torch.bfloat16),
+            check(not kernels_but_step(launches)
+                  and all((launches[k] > 0) == (cd == torch.bfloat16)
+                          for k in STEP_KERNELS),
                   f"trainer ({name}): launched {launches}")
             whole = (gather_params(state) if label == "dp_tp"
                      else train.detached(state.params))
@@ -4781,6 +4950,8 @@ DIST_TRAIN_STEPS = 2  # DP×TP steps per dtype
 #: the calls of :func:`dist_rows` held bit-equal to one process
 DIST_ROW_CALLS = ("pipeline", "expert_explicit", "expert_top1", "dp_tp_bf16",
                   "dp_tp_f32")
+#: the dist calls that run a bf16 forward alone on the card's route
+BF16_FORWARDS = ("pipeline", "expert_explicit", "expert_top1", "serve_bf16")
 
 
 def dist_mesh(dev: torch.device, ranks: int | None,
@@ -5081,10 +5252,16 @@ def main_dist(dev: torch.device) -> dict:
                                      for key, val in one[label].items()),
                   f"rank {r['rank']}'s {label} differs from one process's")
         for label, row in r["calls"].items():
-            split = row["launches"]["hi_lo"] > 0  # a bf16 backward
+            # a bf16 DP×TP step launches the model step's kernels; the
+            # bf16 forwards (the pipeline, the experts, the bf16 serving
+            # program) the boundary's forward alone
+            bf16_step = label.startswith("dp_tp_bf16")
+            want = {"hi_lo": bf16_step, "gelu_operand_backward": bf16_step,
+                    "gelu_operand": bf16_step or label in BF16_FORWARDS}
             check(label == "ring_b3"
-                  or (not kernels_but_split(row["launches"])
-                      and split == label.startswith("dp_tp_bf16")),
+                  or (not kernels_but_step(row["launches"])
+                      and all((row["launches"][k] > 0) == on
+                              for k, on in want.items())),
                   f"rank {r['rank']}'s {label} launched {row['launches']}")
     launches = {key: sum(r["calls"]["ring_b3"]["launches"][key]
                          for r in ranks)
@@ -5252,7 +5429,9 @@ def main_analysis(dev: torch.device) -> dict:
     check(row["launches"]["outer_product_attribution"] >= 1
           and row["launches"]["fused_window_step"] >= 1
           and row["launches"]["scatter_rows"] >= 1
-          and row["launches"]["hi_lo"] >= 1,
+          and row["launches"]["hi_lo"] >= 1
+          and row["launches"]["gelu_operand"] >= 1
+          and row["launches"]["gelu_operand_backward"] >= 1,
           f"device tier launched {row['launches']}")
     row["cases"] = len(cuda_reports)
     row["kernel_cases_bit_equal"] = kernel_cases
@@ -5302,7 +5481,9 @@ def kernel_line(row: dict | None, name: str, by_path: dict,
             "library_ms", "library_device_ms", "device_ms",
             "plain_device_ms", "shape", "by_db", "by_k", "by_shape",
             "launches_by_path", "launches_by_variant",
-            "launches_by_kernel_path")
+            "launches_by_kernel_path", "backward_launches_by_path",
+            "backward_ms", "backward_device_ms", "backward_bound_ms",
+            "plain_backward_ms", "plain_backward_device_ms")
     out = dict(row or {"name": name}, **extra)
     out["launches_by_path"] = by_path
     out["launches"] = sum(by_path.values())
@@ -5350,7 +5531,7 @@ def main(argv: list[str] | None = None) -> int:
     b3_wide: dict = {}
     b3_widepath: dict = {}
     scatter_rows: dict = {}
-    hi_lo_row = None
+    hi_lo_row = gelu_operand_row = None
     if "kernels" in on:
         b1 = kernel_b1(dev)
         b2_rows = {db: kernel_b2(dev, db) for db in (8, N_NODES)}
@@ -5363,6 +5544,7 @@ def main(argv: list[str] | None = None) -> int:
         scatter_rows = {db: kernel_scatter_rows(dev, db)
                         for db in SCATTER_DBS}
         hi_lo_row = kernel_hi_lo(dev)
+        gelu_operand_row = kernel_gelu_operand(dev)
     lap("kernels")
     main_db = 512  # the ratio schedule's flush DB, when it does not run
     if "ratio" in on:
@@ -5525,6 +5707,12 @@ def main(argv: list[str] | None = None) -> int:
     split_paths = launches_of(r, "hi_lo")
     check(not {"train", "analysis"} & on or sum(split_paths.values()) > 0,
           f"the hi/lo split launched no time in training: {split_paths}")
+    boundary_paths = launches_of(r, "gelu_operand")
+    boundary_backward_paths = launches_of(r, "gelu_operand_backward")
+    check(not {"train", "analysis"} & on
+          or sum(boundary_backward_paths.values()) > 0,
+          f"the boundary's backward launched no time in training: "
+          f"{boundary_backward_paths}")
     scatter_extra: dict = {}
     if scatter_rows:
         scatter_extra["by_db"] = {
@@ -5543,7 +5731,9 @@ def main(argv: list[str] | None = None) -> int:
                     **tiled_extra),
         kernel_line(scatter_rows.get(512), "scatter_rows", scatter_paths,
                     **scatter_extra),
-        kernel_line(hi_lo_row, "hi_lo", split_paths)]
+        kernel_line(hi_lo_row, "hi_lo", split_paths),
+        kernel_line(gelu_operand_row, "gelu_operand", boundary_paths,
+                    backward_launches_by_path=boundary_backward_paths)]
     emit({"phase": "total", "phases": phases,
           "seconds": time.perf_counter() - t_script,
           "phase_seconds": laps})

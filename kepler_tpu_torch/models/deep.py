@@ -17,11 +17,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from kepler_tpu_torch.models.features import NUM_FEATURES
-from kepler_tpu_torch.models.nn import acc_matmul, glorot, layer_norm
+from kepler_tpu_torch.models.nn import (acc_matmul, gelu_operand, glorot,
+                                        layer_norm)
 
 # DeepParams / BlockParams keys, as the JAX package's TypedDicts name them
 PARAM_KEYS = ("in_proj", "in_bias", "w_head", "b_head", "w_skip")
@@ -63,8 +63,8 @@ def block_fn(block: dict[str, torch.Tensor], x: torch.Tensor,
     axis: it is the uniform stage function a pipeline applies per
     device."""
     y = layer_norm(x, block["ln_scale"], block["ln_bias"])
-    y = F.gelu(acc_matmul(y, block["w0"], compute_dtype) + block["b0"],
-               approximate="tanh")
+    y = gelu_operand(acc_matmul(y, block["w0"], compute_dtype),
+                     block["b0"], compute_dtype)
     return x + acc_matmul(y, block["w1"], compute_dtype) + block["b1"]
 
 

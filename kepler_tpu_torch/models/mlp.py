@@ -13,11 +13,10 @@ GELU is the tanh approximation, which is ``jax.nn.gelu``'s default.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from kepler_tpu_torch.models.features import NUM_FEATURES
-from kepler_tpu_torch.models.nn import acc_matmul, glorot
+from kepler_tpu_torch.models.nn import acc_matmul, gelu_operand, glorot
 
 PARAM_KEYS = ("w0", "b0", "w1", "b1", "w2", "b2", "w_skip")
 
@@ -52,10 +51,9 @@ def predict_mlp(
     operands and f32 accumulators, plus the f32 linear skip path;
     ``clamp`` floors at 0 W for serving."""
     cd = compute_dtype
-    h = F.gelu(acc_matmul(features, params["w0"], cd) + params["b0"],
-               approximate="tanh")
-    h = F.gelu(acc_matmul(h, params["w1"], cd) + params["b1"],
-               approximate="tanh")
+    h = gelu_operand(acc_matmul(features, params["w0"], cd), params["b0"],
+                     cd)
+    h = gelu_operand(acc_matmul(h, params["w1"], cd), params["b1"], cd)
     watts = acc_matmul(h, params["w2"], cd)
     watts = watts + features.to(torch.float32) @ params["w_skip"]
     watts = watts + params["b2"]

@@ -27,12 +27,11 @@ experts, the clamp and the mask).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.features import NUM_FEATURES
-from kepler_tpu_torch.models.nn import acc_matmul, glorot
+from kepler_tpu_torch.models.nn import acc_matmul, gelu_operand, glorot
 
 # MoEParams keys, as the JAX package's TypedDict names them
 PARAM_KEYS = ("gate_w", "w0", "b0", "w1", "b1", "w_skip")
@@ -65,8 +64,7 @@ def expert_forward(params: dict[str, torch.Tensor],
     ``compute_dtype`` operands, plus each expert's f32 linear path."""
     cd = compute_dtype
     with telemetry.span("moe.experts"):
-        h = F.gelu(acc_matmul(x, params["w0"], cd)
-                   + params["b0"][:, None, :], approximate="tanh")
+        h = gelu_operand(acc_matmul(x, params["w0"], cd), params["b0"], cd)
         return (acc_matmul(h, params["w1"], cd)
                 + acc_matmul(x.to(torch.float32), params["w_skip"],
                              torch.float32)

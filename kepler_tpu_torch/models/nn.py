@@ -12,7 +12,9 @@ import math
 from typing import Callable, Iterator
 
 import torch
+import torch.nn.functional as F
 
+from kepler_tpu_torch.ops import gelu_operand as boundary
 from kepler_tpu_torch.ops.attention import round_to
 from kepler_tpu_torch.ops.hi_lo import hi_lo
 
@@ -243,3 +245,45 @@ def acc_matmul(a: torch.Tensor, b: torch.Tensor,
     if a.dim() == b.dim() == 3:
         return BatchedProduct.apply(a, b)
     return torch.matmul(a, b)
+
+
+class GeluOperand(torch.autograd.Function):
+    """``bf16(tanh-GELU(z + bias))`` of f32 ``z`` [E, M, H] and ``bias``
+    [E, H], in one pass each way (``ops.gelu_operand``). It saves ``z``
+    and ``bias``, as many bytes as the unfused GELU's saved input. Its
+    output is the bf16 operand that :class:`HalfProduct` saves as it is,
+    so the incoming gradient is that product's bf16 operand gradient,
+    and the backward returns ``z``'s and the bias's f32 gradients."""
+
+    @staticmethod
+    def forward(ctx, z: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(z, bias)
+        return boundary.gelu_operand(z, bias)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple:
+        z, bias = ctx.saved_tensors
+        return boundary.gelu_operand_backward(g, z, bias)
+
+
+def gelu_operand(z: torch.Tensor, bias: torch.Tensor,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """A hidden layer's boundary: tanh-GELU of its f32 product ``z``
+    plus its bias, as the next product's left operand. ``z`` [..., H]
+    with ``bias`` [H], or the mixture's ``z`` [E, M, H] with a bias an
+    expert, [E, H].
+
+    Where the next product takes :class:`HalfProduct`
+    (:func:`tensor_cores` of ``z``: the card at bf16, or the CPU under
+    :func:`card_route`, over a width that is a multiple of 8) → the bf16
+    operand that product casts to, by :class:`GeluOperand`, which saves
+    nothing where no gradient is wanted. Elsewhere → the f32
+    ``F.gelu(z + bias, approximate="tanh")`` that the plain route rounds.
+    """
+    per_expert = bias.dim() == 2
+    if not tensor_cores(z, compute_dtype):
+        return F.gelu(z + (bias[:, None, :] if per_expert else bias),
+                      approximate="tanh")
+    z3 = z if per_expert else z.reshape(1, -1, z.shape[-1])
+    b2 = bias if per_expert else bias.reshape(1, -1)
+    return GeluOperand.apply(z3, b2).reshape(z.shape)

@@ -29,13 +29,13 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from kepler_tpu_torch import telemetry
 from kepler_tpu_torch.models.features import NUM_FEATURES
-from kepler_tpu_torch.models.nn import (acc_matmul, glorot, half_product,
-                                        layer_norm, tensor_cores)
+from kepler_tpu_torch.models.nn import (acc_matmul, gelu_operand, glorot,
+                                        half_product, layer_norm,
+                                        tensor_cores)
 from kepler_tpu_torch.ops.attention import full_attention, round_to
 
 # TemporalParams keys, as the JAX package's TypedDict names them
@@ -103,8 +103,8 @@ def _mlp_block(params: dict[str, torch.Tensor], x: torch.Tensor,
                cd: torch.dtype) -> torch.Tensor:
     """Pre-LN GELU MLP with its residual."""
     y = layer_norm(x, params["ln2_scale"], params["ln2_bias"])
-    y = F.gelu(acc_matmul(y, params["w_mlp0"], cd) + params["b_mlp0"],
-               approximate="tanh")
+    y = gelu_operand(acc_matmul(y, params["w_mlp0"], cd), params["b_mlp0"],
+                     cd)
     return x + acc_matmul(y, params["w_mlp1"], cd) + params["b_mlp1"]
 
 

@@ -39,9 +39,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
-from kepler_tpu_torch.models.nn import acc_matmul
+from kepler_tpu_torch.models.nn import acc_matmul, gelu_operand
 from kepler_tpu_torch.models.train import TrainState
 from kepler_tpu_torch.parallel.collectives import (AxisDevices, gather_whole,
                                                    grid_devices,
@@ -216,15 +215,15 @@ def make_distributed_train_step(
             tgt = local_map(row, lambda j: targets[rows[i]].to(row[j]))
 
             def partial(j):
-                h = F.gelu(acc_matmul(x[j], p_row[j]["w0"], cd)
-                           + p_row[j]["b0"], approximate="tanh")
+                h = gelu_operand(acc_matmul(x[j], p_row[j]["w0"], cd),
+                                 p_row[j]["b0"], cd)
                 return acc_matmul(h, p_row[j]["w1"], cd)
 
             # layer 1, over ``model``
             summed = psum(local_map(row, partial), row)
             for j in local_indices(row):
                 p = p_row[j]
-                h = F.gelu(summed[j] + p["b1"], approximate="tanh")
+                h = gelu_operand(summed[j], p["b1"], cd)
                 watts = acc_matmul(h, p["w2"], cd)
                 watts = watts + x[j].to(torch.float32) @ p["w_skip"]
                 watts = watts + p["b2"]

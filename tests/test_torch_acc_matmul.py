@@ -24,7 +24,7 @@ import contextlib
 import pytest
 import torch
 
-from kepler_tpu_torch.models import mlp, nn, temporal, train
+from kepler_tpu_torch.models import deep, mlp, moe, nn, temporal, train
 from kepler_tpu_torch.models.nn import card_route
 from kepler_tpu_torch.ops.attention import round_to
 from kepler_tpu_torch.ops.hi_lo import hi_lo, hi_lo_ref
@@ -224,22 +224,26 @@ def test_plain_route_is_the_plain_product(card, cd, shapes):
                                              round_to(b, cd)))
 
 
-@pytest.mark.parametrize("family", ["mlp", "temporal"])
+@pytest.mark.parametrize("family", ["mlp", "temporal", "moe", "deep"])
 def test_refit_loss_and_gradients_on_the_route(family):
     """The bf16 refit loss of each family and its gradient through the
-    tensor-core route (plain product step) against the plain route: the
-    loss to f32 summation error, each leaf's gradient to the bf16
-    roundings it passes through."""
+    tensor-core route (plain product step, and the hidden layers'
+    boundary as ``ops.gelu_operand``'s plain version) against the plain
+    route: the loss to f32 summation error, each leaf's gradient to the
+    bf16 roundings it passes through."""
     gen = torch.Generator().manual_seed(11)
-    if family == "mlp":
-        params = mlp.init_mlp(4, generator=gen)
-        params["w2"] = torch.randn(128, 4, generator=gen) * 0.1
+    if family in ("mlp", "moe", "deep"):
+        init, run = {"mlp": (mlp.init_mlp, mlp.predict_mlp),
+                     "moe": (moe.init_moe, moe.predict_moe),
+                     "deep": (deep.init_deep, deep.predict_deep)}[family]
+        params = init(4, generator=gen)
+        head = {"mlp": "w2", "moe": "w1", "deep": "w_head"}[family]
+        params[head] = torch.randn(params[head].shape, generator=gen) * 0.1
         feats = torch.rand(64, 10, 7, generator=gen)
         valid = torch.rand(64, 10, generator=gen) < 0.8
 
         def predict(p):
-            return mlp.predict_mlp(p, feats, valid, clamp=False,
-                                   compute_dtype=BF16)
+            return run(p, feats, valid, clamp=False, compute_dtype=BF16)
     else:
         params = temporal.init_temporal(4, generator=gen)
         params["w_head"] = torch.randn(128, 4, generator=gen) * 0.1
@@ -254,12 +258,18 @@ def test_refit_loss_and_gradients_on_the_route(family):
     target = torch.rand(*valid.shape, 4, generator=gen) * 10
     out = {}
     for route in ("plain", "card"):
-        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        leaves = {k: v.clone().requires_grad_() if torch.is_tensor(v) else
+                  {kk: vv.clone().requires_grad_() for kk, vv in v.items()}
+                  for k, v in params.items()}
+        flat = {f"{k}.{kk}" if isinstance(v, dict) else k: vv
+                for k, v in leaves.items()
+                for kk, vv in (v.items() if isinstance(v, dict)
+                               else [(None, v)])}
         with card_route(CPU) if route == "card" else \
                 contextlib.nullcontext():
             loss = train.masked_mse(predict(leaves), target, valid)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        out[route] = (loss.item(), dict(zip(leaves, grads)))
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        out[route] = (loss.item(), dict(zip(flat, grads)))
     assert out["card"][0] == pytest.approx(out["plain"][0], rel=1e-5)
     for k, want in out["plain"][1].items():
         top = float(want.abs().max())

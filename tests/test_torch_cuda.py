@@ -1162,6 +1162,51 @@ def test_hi_lo_kernel_equals_plain(cuda_device, shape):
                        want.view(torch.int16))
 
 
+def f32_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in f32 units in the last place, element by element."""
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return (ia - ib).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4096, 128), (8, 4099, 128),
+                                   (1, 4096, 512)],
+                         ids=["mlp_4096x128", "experts_8x4099x128",
+                              "temporal_4096x512"])
+def test_gelu_operand_kernels_equal_plain(cuda_device, shape):
+    """The boundary's kernel pair against its plain version (PyTorch's
+    own CUDA passes) at the 2-D form, the mixture's per-expert bias over
+    rows that are no multiple of the 256-row tile, and the temporal MLP's
+    width: ``h`` bit for bit (the kernel computes PyTorch's f32 tanh-GELU
+    in its order, and nvcc contracts it the same way), ``dz`` within 2
+    f32 ulps, the bias gradient within rtol 1e-5 (another summation
+    order) and bit-equal from run to run (no atomics); each call launches
+    once."""
+    from kepler_tpu_torch.ops import gelu_operand as go
+
+    e, m, h = shape
+    gen = torch.Generator().manual_seed(19)
+    z = (torch.randn(shape, generator=gen) * 3).to(cuda_device)
+    bias = torch.randn((e, h), generator=gen).to(cuda_device)
+    g = torch.randn(shape, generator=gen).to(torch.bfloat16).to(cuda_device)
+    before = dict(go.LAUNCHES)
+    got = go.gelu_operand(z, bias)
+    assert go.LAUNCHES["gelu_operand"] == before["gelu_operand"] + 1
+    want = go.gelu_operand_ref(z, bias)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    dz, db = go.gelu_operand_backward(g, z, bias)
+    assert (go.LAUNCHES["gelu_operand_backward"]
+            == before["gelu_operand_backward"] + 1)
+    want_dz, want_db = go.gelu_operand_backward_ref(g, z, bias)
+    assert int(f32_ulps(dz, want_dz).max()) <= 2
+    torch.testing.assert_close(db, want_db, rtol=1e-5,
+                               atol=1e-5 * float(want_db.abs().max()))
+    again_dz, again_db = go.gelu_operand_backward(g, z, bias)
+    assert torch.equal(again_db, db) and torch.equal(again_dz, dz)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mlp_hidden", "mlp_out", "temporal_kv",
                                   "temporal_scores", "temporal_values"])
@@ -1299,6 +1344,8 @@ def test_refit_step_runs_bf16_products_on_tensor_cores(cuda_device, family,
     sgemm = [n for n in kernels if "f32f32" in n or "sgemm" in n]
     assert len(sgemm) <= len(f32), (sgemm, f32)
     assert any("hi_lo" in n for n in kernels)
+    assert any("gelu_operand_fwd" in n for n in kernels)
+    assert any("gelu_operand_bwd" in n for n in kernels)
 
 
 @pytest.mark.cuda
@@ -1307,14 +1354,17 @@ def test_device_tier_records_one_program_on_the_card_and_the_cpu(
     """Every registered device program's fingerprint on the card equals
     the CPU's, whose bf16 products take the card's route
     (``models.nn.card_route``): the same casts, one product
-    op a product and ``kernel:hi_lo`` a split; on the card the train
-    step's entry launches the split."""
+    op a product, ``kernel:hi_lo`` a split and ``kernel:gelu_operand``
+    (``_backward``) a hidden layer's boundary; on the card the train
+    step's entry launches the split and the boundary's pair."""
     from kepler_tpu_torch.analysis.device import DEVICE_PROGRAMS
     from kepler_tpu_torch.analysis.device.trace import (fingerprint,
                                                         trace_case)
+    from kepler_tpu_torch.ops import gelu_operand as go
     from kepler_tpu_torch.ops import hi_lo as hl
 
     before = hl.LAUNCHES["hi_lo"]
+    boundary = dict(go.LAUNCHES)
     for spec in DEVICE_PROGRAMS:
         for case in spec.cases:
             card = fingerprint(trace_case(spec, case, cuda_device))
@@ -1323,4 +1373,6 @@ def test_device_tier_records_one_program_on_the_card_and_the_cpu(
                 k: (card[k], cpu[k]) for k in card if card[k] != cpu[k]})
             if spec.name == "trainer.train_step":
                 assert card["ops"]["kernel:hi_lo"] > 0
+                assert card["ops"]["kernel:gelu_operand_backward"] > 0
     assert hl.LAUNCHES["hi_lo"] > before
+    assert all(go.LAUNCHES[k] > n for k, n in boundary.items())

@@ -239,7 +239,7 @@ def test_build_all_runs_one_nvcc_per_source_at_once(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "ok")
     libs = build.build_all()
     assert set(libs) == set(build.sources()) == {"attention", "attribution",
-                                                 "hi_lo"}
+                                                 "gelu_operand", "hi_lo"}
     assert all(path.exists() and path.parent == tmp_path / "ok"
                for path in libs.values())
     assert build.build_all() == libs  # built: nothing runs again
